@@ -8,16 +8,36 @@ Run from the root of a checkout, with no arguments::
 Phases, each printed with its wall time:
 
 0. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
-1. build every kernel of the main path from ``inplacedhmc_tpu_torch/csrc``
-   with ``nvcc`` (one process per source, all started together);
-2. hold each kernel against its plain PyTorch version at the main path's
-   full width and time the kernel, the plain version and one library
-   composition of the same function, beside the card's bound;
+1. build every kernel of the main paths from ``inplacedhmc_tpu_torch/csrc``
+   with ``nvcc`` (one process per source, all started together) and print
+   what ptxas reports of registers, spills and shared memory;
+2. hold each kernel against its plain PyTorch version at its main path's
+   full width and time the kernel, the plain version and, where there is
+   one, a library composition of the same function, beside the card's
+   bound: K1 (logistic value and gradient, 8192 x 10,000 x 50), K3 (the
+   fused Gaussian leapfrog, at 64 x 1000 as the lockstep run of phase 6
+   gives it, and at 10,240 x 100) and K5 (the whole-tree NUTS transition,
+   10,240 x 100, max_depth 10, at three step sizes);
 3. ``sample()`` on BASELINE config 3 (logistic regression, 10,000 x 50 data
    from a seed, 8192 chains, dense metric, a short warmup schedule, 128
-   draws) with every kernel's launch count reset just before and read just
-   after, and the posterior checked (finite draws, split R-hat, acceptance,
-   agreement of the posterior mean with the true coefficients).
+   draws) through K1;
+4. ``sample()`` on BASELINE config 1 (the 100-D standard normal) at 10,240
+   chains, default 900-transition warmup, 256 draws: the whole-tree route,
+   K5 once per transition;
+5. ``sample()`` on the same model at 64 chains (the examples' config 1 run:
+   default warmup, 1000 draws): the whole-tree route as well;
+6. ``sample()`` on the 1000-D standard normal at 64 chains, default warmup,
+   1000 draws: above the whole-tree kernel's D bound (256), so the lockstep
+   route with K3 as its leapfrog;
+7. the crossover between the two routes: one transition of the 100-D
+   standard normal at a fixed step size through each, at 1 to 10,240
+   chains; it fails if ``NUTSKernel.TREE_MIN_CHAINS`` contradicts the
+   timings.
+
+Each ``sample()`` phase resets every kernel's launch count just before the
+call and reads the counts just after, and checks the posterior (finite
+draws, split R-hat, acceptance; the coefficients' correlation for logistic
+regression, the moments within Monte Carlo error for the normal).
 
 It prints a ``{"kernels": [...]}`` line, the card's line, and as its last
 line ``{"ok": true, "device": {...}}``.  Any failure raises and the script
@@ -35,6 +55,22 @@ import time
 SEED = 20261017
 C, N, D = 8192, 10_000, 50        # chains, observations, features
 N_DRAWS = 128
+G_DIM = 100                       # BASELINE config 1: the 100-D std normal
+G_CHAINS, G_DRAWS = 10_240, 256   # the whole-tree route
+S_CHAINS, S_DRAWS = 64, 1000      # examples config 1: the whole-tree route
+W_DIM = 1000                      # above K5's D bound: the lockstep route
+CROSSOVER_CHAINS = (1, 4, 16, 64, 256, 1024, 10_240)
+MAX_DEPTH = 10
+# K5 against its plain version: both sides run the same f32 operations of
+# each leaf in the same order, so the trajectories agree bit for bit; only
+# the row sums (log density, kinetic energy, U-turn statistics) add their
+# 100 terms in another order, about 1e-7 relative.  A U-turn statistic or a
+# proposal's log-uniform test that falls within that of its threshold
+# decides the other way and changes that chain's records or proposal.  Such
+# ties have a probability of order 1e-6 per decision, a few thousand
+# decisions per chain at max depth: one chain in a thousand is allowed.
+TREE_MISMATCH_FRACTION = 1e-3
+TREE_RTOL = 1e-4  # float fields of the chains that agree, relative to 1 + |x|
 # K1 sums N = 1e4 f32 terms per chain in another order than the float64
 # reference: a random-walk rounding error of about sqrt(N) * 2^-24 = 6e-6 of
 # sum_n |term_n|, so logp is held to 1e-5 of that sum.  The gradient's
@@ -54,13 +90,18 @@ def card_line() -> str:
 
 
 def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of ``fn()`` over ``iters`` calls, by CUDA events."""
+    """Mean device time of ``fn()`` over ``iters`` calls, by CUDA events.
+    The stream first sleeps for about 30 ms, so that the host queues all
+    ``iters`` calls before the first one runs: the events then time the
+    device's work back to back, not the host's launch overhead.  ``fn`` must
+    not synchronise."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
     start.record()
     for _ in range(iters):
         fn()
@@ -69,15 +110,46 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def wall_ms(fn, iters: int = 5, warmup: int = 1) -> float:
+    """Mean wall time of ``fn()``, synchronised at both ends: for functions
+    whose host loop synchronises (the plain tree, a whole transition)."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def bound(flops: float, nbytes: float):
+    """The least time of the work on an H100 SXM, in ms, and what sets it:
+    the operations at the fp32 rate or the bytes at the memory rate."""
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
 def build_kernels():
-    """Build every kernel of the main path (K1, one nvcc call)."""
+    """Build every kernel of the main paths, one nvcc process per source,
+    all started together."""
+    from inplacedhmc_tpu_torch.ops.cuda_build import build_all
+    from inplacedhmc_tpu_torch.ops.leapfrog import LEAPFROG_GAUSSIAN
     from inplacedhmc_tpu_torch.ops.logistic import LOGISTIC_VG
-    LOGISTIC_VG.build()
-    print(f"[build] {LOGISTIC_VG.source}: {LOGISTIC_VG.build_seconds:.2f} s")
-    for line in LOGISTIC_VG.build_log.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            print(f"[build]   {line.strip()}")
-    return [LOGISTIC_VG]
+    from inplacedhmc_tpu_torch.ops.tree import TREE_GAUSSIAN
+    kernels = [LOGISTIC_VG, LEAPFROG_GAUSSIAN, TREE_GAUSSIAN]
+    build_all(kernels)
+    for k in kernels:
+        print(f"[build] {k.source}: {k.build_seconds:.2f} s")
+        for line in k.build_log.splitlines():
+            if "Compiling entry" in line:
+                name = line.split("'")[1] if "'" in line else line
+                print(f"[build]   {name[:110]}")
+            if "registers" in line or "spill" in line or "smem" in line:
+                print(f"[build]   {line.strip()}")
+    return kernels
 
 
 def _library_logistic(q, x, y, w, s2):
@@ -144,9 +216,7 @@ def check_logistic_kernel(card: str) -> dict:
     library_ms = cuda_time_ms(lambda: _library_logistic(qf, x, y, w, s2))
     flops = 4.0 * C * N * D
     nbytes = 4.0 * (C * D + N * D + 2 * N) + 4.0 * (C + C * D)
-    bound_ms = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES) * 1e3
-    bound_by = ("operations" if flops / PEAK_FP32_FLOPS >= nbytes / PEAK_BYTES
-                else "bytes")
+    bound_ms, bound_by = bound(flops, nbytes)
     print(f"[k1] {card}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
           f"library {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
           f"({bound_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB), "
@@ -157,6 +227,232 @@ def check_logistic_kernel(card: str) -> dict:
             "launches": None, "max_abs_err": abs_err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms}
+
+
+def _library_leapfrog(q, p, eps, lam, minv):
+    """A torch composition of the same step: fused multiply-adds (addcmul)
+    and row dot products (vecdot).  A yardstick only; the port never calls
+    it."""
+    import torch
+    half = (0.5 * eps)[:, None]
+    p_mid = torch.addcmul(p, half, lam * q, value=-1.0)
+    q_new = torch.addcmul(q, eps[:, None], minv * p_mid)
+    grad = -(lam * q_new)
+    p_new = torch.addcmul(p_mid, half, grad)
+    psharp = minv * p_new
+    return (q_new, p_new, grad, -0.5 * torch.linalg.vecdot(lam * q_new, q_new),
+            0.5 * torch.linalg.vecdot(p_new, psharp), psharp)
+
+
+def leapfrog_case(card: str, c: int, d: int, seed: int) -> dict:
+    """K3 against its plain version at c x d, with a non-identity diagonal
+    metric and step sizes of both signs, timed beside the plain version, a
+    torch composition and the bound."""
+    import torch
+
+    from inplacedhmc_tpu_torch.ops.leapfrog import (
+        LEAPFROG_GAUSSIAN, fused_gaussian_leapfrog,
+        fused_gaussian_leapfrog_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    lam = torch.ones((d,), device="cuda")
+    minv = 0.5 + torch.rand((d,), generator=gen, device="cuda")
+    q = torch.randn((c, d), generator=gen, device="cuda")
+    p = torch.randn((c, d), generator=gen, device="cuda") / minv.sqrt()
+    eps = 0.3 * torch.where(torch.rand((c,), generator=gen, device="cuda")
+                            < 0.5, 1.0, -1.0)
+    before = LEAPFROG_GAUSSIAN.launches
+    got = fused_gaussian_leapfrog(q, p, eps, lam, minv)
+    torch.cuda.synchronize()
+    if LEAPFROG_GAUSSIAN.launches != before + 1:
+        raise RuntimeError("the wrapper did not launch K3 on a CUDA tensor")
+    want = fused_gaussian_leapfrog_plain(q, p, eps, lam, minv)
+    # the vectors are the same f32 operations in the same order (no FMA
+    # contraction in the kernel): equal to 1e-6 relative; the row sums add
+    # D terms in another order: 1e-5 of the sum of |terms|
+    q_new, p_new = want[0], want[1]
+    scales = ((lam * q_new * q_new).abs().sum(1),
+              (p_new * minv * p_new).abs().sum(1))
+    abs_err = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        err = (g - w).abs()
+        abs_err = max(abs_err, err.max().item())
+        lim = 1e-5 * scales[i - 3] if i in (3, 4) else 1e-6 * w.abs()
+        if not bool((err <= lim).all()):
+            raise RuntimeError(f"K3 output {i} disagrees with its plain "
+                               f"version at {c} x {d} (max abs err "
+                               f"{err.max().item():.3e})")
+    ms = cuda_time_ms(lambda: fused_gaussian_leapfrog(q, p, eps, lam, minv))
+    plain_ms = cuda_time_ms(
+        lambda: fused_gaussian_leapfrog_plain(q, p, eps, lam, minv))
+    library_ms = cuda_time_ms(lambda: _library_leapfrog(q, p, eps, lam, minv))
+    # q, p in; q', p', grad', p#' out (the TPU kernel's 6 [C, D] arrays),
+    # plus the [C] and [D] vectors; 12 flops per element (its cost estimate)
+    nbytes = 4.0 * (6 * c * d + 3 * c + 2 * d)
+    bound_ms, bound_by = bound(12.0 * c * d, nbytes)
+    print(f"[k3] {c} x {d}: max abs err {abs_err:.3e}; {card}: kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch composition "
+          f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
+          f"{nbytes / 1e6:.3f} MB), {nbytes / ms / 1e6:.1f} GB/s achieved")
+    return {"name": "fused_gaussian_leapfrog", "route": "cuda",
+            "source": "inplacedhmc_tpu_torch/csrc/leapfrog_gaussian.cu",
+            "replaces": "inplacedhmc_tpu/ops/leapfrog_pallas.py:38",
+            "launches": None, "max_abs_err": abs_err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
+def check_leapfrog_kernel(card: str) -> dict:
+    """K3 at the shape its main path gives it (the lockstep run of the
+    1000-D normal at 64 chains: one [64, 1000] step per leaf), and at
+    10,240 x 100 as an extra check of a bandwidth-sized launch.  Returns
+    the main path's case."""
+    main = leapfrog_case(card, S_CHAINS, W_DIM, SEED + 2)
+    leapfrog_case(card, G_CHAINS, G_DIM, SEED + 5)
+    return main
+
+
+def tree_bound(c: int, d: int, out) -> tuple:
+    """K5's bound for one launch on these inputs: about 25 D flops per
+    leapfrog leaf (the update 8, the two row sums 5, the guards 4, the
+    momentum sum 1, the expected single U-turn level 5, the p# 1, and the
+    selects) over the steps this data needs; the bytes of q0, p0, eps,
+    dirs, lam, minv in, the uniforms the trees read (one per leaf and one
+    per successful doubling) and q, grad and the eight [C] records out."""
+    steps = float(out.steps.sum())
+    flops = 25.0 * d * steps
+    nbytes = 4.0 * (2 * c * d + 2 * c + 2 * d) \
+        + 4.0 * (steps + float(out.depth.sum())) + 4.0 * (2 * c * d + 8 * c)
+    return (*bound(flops, nbytes), steps)
+
+
+def compare_tree(got, want, label: str) -> float:
+    """K5 against its plain version: the chains whose integer fields differ,
+    or whose float fields differ beyond TREE_RTOL, may be at most
+    TREE_MISMATCH_FRACTION of all; returns the largest absolute difference
+    over the other chains."""
+    import torch
+    c = got.q.shape[0]
+    bad = torch.zeros((c,), dtype=torch.bool, device=got.q.device)
+    for f in ("term", "term_left", "term_right", "depth", "steps"):
+        bad |= getattr(got, f) != getattr(want, f)
+    n_int = int(bad.sum())
+    diffs = {}
+    for f in ("q", "logp", "grad", "energy", "log_sum_alpha"):
+        g, w = getattr(got, f), getattr(want, f)
+        same = (g == w) | ((g - w).abs() <= TREE_RTOL * (1 + w.abs()))
+        if same.ndim == 2:
+            same = same.all(dim=1)
+        bad |= ~same
+        diffs[f] = torch.where(g == w, torch.zeros_like(g), (g - w).abs())
+    n_bad = int(bad.sum())
+    ok = ~bad
+    abs_err = max((v[ok].max().item() if bool(ok.any()) else 0.0)
+                  for v in diffs.values())
+    print(f"[k5] {label}: {n_int} chains of {c} differ in the integer fields, "
+          f"{n_bad - n_int} more in a float field beyond {TREE_RTOL:g} "
+          f"(allowed {TREE_MISMATCH_FRACTION:g} of all); max abs err "
+          f"{abs_err:.3e} on the rest; terminations "
+          f"{torch.bincount(want.term.long(), minlength=3).tolist()} "
+          f"(max depth, divergence, turning), depth mean "
+          f"{want.depth.double().mean().item():.3f}")
+    if n_bad > TREE_MISMATCH_FRACTION * c:
+        raise RuntimeError(f"K5 disagrees with its plain version ({label})")
+    return abs_err
+
+
+def check_tree_kernel(card: str) -> None:
+    """K5 against its plain version at 10,240 x 100, max_depth 10, with the
+    same q0, p0, directions and uniforms at three step sizes: 0.3 (trees of
+    mixed depths that end in U-turns), 1.8 (divergences, since the largest
+    M^-1 makes the step unstable) and 0.002 (every tree reaches max depth)."""
+    import torch
+
+    from inplacedhmc_tpu_torch.ops.tree import (
+        TREE_GAUSSIAN, direction_words_int32, gaussian_tree_transition,
+        gaussian_tree_transition_plain, n_uniforms)
+
+    c, d, md = G_CHAINS, G_DIM, MAX_DEPTH
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    lam = torch.ones((d,), device="cuda")
+    minv = 0.5 + torch.rand((d,), generator=gen, device="cuda")
+    q0 = torch.randn((c, d), generator=gen, device="cuda")
+    p0 = torch.randn((c, d), generator=gen, device="cuda") / minv.sqrt()
+    dirs = torch.randint(0, 2 ** 32, (c,), generator=gen, dtype=torch.int64,
+                         device="cuda")
+    d32 = direction_words_int32(dirs)
+    unif = torch.rand((n_uniforms(md), c), generator=gen, device="cuda")
+    print(f"[k5] checkpoint stacks: {2 * md * d * 4} bytes of dynamic shared "
+          f"memory per chain (one warp), up to 4 chains per block")
+    for eps in (0.3, 1.8, 0.002):
+        e = torch.full((c,), eps, device="cuda")
+        before = TREE_GAUSSIAN.launches
+        got = gaussian_tree_transition(q0, p0, e, d32, unif, lam, minv, md,
+                                       -1000.0)
+        torch.cuda.synchronize()
+        if TREE_GAUSSIAN.launches != before + 1:
+            raise RuntimeError("the wrapper did not launch K5 on a CUDA "
+                               "tensor")
+        want = gaussian_tree_transition_plain(q0, p0, e, dirs, unif, lam,
+                                              minv, md, -1000.0)
+        compare_tree(got, want, f"eps {eps}")
+        iters = 3 if eps < 0.01 else 20
+        ms = cuda_time_ms(lambda: gaussian_tree_transition(
+            q0, p0, e, d32, unif, lam, minv, md, -1000.0), iters)
+        bound_ms, bound_by, steps = tree_bound(c, d, want)
+        print(f"[k5] eps {eps} on {card}: kernel {ms:.4f} ms; "
+              f"{steps:.0f} leapfrog steps, {steps / ms * 1e3:.4g} steps/s; "
+              f"bound {bound_ms:.4f} ms ({bound_by})")
+
+
+def tree_at_state(card: str, res) -> dict:
+    """K5 timed on the state the whole-tree run ended in (its tuned eps and
+    metric, a fresh momentum, directions and uniforms), against its plain
+    version on the same inputs; and the host's cost of drawing the
+    uniforms."""
+    import torch
+
+    from inplacedhmc_tpu_torch.core.metric import sample_momentum
+    from inplacedhmc_tpu_torch.ops.tree import (
+        direction_words_int32, gaussian_tree_transition,
+        gaussian_tree_transition_plain, n_uniforms)
+
+    ws = res.warmup_state
+    q0 = ws.z.q.contiguous()
+    c, d, md = q0.shape[0], q0.shape[1], MAX_DEPTH
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    p0 = sample_momentum(ws.metric, gen, q0.shape, q0.dtype)
+    dirs = torch.randint(0, 2 ** 32, (c,), generator=gen, dtype=torch.int64,
+                         device="cuda")
+    d32 = direction_words_int32(dirs)
+    unif = torch.rand((n_uniforms(md), c), generator=gen, device="cuda")
+    e = torch.exp(ws.log_eps).expand(c).contiguous()
+    lam = torch.ones((d,), device="cuda")
+    minv = ws.metric.inv.contiguous()
+    args = (q0, p0, e, d32, unif, lam, minv, md, -1000.0)
+    got = gaussian_tree_transition(*args)
+    want = gaussian_tree_transition_plain(q0, p0, e, dirs, unif, lam, minv,
+                                          md, -1000.0)
+    abs_err = compare_tree(got, want,
+                           f"{c} chains, tuned eps {float(e[0]):.4g}")
+    ms = cuda_time_ms(lambda: gaussian_tree_transition(*args))
+    plain_ms = wall_ms(lambda: gaussian_tree_transition_plain(
+        q0, p0, e, dirs, unif, lam, minv, md, -1000.0), iters=2)
+    bound_ms, bound_by, steps = tree_bound(c, d, want)
+    unif_ms = cuda_time_ms(lambda: torch.rand((n_uniforms(md), c),
+                                              generator=gen, device="cuda"))
+    print(f"[k5] {c} chains at the tuned state on {card}: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.2f} ms (wall: its host loop synchronises), bound "
+          f"{bound_ms:.4g} ms ({bound_by}); {steps:.0f} steps, "
+          f"{steps / ms * 1e3:.4g} steps/s; drawing the "
+          f"[{n_uniforms(md)}, {c}] uniforms {unif_ms:.4f} ms of device "
+          f"time ({4 * n_uniforms(md) * c / 1e6:.1f} MB)")
+    return {"name": "gaussian_tree_transition", "route": "cuda",
+            "source": "inplacedhmc_tpu_torch/csrc/tree_gaussian.cu",
+            "replaces": "inplacedhmc_tpu/ops/tree_pallas.py:92",
+            "launches": None, "max_abs_err": abs_err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
 
 
 class StageTimer:
@@ -215,6 +511,8 @@ def run_sample(card: str, kernels) -> dict:
           f"(lockstep leapfrog steps >= {min_launches})")
     if launches["logistic_vg.cu"] < min_launches:
         raise RuntimeError("the main path did not go through K1")
+    if launches["leapfrog_gaussian.cu"] or launches["tree_gaussian.cu"]:
+        raise RuntimeError("the logistic path launched a Gaussian kernel")
 
     draws = res.draws
     if tuple(draws.shape) != (N_DRAWS, C, D) \
@@ -243,6 +541,134 @@ def run_sample(card: str, kernels) -> dict:
     return launches
 
 
+def run_gaussian_sample(card: str, kernels, dim: int, n_chains: int,
+                        n_draws: int, route: str):
+    """``sample()`` on the ``dim``-D standard normal with the default warmup,
+    through ``route`` ("tree": K5 once per transition and nothing else;
+    "lockstep": K3 once per lockstep leaf and nothing else), with the
+    posterior checked: finite draws, split R-hat < 1.05, mean acceptance in
+    [0.6, 0.95], and every coordinate's mean and variance within five Monte
+    Carlo standard errors of 0 and 1 (from the draws' own ESS, of q and of
+    q^2)."""
+    import torch
+
+    from inplacedhmc_tpu_torch import (NUTSKernel, TuningNUTS,
+                                       default_warmup_stages, sample)
+    from inplacedhmc_tpu_torch import diagnostics as diag
+    from inplacedhmc_tpu_torch.models import std_normal
+
+    model = std_normal(dim, device="cuda")
+    n_warm = sum(s.n for s in default_warmup_stages()
+                 if isinstance(s, TuningNUTS))
+    timer = StageTimer()
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    res = sample(SEED, model, n_draws, n_chains, reporter=timer,
+                 device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.source: k.launches for k in kernels}
+    tag = f"[{route} {n_chains} x {dim}]"
+    for name, sec in timer.stages:
+        print(f"{tag} {name}: {sec:.2f} s on {card}")
+    print(f"{tag} total {wall:.2f} s on {card}; launches {launches} "
+          f"(TREE_MIN_CHAINS {NUTSKernel.TREE_MIN_CHAINS})")
+    sample_s = timer.stages[-1][1]
+    stats, wstats = res.stats, res.warmup_stats
+    n_trans = n_warm + n_draws
+    if route == "tree":
+        ok = (launches["tree_gaussian.cu"] == n_trans
+              and launches["leapfrog_gaussian.cu"] == 0)
+    else:
+        leaves = int(stats.steps.amax(dim=1).sum()
+                     + wstats.steps.amax(dim=1).sum())
+        print(f"{tag} K3 launches {launches['leapfrog_gaussian.cu']} "
+              f"(lockstep leaves >= {leaves})")
+        ok = (launches["leapfrog_gaussian.cu"] >= leaves > 0
+              and launches["tree_gaussian.cu"] == 0)
+    if not ok or launches["logistic_vg.cu"]:
+        raise RuntimeError(f"the {route} path did not go through its kernel "
+                           f"alone: {launches}")
+
+    draws = res.draws
+    if tuple(draws.shape) != (n_draws, n_chains, dim) \
+            or not bool(torch.isfinite(draws).all()):
+        raise RuntimeError("draws are not finite or not [n_draws, C, D]")
+    x = draws.double()
+    rhat = diag.split_rhat(x).max().item()
+    ess = diag.ess_bulk(x, cap=False)
+    ess_sq = diag.ess_bulk(x * x, cap=False)
+    accept = stats.acceptance_rate.double().mean().item()
+    mean_z = (x.mean(dim=(0, 1)) / torch.sqrt(1.0 / ess)).abs().max().item()
+    var_z = ((x * x).mean(dim=(0, 1)) - x.mean(dim=(0, 1)) ** 2 - 1.0).abs() \
+        / torch.sqrt(2.0 / ess_sq)
+    var_z = var_z.max().item()
+    chain_steps = int(stats.steps.sum())
+    print(f"{tag} eps {torch.exp(res.warmup_state.log_eps).item():.5g}, "
+          f"split R-hat max {rhat:.4f}, acceptance mean {accept:.4f}, "
+          f"max |mean| / SE {mean_z:.3f}, max |var - 1| / SE {var_z:.3f}")
+    print(f"{tag} {card}: {chain_steps / sample_s:.4g} leapfrog steps/s "
+          f"(chain steps while sampling / sampling wall), ess_bulk min "
+          f"{ess.min().item():.4g} -> {ess.min().item() / sample_s:.4g} ESS/s")
+    print(diag.summarize_tree_statistics(stats))
+    if not rhat < 1.05:
+        raise RuntimeError(f"split R-hat {rhat} >= 1.05")
+    if not 0.6 <= accept <= 0.95:
+        raise RuntimeError(f"mean acceptance {accept} outside [0.6, 0.95]")
+    if not (mean_z < 5 and var_z < 5):
+        raise RuntimeError("posterior moments outside 5 Monte Carlo SE")
+    return res, launches, sample_s
+
+
+def crossover(card: str, eps: float = 0.3) -> None:
+    """Wall time of one transition of the 100-D standard normal at a fixed
+    eps and the identity metric through each route, at each of
+    ``CROSSOVER_CHAINS``; fails unless the whole tree was the faster exactly
+    at the counts from ``NUTSKernel.TREE_MIN_CHAINS`` up."""
+    import torch
+
+    from inplacedhmc_tpu_torch import NUTSKernel, identity_metric
+    from inplacedhmc_tpu_torch.core.hamiltonian import (
+        batched_logdensity_and_grad, evaluate)
+    from inplacedhmc_tpu_torch.models import std_normal
+    from inplacedhmc_tpu_torch.nuts.tree import nuts_transition
+    from inplacedhmc_tpu_torch.ops.leapfrog import \
+        make_fused_gaussian_leapfrog
+    from inplacedhmc_tpu_torch.ops.tree import make_gaussian_tree_transition
+
+    model = std_normal(G_DIM, device="cuda")
+    prec = model.structure["precision"]
+    metric = identity_metric(G_DIM, device="cuda")
+    pot = batched_logdensity_and_grad(model.logp)
+    trans = make_gaussian_tree_transition(prec, metric, max_depth=MAX_DEPTH)
+    step = make_fused_gaussian_leapfrog(prec, metric.inv)
+
+    def step_fn(q, p, g, lp, e):
+        return step(q, p, e)
+
+    faster = {}
+    for c in CROSSOVER_CHAINS:
+        gen = torch.Generator(device="cuda").manual_seed(SEED + c)
+        z = evaluate(pot, torch.randn((c, G_DIM), generator=gen,
+                                      device="cuda"))
+        k5 = wall_ms(lambda: trans(gen, z, eps), iters=10, warmup=2)
+        k3 = wall_ms(lambda: nuts_transition(
+            gen, pot, metric, z, eps, max_depth=MAX_DEPTH, step_fn=step_fn),
+            iters=3, warmup=1)
+        faster[c] = "K5" if k5 < k3 else "K3"
+        print(f"[crossover] {c} chains, eps {eps} on {card}: whole tree (K5) "
+              f"{k5:.3f} ms, lockstep + K3 {k3:.3f} ms per transition "
+              f"({k3 / k5:.1f}x)")
+    tmc = NUTSKernel.TREE_MIN_CHAINS
+    agree = all((v == "K5") == (c >= tmc) for c, v in faster.items())
+    print(f"[crossover] TREE_MIN_CHAINS {tmc}; faster route by chain count: "
+          f"{faster}")
+    if not agree:
+        raise RuntimeError(f"NUTSKernel.TREE_MIN_CHAINS = {tmc} contradicts "
+                           f"the timings: {faster}")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -259,15 +685,42 @@ def main() -> int:
     print(f"[phase] build {time.perf_counter() - t:.2f} s")
     t = time.perf_counter()
     k1 = check_logistic_kernel(card)
-    print(f"[phase] kernel check {time.perf_counter() - t:.2f} s")
+    k3 = check_leapfrog_kernel(card)
+    check_tree_kernel(card)
+    print(f"[phase] kernel checks {time.perf_counter() - t:.2f} s")
     t = time.perf_counter()
     launches = run_sample(card, kernels)
-    print(f"[phase] sample {time.perf_counter() - t:.2f} s")
     k1["launches"] = launches["logistic_vg.cu"]
     print(f"[sample] K1 device time about {k1['launches']} x {k1['ms']:.4f} "
           f"ms = {k1['launches'] * k1['ms'] / 1e3:.2f} s of sample()'s wall")
+    print(f"[phase] logistic sample {time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
+    res, launches, sample_s = run_gaussian_sample(
+        card, kernels, G_DIM, G_CHAINS, G_DRAWS, "tree")
+    k5 = tree_at_state(card, res)
+    k5["launches"] = launches["tree_gaussian.cu"]
+    print(f"[tree {G_CHAINS}] K5 device time {G_DRAWS} x {k5['ms']:.4f} ms "
+          f"= {G_DRAWS * k5['ms'] / 1e3:.3f} s of the {sample_s:.3f} s "
+          f"sampling wall")
+    del res
+    print(f"[phase] whole-tree sample {time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
+    res, _, _ = run_gaussian_sample(card, kernels, G_DIM, S_CHAINS, S_DRAWS,
+                                    "tree")
+    tree_at_state(card, res)
+    del res
+    print(f"[phase] whole-tree sample, {S_CHAINS} chains "
+          f"{time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
+    _, launches, _ = run_gaussian_sample(card, kernels, W_DIM, S_CHAINS,
+                                         S_DRAWS, "lockstep")
+    k3["launches"] = launches["leapfrog_gaussian.cu"]
+    print(f"[phase] lockstep sample {time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
+    crossover(card)
+    print(f"[phase] crossover {time.perf_counter() - t:.2f} s")
     print(f"[phase] total {time.perf_counter() - t_start:.2f} s")
-    print(json.dumps({"kernels": [k1]}))
+    print(json.dumps({"kernels": [k1, k3, k5]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

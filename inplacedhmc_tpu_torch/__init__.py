@@ -3,9 +3,11 @@ with windowed warmup, for an NVIDIA H100.
 
 The JAX package stays the reference; this package imports none of it.  Its
 entry points run on the card (``device="cuda"``) unless the caller asks for
-the CPU.  The fused logistic-regression potential runs through a CUDA kernel
-written by hand for Hopper (``csrc/logistic_vg.cu``), built by ``nvcc`` on
-first use.
+the CPU.  Three CUDA kernels written by hand for Hopper, built by ``nvcc``
+on first use, carry the main paths: the fused logistic-regression potential
+(``csrc/logistic_vg.cu``), the whole NUTS transition for diagonal-Gaussian
+targets (``csrc/tree_gaussian.cu``) and the fused Gaussian leapfrog step
+(``csrc/leapfrog_gaussian.cu``).
 """
 
 from .config import (DualAveraging, FindLocalOptimum, FixedStepsize,

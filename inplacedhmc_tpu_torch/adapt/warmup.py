@@ -7,9 +7,14 @@ transitions becomes a Python loop; every random draw comes from the
 
 Pooled adaptation (one step size on the cross-chain mean acceptance, one
 metric from all chains' draws) and independent per-chain adaptation are both
-supported.  Not ported yet: streamed metric moments, chunked tuning windows,
-work-sorted scheduling, the whole-tree sweep runner and split-moment
-sampling.
+supported.  A tuning window and the sampling loop may run each transition
+through a fused kernel: ``transition_factory(metric, n_chains)`` returns a
+whole-tree transition (or ``None``), ``step_factory(metric)`` a fused
+leapfrog ``step_fn`` for the lockstep tree (or ``None``).  Each factory is
+called once per window with the window's metric, so a metric re-estimate
+rebuilds the closure.  Not ported yet: streamed metric moments, chunked
+tuning windows, work-sorted scheduling, the whole-tree sweep runner and
+split-moment sampling.
 """
 
 from __future__ import annotations
@@ -109,6 +114,33 @@ def run_stepsize_search(gen: torch.Generator, potential: Callable,
     return WarmupState(z=state.z, metric=state.metric, log_eps=log_eps)
 
 
+def _one_transition(gen: torch.Generator, z: EvalPoint, eps, *,
+                    metric: Metric, potential: Callable, algorithm: NUTS,
+                    fused_trans: Optional[Callable],
+                    fused_step: Optional[Callable]):
+    """One NUTS transition: through the whole-tree transition when there is
+    one, else the lockstep tree (with the fused leapfrog as its ``step_fn``
+    when there is one).  The single definition shared by the tuning and the
+    sampling loops."""
+    if fused_trans is not None:
+        return fused_trans(gen, z, eps)
+    return nuts_transition(gen, potential, metric, z, eps,
+                           max_depth=algorithm.max_depth,
+                           min_delta=algorithm.min_delta, step_fn=fused_step)
+
+
+def _fused(state: WarmupState, step_factory: Optional[Callable],
+           transition_factory: Optional[Callable]):
+    """The window's fused step and whole-tree transition, built from its
+    metric."""
+    fused_step = (step_factory(state.metric)
+                  if step_factory is not None else None)
+    fused_trans = (transition_factory(state.metric, state.z.q.shape[0])
+                   if transition_factory is not None else None)
+    return dict(metric=state.metric, fused_step=fused_step,
+                fused_trans=fused_trans)
+
+
 class TuningResult(NamedTuple):
     state: WarmupState
     draws: torch.Tensor    # [N, C, D]
@@ -122,7 +154,9 @@ def _stack_stats(stats) -> TreeStats:
 
 def run_tuning(gen: torch.Generator, potential: Callable, stage: TuningNUTS,
                algorithm: NUTS, state: WarmupState,
-               pooled: bool = False) -> TuningResult:
+               pooled: bool = False,
+               step_factory: Optional[Callable] = None,
+               transition_factory: Optional[Callable] = None) -> TuningResult:
     """One tuning window: ``stage.n`` NUTS transitions with a dual-averaging
     update after each, then the optional metric re-estimate from the
     window's draws."""
@@ -136,11 +170,11 @@ def run_tuning(gen: torch.Generator, potential: Callable, stage: TuningNUTS,
     draws = torch.empty((n,) + tuple(z.q.shape), dtype=z.q.dtype,
                         device=z.q.device)
     stats, eps_log = [], []
+    kw = _fused(state, step_factory, transition_factory)
     for i in range(n):
         eps = da_current_eps(da) if adapting else eps0
-        z, st = nuts_transition(gen, potential, state.metric, z, eps,
-                                max_depth=algorithm.max_depth,
-                                min_delta=algorithm.min_delta)
+        z, st = _one_transition(gen, z, eps, potential=potential,
+                                algorithm=algorithm, **kw)
         if adapting:
             a = st.acceptance_rate
             da = da_update(stage.stepsize_adaptation, da,
@@ -173,7 +207,10 @@ class SamplingResult(NamedTuple):
 
 
 def run_sampling(gen: torch.Generator, potential: Callable, algorithm: NUTS,
-                 state: WarmupState, n_draws: int) -> SamplingResult:
+                 state: WarmupState, n_draws: int,
+                 step_factory: Optional[Callable] = None,
+                 transition_factory: Optional[Callable] = None
+                 ) -> SamplingResult:
     """The post-warmup loop: fixed eps and metric, ``n_draws`` transitions,
     positions and tree statistics recorded."""
     eps = torch.exp(state.log_eps)
@@ -181,10 +218,10 @@ def run_sampling(gen: torch.Generator, potential: Callable, algorithm: NUTS,
     draws = torch.empty((n_draws,) + tuple(z.q.shape), dtype=z.q.dtype,
                         device=z.q.device)
     stats = []
+    kw = _fused(state, step_factory, transition_factory)
     for i in range(n_draws):
-        z, st = nuts_transition(gen, potential, state.metric, z, eps,
-                                max_depth=algorithm.max_depth,
-                                min_delta=algorithm.min_delta)
+        z, st = _one_transition(gen, z, eps, potential=potential,
+                                algorithm=algorithm, **kw)
         draws[i] = z.q
         stats.append(st)
     return SamplingResult(z=z, draws=draws, stats=_stack_stats(stats))

@@ -1,10 +1,11 @@
 """Carry the JAX package's model data and sampler state across as numpy.
 
-This system has no weights: a logistic model's data and a warmup state
-(positions, metric, step size) take their place.  :func:`model_from_numpy`
-and :func:`warmup_state_from_numpy` turn the numpy arrays of a JAX
-``Model.structure`` and ``WarmupState`` into the port's objects;
-:func:`warmup_state_to_numpy` goes back.  This module imports nothing of the
+This system has no weights: a model's data (a logistic model's design and
+labels, a Gaussian model's precision) and a warmup state (positions, metric,
+step size) take their place.  :func:`model_from_numpy`,
+:func:`gaussian_model_from_numpy` and :func:`warmup_state_from_numpy` turn
+the numpy arrays of a JAX ``Model.structure`` and ``WarmupState`` into the
+port's objects; :func:`warmup_state_to_numpy` goes back.  This module imports nothing of the
 JAX package: the caller converts with ``numpy.asarray``.
 """
 
@@ -19,6 +20,7 @@ from .core.hamiltonian import evaluate
 from .core.metric import DenseMetric, dense_metric, diag_metric
 from .core.state import WarmupState
 from .models.base import Model
+from .models.gaussian import diag_gaussian_model
 from .models.logistic import logistic_regression
 
 
@@ -28,6 +30,15 @@ def model_from_numpy(x, y, inv_var: float, device="cuda") -> Model:
     return logistic_regression(np.asarray(x), np.asarray(y),
                                prior_scale=float(inv_var) ** -0.5,
                                device=device)
+
+
+def gaussian_model_from_numpy(precision, device="cuda") -> Model:
+    """The port's diagonal-Gaussian model from the ``precision [D]`` of a JAX
+    ``{"kind": "diag_gaussian"}`` structure, kept bit for bit (a numpy array
+    becomes float32)."""
+    prec = torch.as_tensor(np.array(precision, dtype=np.float32),
+                           device=device)
+    return diag_gaussian_model(f"diag_gaussian_{prec.shape[0]}", prec)
 
 
 def warmup_state_from_numpy(q, metric_inv, log_eps, device="cuda", *,

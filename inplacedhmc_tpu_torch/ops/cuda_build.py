@@ -12,6 +12,7 @@ nothing here runs on the CPU path.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import hashlib
 import os
@@ -110,3 +111,11 @@ class CudaKernel:
         if rc != 0:
             raise RuntimeError(f"{self.symbol} failed with cudaError_t {rc}")
         self.launches += 1
+
+
+def build_all(kernels: Sequence[CudaKernel]) -> None:
+    """Build every kernel's library at once: one ``nvcc`` process per source,
+    all started together, so the builds take about as long as the slowest."""
+    with concurrent.futures.ThreadPoolExecutor(max(len(kernels), 1)) as pool:
+        for job in [pool.submit(k.build) for k in kernels]:
+            job.result()

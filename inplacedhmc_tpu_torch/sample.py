@@ -3,8 +3,11 @@
 The port's counterpart of ``inplacedhmc_tpu/sample.py``:
 
 * :class:`NUTSKernel` holds one (model, algorithm, adaptation) configuration
-  and picks the potential: the fused logistic kernel for a model whose
-  ``structure`` is ``{"kind": "logistic", ...}``, autograd otherwise.
+  and picks the kernels as the JAX package's "auto" policy does: the fused
+  logistic potential for ``structure["kind"] == "logistic"``; for
+  ``"diag_gaussian"`` the whole-tree kernel where it takes the problem and
+  the lockstep tree with the fused Gaussian leapfrog elsewhere; autograd of
+  ``model.logp`` otherwise.
 * :func:`mcmc_with_warmup` runs the windowed warmup, then sampling.
 * :func:`sample` is the pooled-adaptation entry point.
 
@@ -15,7 +18,9 @@ no global RNG state is used.
 Not ported yet, and refused with ``NotImplementedError``: meshes,
 checkpoints, sketches and streamed moments, chunked tuning and blocked
 sampling, thinning, ``keep_dims``, ``post_step`` hooks, work-sorted
-scheduling, and the whole-tree kernel (``use_kernels`` / ``tree_opts``).
+scheduling, and the options of the kernels (``use_kernels``, ``tree_opts``,
+``fused_opts``).  The whole-tree kernel is ported for ``diag_gaussian``
+models only.
 """
 
 from __future__ import annotations
@@ -31,10 +36,13 @@ from .config import (DualAveraging, FindLocalOptimum, InitialStepsizeSearch,
                      NUTS, StepsizeCollapseError, TuningNUTS,
                      default_warmup_stages)
 from .core.hamiltonian import batched_logdensity_and_grad
-from .core.metric import Metric
+from .core.metric import DiagMetric, Metric
 from .core.state import Termination, TreeStats, WarmupState
 from .models.base import Model
+from .ops.leapfrog import make_fused_gaussian_leapfrog
 from .ops.logistic import make_logistic_potential
+from .ops.tree import make_gaussian_tree_transition
+from .ops.tree import takes as tree_takes
 
 
 class MCMCResult(NamedTuple):
@@ -115,27 +123,72 @@ def _check_eps_sane(log_eps, where: str, stats: Optional[TreeStats] = None):
         f"{EPS_SANE_MAX:g}]){detail}")
 
 
+def _f32_diag(metric: Metric) -> bool:
+    """One shared float32 diagonal metric: what the Gaussian kernels take."""
+    return (isinstance(metric, DiagMetric) and metric.inv.ndim == 1
+            and metric.inv.dtype == torch.float32)
+
+
 class NUTSKernel:
     """Sampling for one (model, algorithm, adaptation) configuration.
 
-    A logistic-regression model (``structure["kind"] == "logistic"``) is
-    evaluated through the fused kernel wrapper (``ops/logistic.py``: the CUDA
-    kernel on the card, its plain version on the CPU), as the JAX "auto"
-    policy keeps logistic on the lockstep tree with the fused potential; any
-    other model through autograd of ``model.logp``.
+    The kernels follow the JAX package's "auto" policy
+    (``inplacedhmc_tpu/sample.py``); each wrapper runs its CUDA kernel on the
+    card and its plain version on the CPU:
+
+    * ``structure["kind"] == "logistic"``: the fused potential
+      (``ops/logistic.py``) on the lockstep tree;
+    * ``"diag_gaussian"``: with a shared float32 diagonal metric, the
+      whole-tree transition (``ops/tree.py``) when there are at least
+      ``TREE_MIN_CHAINS`` chains and the kernel takes the dimension and the
+      uniform array of ``max_depth`` (``ops.tree.takes``), else the lockstep
+      tree with the fused Gaussian leapfrog (``ops/leapfrog.py``) as its
+      ``step_fn``; the factories are called once per tuning window and for
+      the sampling loop, with that stage's metric;
+    * any other model: autograd of ``model.logp``.
     """
+
+    #: chains from which a ``diag_gaussian`` model runs the whole-tree
+    #: kernel.  Set from the crossover measured on the card by
+    #: ``chip_smoke.py`` (PERF.md), not from the TPU's 4096: the whole tree
+    #: was faster at every chain count timed, down to one chain.
+    TREE_MIN_CHAINS = 1
 
     def __init__(self, model: Model, algorithm: NUTS = NUTS(),
                  pooled: bool = True):
         self.model = model
         self.algorithm = algorithm
         self.pooled = pooled
+        self.step_factory = None
+        self.transition_factory = None
         st = model.structure
-        if st is not None and st.get("kind") == "logistic":
+        kind = None if st is None else st.get("kind")
+        if kind == "logistic":
             self.potential = make_logistic_potential(st["x"], st["y"],
                                                      st["inv_var"])
         else:
             self.potential = batched_logdensity_and_grad(model.logp)
+        if kind == "diag_gaussian":
+            prec = st["precision"]
+
+            def transition_factory(metric, n_chains):
+                if not (_f32_diag(metric)
+                        and n_chains >= self.TREE_MIN_CHAINS
+                        and tree_takes(model.dim, n_chains,
+                                       algorithm.max_depth)):
+                    return None
+                return make_gaussian_tree_transition(
+                    prec, metric, max_depth=algorithm.max_depth,
+                    min_delta=algorithm.min_delta)
+
+            def step_factory(metric):
+                if not _f32_diag(metric):
+                    return None
+                step = make_fused_gaussian_leapfrog(prec, metric.inv)
+                return lambda q, p, g, lp, e: step(q, p, e)
+
+            self.transition_factory = transition_factory
+            self.step_factory = step_factory
 
     def warmup(self, gen: torch.Generator, state: WarmupState,
                stages: Sequence, reporter=None) -> Tuple[WarmupState, list]:
@@ -166,8 +219,10 @@ class NUTSKernel:
                     raise ValueError(
                         "TuningNUTS stage needs an eps: provide `eps=` or "
                         "keep InitialStepsizeSearch in the schedule")
-                res = W.run_tuning(gen, self.potential, stage, self.algorithm,
-                                   state, pooled=self.pooled)
+                res = W.run_tuning(
+                    gen, self.potential, stage, self.algorithm, state,
+                    pooled=self.pooled, step_factory=self.step_factory,
+                    transition_factory=self.transition_factory)
                 state = res.state
                 warmup_stats.append(res.stats)
                 _check_eps_sane(state.log_eps, f"tuning window ({stage.n})",
@@ -198,8 +253,10 @@ class NUTSKernel:
                                               reporter)
             reporter.start_stage(f"sampling {n_draws} draws x "
                                  f"{state.z.q.shape[0]} chains", n_draws)
-            out = W.run_sampling(gen, self.potential, self.algorithm, state,
-                                 n_draws)
+            out = W.run_sampling(
+                gen, self.potential, self.algorithm, state, n_draws,
+                step_factory=self.step_factory,
+                transition_factory=self.transition_factory)
             reporter.end_stage()
         ws = None
         if warmup_stats:

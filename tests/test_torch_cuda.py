@@ -1,5 +1,6 @@
-"""Tests of the port that need an NVIDIA card: the CUDA kernel K1
-(``csrc/logistic_vg.cu``) against its plain torch version.
+"""Tests of the port that need an NVIDIA card: the CUDA kernels K1
+(``csrc/logistic_vg.cu``), K3 (``csrc/leapfrog_gaussian.cu``) and K5
+(``csrc/tree_gaussian.cu``) against their plain torch versions.
 
 They carry the ``cuda`` marker and skip, inside the test, where there is no
 card.  This file imports neither JAX nor the JAX package, so on a machine
@@ -22,8 +23,10 @@ def _torch_port():
     peaks within a few memory mappings of the per-process limit
     (vm.max_map_count), which torch's libraries would push it over."""
     global torch, LOGISTIC_VG, MAX_DIM, logistic_value_and_grad
-    global logistic_value_and_grad_plain
+    global logistic_value_and_grad_plain, lf, tree
     import torch
+    import inplacedhmc_tpu_torch.ops.leapfrog as lf
+    import inplacedhmc_tpu_torch.ops.tree as tree
     from inplacedhmc_tpu_torch.ops.logistic import (
         LOGISTIC_VG, MAX_DIM, logistic_value_and_grad,
         logistic_value_and_grad_plain)
@@ -90,3 +93,132 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take():
                                                   device="cuda"),
                                 y[:8], w[:8], INV_VAR)
     assert LOGISTIC_VG.launches == before
+
+
+def _gaussian(seed, c, d, max_depth=None):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    kw = dict(generator=g, device="cuda")
+    q = torch.randn((c, d), **kw)
+    p = torch.randn((c, d), **kw)
+    lam = 0.5 + torch.rand((d,), **kw)
+    minv = 0.5 + torch.rand((d,), **kw)
+    out = dict(q=q, p=p, lam=lam, minv=minv)
+    if max_depth is not None:
+        out["dirs"] = torch.randint(0, 2 ** 32, (c,), dtype=torch.int64, **kw)
+        out["unif"] = torch.rand((tree.n_uniforms(max_depth), c), **kw)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,d", [(1, 1), (37, 7), (300, 100), (9, 257),
+                                 (64, 1000)])
+def test_cuda_leapfrog_matches_plain_version(c, d):
+    """K3 against its plain version on ragged C (not a multiple of the
+    8-row block) and D (not a multiple of the 32 lanes; K3 has no
+    compile-time bound on D): the vectors are the same f32 operations in
+    the same order, so they are equal; the two row sums are taken in
+    another order, so they agree to 1e-5 of the sum of |terms|."""
+    _needs_card()
+    x = _gaussian(1, c, d)
+    eps = torch.where(torch.arange(c, device="cuda") % 2 == 0, 0.3, -0.2)
+    before = lf.LEAPFROG_GAUSSIAN.launches
+    got = lf.fused_gaussian_leapfrog(x["q"], x["p"], eps, x["lam"],
+                                     x["minv"])
+    torch.cuda.synchronize()
+    assert lf.LEAPFROG_GAUSSIAN.launches == before + 1
+    want = lf.fused_gaussian_leapfrog_plain(x["q"], x["p"], eps, x["lam"],
+                                            x["minv"])
+    q_new, p_new = want[0], want[1]
+    scales = ((x["lam"] * q_new * q_new).abs().sum(1),
+              (p_new * x["minv"] * p_new).abs().sum(1))
+    for i, (g, w) in enumerate(zip(got, want)):
+        if i in (3, 4):
+            assert bool(((g - w).abs() <= 1e-5 * scales[i - 3]).all())
+        else:
+            assert torch.equal(g, w), i
+
+
+INT_OUT = ("term", "term_left", "term_right", "depth", "steps")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,d", [(37, 7), (70, 64), (45, 65), (33, 128),
+                                 (40, 129), (21, 256)])
+@pytest.mark.parametrize("eps", [0.25, 2.4, 0.004])
+def test_cuda_tree_matches_plain_version(c, d, eps):
+    """K5 against its plain version, one warp per chain against the lockstep
+    form, on ragged C and on D at and around each compile-time bound (64,
+    128, 256), at a mixed, a divergent and a max-depth step size
+    (max_depth 6): equal integer fields on all chains but at most one in
+    twenty (a U-turn statistic within rounding of 0 can flip, the row sums
+    being taken in another order), and on the chains that agree the float
+    fields to 1e-4 relative."""
+    _needs_card()
+    md = 6
+    x = _gaussian(2, c, d, md)
+    e = torch.full((c,), eps, device="cuda")
+    before = tree.TREE_GAUSSIAN.launches
+    got = tree.gaussian_tree_transition(
+        x["q"], x["p"], e, tree.direction_words_int32(x["dirs"]), x["unif"],
+        x["lam"], x["minv"], md, -1000.0)
+    torch.cuda.synchronize()
+    assert tree.TREE_GAUSSIAN.launches == before + 1
+    want = tree.gaussian_tree_transition_plain(
+        x["q"], x["p"], e, x["dirs"], x["unif"], x["lam"], x["minv"], md,
+        -1000.0)
+    bad = torch.zeros(c, dtype=torch.bool, device="cuda")
+    for f in INT_OUT:
+        bad |= getattr(got, f) != getattr(want, f)
+    assert int(bad.sum()) <= c // 20
+    ok = ~bad
+    for f in ("q", "logp", "grad", "energy", "log_sum_alpha"):
+        g, w = getattr(got, f)[ok], getattr(want, f)[ok]
+        same = (g == w) | ((g - w).abs() <= 1e-4 * (1 + w.abs()))
+        assert bool(same.all()), f
+    if eps == 0.004:
+        assert bool((want.depth == md).all())
+    if eps == 2.4:
+        assert bool((want.term == 1).any())
+
+
+@pytest.mark.cuda
+def test_cuda_gaussian_wrappers_refuse_what_the_kernels_do_not_take():
+    """D above the tree kernel's bound, a CPU tensor beside CUDA ones, a
+    float64 or non-contiguous input, and uniforms of the wrong shape raise
+    before anything is launched."""
+    _needs_card()
+    md = 4
+    x = _gaussian(3, 16, 9, md)
+    e = torch.full((16,), 0.3, device="cuda")
+    dirs = tree.direction_words_int32(x["dirs"])
+    lf_before = lf.LEAPFROG_GAUSSIAN.launches
+    tr_before = tree.TREE_GAUSSIAN.launches
+    with pytest.raises(ValueError):
+        lf.fused_gaussian_leapfrog(x["q"], x["p"], e, x["lam"].cpu(),
+                                   x["minv"])
+    with pytest.raises(ValueError):
+        lf.fused_gaussian_leapfrog(x["q"].double(), x["p"], e, x["lam"],
+                                   x["minv"])
+    with pytest.raises(ValueError):
+        lf.fused_gaussian_leapfrog(x["q"].t().contiguous().t(), x["p"], e,
+                                   x["lam"], x["minv"])
+    wide = _gaussian(4, 4, tree.MAX_DIM + 1, md)
+    with pytest.raises(ValueError):
+        tree.gaussian_tree_transition(
+            wide["q"], wide["p"], e[:4],
+            tree.direction_words_int32(wide["dirs"]), wide["unif"],
+            wide["lam"], wide["minv"], md, -1000.0)
+    with pytest.raises(ValueError):
+        tree.gaussian_tree_transition(x["q"], x["p"], e, dirs,
+                                      x["unif"].cpu(), x["lam"], x["minv"],
+                                      md, -1000.0)
+    with pytest.raises(ValueError):
+        tree.gaussian_tree_transition(x["q"], x["p"], e, x["dirs"],
+                                      x["unif"], x["lam"], x["minv"], md,
+                                      -1000.0)
+    with pytest.raises(ValueError):
+        tree.gaussian_tree_transition(x["q"], x["p"], e, dirs,
+                                      x["unif"][1:], x["lam"], x["minv"], md,
+                                      -1000.0)
+    assert lf.LEAPFROG_GAUSSIAN.launches == lf_before
+    assert tree.TREE_GAUSSIAN.launches == tr_before
