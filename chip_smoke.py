@@ -15,21 +15,32 @@ Phases, each printed with its wall time:
    full width and time the kernel, the plain version and, where there is
    one, a library composition of the same function, beside the card's
    bound: K1 (logistic value and gradient, 8192 x 10,000 x 50), K3 (the
-   fused Gaussian leapfrog, at 64 x 1000 as the lockstep run of phase 6
+   fused Gaussian leapfrog, at 64 x 1000 as the lockstep run of phase 7
    gives it, and at 10,240 x 100) and K5 (the whole-tree NUTS transition,
-   10,240 x 100, max_depth 10, at three step sizes);
+   10,240 x 100, max_depth 10, at three step sizes, in each of its three
+   forms: the explicit uniform array, the uniforms drawn in the kernel, and
+   everything drawn in the kernel, each against the plain version fed the
+   kernel's own draws); K5's generator against ``utils/philox.py``; and a
+   sweep of 16 transitions in one launch against 16 launches;
 3. ``sample()`` on BASELINE config 3 (logistic regression, 10,000 x 50 data
    from a seed, 8192 chains, dense metric, a short warmup schedule, 128
    draws) through K1;
 4. ``sample()`` on BASELINE config 1 (the 100-D standard normal) at 10,240
    chains, default 900-transition warmup, 256 draws: the whole-tree route,
    K5 once per transition;
-5. ``sample()`` on the same model at 64 chains (the examples' config 1 run:
-   default warmup, 1000 draws): the whole-tree route as well;
-6. ``sample()`` on the 1000-D standard normal at 64 chains, default warmup,
+5. the flagship path: the same ``sample()`` with ``tree_opts=
+   {"refresh_inside": True, "padded_io": True, "n_sweep": FLAGSHIP_K}``
+   (K5 once per tuning transition, once per ``FLAGSHIP_K`` sampling
+   transitions); then ``bench.py``'s measurement done the port's way (q0
+   normal, eps 0.25, 64 transitions with ``keep_dims=(0,)``, best of 3,
+   and the eps 0.005 probe) for n_sweep 1, 4, 16 and 64 and for phase 4's
+   route: chain leapfrog steps/s and leaf work over wall;
+6. ``sample()`` on the 100-D standard normal at 64 chains (the examples'
+   config 1 run: default warmup, 1000 draws): the whole-tree route as well;
+7. ``sample()`` on the 1000-D standard normal at 64 chains, default warmup,
    1000 draws: above the whole-tree kernel's D bound (256), so the lockstep
    route with K3 as its leapfrog;
-7. the crossover between the two routes: one transition of the 100-D
+8. the crossover between the two routes: one transition of the 100-D
    standard normal at a fixed step size through each, at 1 to 10,240
    chains; it fails if ``NUTSKernel.TREE_MIN_CHAINS`` contradicts the
    timings.
@@ -80,6 +91,18 @@ LOGP_TOL = 1e-5   # |logp - ref| / sum_n |term_n|
 GRAD_TOL = 1e-4   # |grad - ref| / max |ref grad|
 PEAK_FP32_FLOPS = 67e12           # H100 SXM, fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12              # H100 SXM HBM3
+# K5's generator: the normals may differ from torch's by the rounding of
+# logf, cosf (1-2 ulp each) scaled by sqrt(-2 log u1) <= 5.8; 16 ulp of
+# max(1, |x|) bounds that.  Direction words and uniforms are integer work
+# and must be equal.
+NORMAL_ULP = 16
+# one Philox4x32-10 draw: 10 rounds of 2 mul.hi, 2 mul.lo, 4 xor, 2 add;
+# Box-Muller about 30 more flops (log, sqrt, cos, the conversions)
+PHILOX_OPS, BOX_MULLER_FLOPS = 100, 30
+SWEEP_CHECK_K = 16                # the n_sweep of the bit-identity check
+FLAGSHIP_K = 16                   # n_sweep of the flagship sample()
+SWEEP_KS = (1, 4, 16, 64)         # the n_sweep values the bench times
+BENCH_EPS, BENCH_TRANSITIONS, PROBE_EPS = 0.25, 64, 0.005  # bench.py's
 
 
 def card_line() -> str:
@@ -312,17 +335,37 @@ def check_leapfrog_kernel(card: str) -> dict:
     return main
 
 
-def tree_bound(c: int, d: int, out) -> tuple:
-    """K5's bound for one launch on these inputs: about 25 D flops per
-    leapfrog leaf (the update 8, the two row sums 5, the guards 4, the
-    momentum sum 1, the expected single U-turn level 5, the p# 1, and the
-    selects) over the steps this data needs; the bytes of q0, p0, eps,
-    dirs, lam, minv in, the uniforms the trees read (one per leaf and one
-    per successful doubling) and q, grad and the eight [C] records out."""
+def tree_bound(c: int, d: int, out, form: str = "array") -> tuple:
+    """K5's bound for one launch on these inputs, over the steps this data
+    needs.  Operations: about 25 D flops per leapfrog leaf (the update 8,
+    the two row sums 5, the guards 4, the momentum sum 1, the expected
+    single U-turn level 5, the p# 1, and the selects); where the kernel
+    draws, ``PHILOX_OPS`` per uniform it reads (one per leaf, one per
+    successful doubling) and, under ``refresh``, per direction word and per
+    normal, with ``BOX_MULLER_FLOPS`` per normal.  Bytes: q, eps, valid,
+    lam, minv in; the K transitions' q and eight [C] records out (logp,
+    energy, log_sum_alpha, term, term_left, term_right, depth, steps: the
+    TPU kernel's outputs; the last q is the carry) and the final grad; for
+    ``array`` and ``prng`` the momentum and direction words in, for
+    ``array`` the uniforms the trees read.  ``form``: ``"array"``
+    (explicit uniforms), ``"prng"`` (uniforms drawn) or ``"refresh"``
+    (everything drawn)."""
+    k = out.q.shape[0] if out.q.ndim == 3 else 1
     steps = float(out.steps.sum())
+    draws = steps + float(out.depth.sum())
     flops = 25.0 * d * steps
-    nbytes = 4.0 * (2 * c * d + 2 * c + 2 * d) \
-        + 4.0 * (steps + float(out.depth.sum())) + 4.0 * (2 * c * d + 8 * c)
+    nbytes = 4.0 * (c * d + 2 * c + 2 * d) \
+        + 4.0 * (k * c * d + 8 * k * c + c * d)
+    if form == "refresh":
+        flops += PHILOX_OPS * (draws + k * c * (d + 1)) \
+            + BOX_MULLER_FLOPS * k * c * d
+        nbytes += 4.0 * d
+    else:
+        nbytes += 4.0 * (k * c * d + k * c)
+        if form == "array":
+            nbytes += 4.0 * draws
+        else:
+            flops += PHILOX_OPS * draws
     return (*bound(flops, nbytes), steps)
 
 
@@ -361,16 +404,63 @@ def compare_tree(got, want, label: str) -> float:
     return abs_err
 
 
+def _first(out):
+    """A one-transition sweep's output without its sweep axis."""
+    from inplacedhmc_tpu_torch.ops.tree import TreeOut
+    return TreeOut(*(t if f == "grad" else t[0]
+                     for f, t in zip(TreeOut._fields, out)))
+
+
+def _key(seed: int):
+    import torch
+
+    from inplacedhmc_tpu_torch.utils.philox import draw_key
+    return draw_key(torch.Generator(device="cuda").manual_seed(seed))
+
+
+def tree_form(form: str, q0, p0, e, d32, unif, lam, minv, key, md: int):
+    """``(launch, plain)``: K5 in one of its forms and its plain version fed
+    the same numbers.  ``array``: the explicit uniform array; ``prng``: the
+    given momentum and directions, the uniforms drawn in the kernel;
+    ``refresh``: everything drawn in the kernel (momentum ``sqrt_mass * xi``
+    with ``sqrt_mass = minv^-1/2``).  The plain version gets what the
+    kernel's generator draws for ``key`` (``ops.tree.philox_draws``)."""
+    import torch
+
+    from inplacedhmc_tpu_torch.ops.tree import (
+        gaussian_tree_sweep, gaussian_tree_transition,
+        gaussian_tree_transition_plain, philox_draws)
+    c, d = q0.shape
+    if form == "array":
+        return (lambda: gaussian_tree_transition(
+            q0, p0, e, d32, unif, lam, minv, md, -1000.0),
+            lambda: gaussian_tree_transition_plain(
+                q0, p0, e, d32, unif, lam, minv, md, -1000.0))
+    xi, g_dirs, g_unif = philox_draws(key, c, d, md)
+    if form == "prng":
+        return (lambda: gaussian_tree_transition(
+            q0, p0, e, d32, None, lam, minv, md, -1000.0, key=key),
+            lambda: gaussian_tree_transition_plain(
+                q0, p0, e, d32, g_unif[0], lam, minv, md, -1000.0))
+    sqrt_mass = 1.0 / torch.sqrt(minv)
+    return (lambda: _first(gaussian_tree_sweep(
+        q0, e, lam, minv, md, -1000.0, key=key, sqrt_mass=sqrt_mass)),
+        lambda: gaussian_tree_transition_plain(
+            q0, sqrt_mass * xi[0], e, g_dirs[0], g_unif[0], lam, minv, md,
+            -1000.0))
+
+
 def check_tree_kernel(card: str) -> None:
     """K5 against its plain version at 10,240 x 100, max_depth 10, with the
     same q0, p0, directions and uniforms at three step sizes: 0.3 (trees of
     mixed depths that end in U-turns), 1.8 (divergences, since the largest
-    M^-1 makes the step unstable) and 0.002 (every tree reaches max depth)."""
+    M^-1 makes the step unstable) and 0.002 (every tree reaches max depth);
+    in each of its three forms (``tree_form``), timed beside its bound."""
     import torch
 
-    from inplacedhmc_tpu_torch.ops.tree import (
-        TREE_GAUSSIAN, direction_words_int32, gaussian_tree_transition,
-        gaussian_tree_transition_plain, n_uniforms)
+    from inplacedhmc_tpu_torch.ops.tree import (TREE_GAUSSIAN,
+                                                direction_words_int32,
+                                                n_uniforms)
 
     c, d, md = G_CHAINS, G_DIM, MAX_DEPTH
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
@@ -382,72 +472,198 @@ def check_tree_kernel(card: str) -> None:
                          device="cuda")
     d32 = direction_words_int32(dirs)
     unif = torch.rand((n_uniforms(md), c), generator=gen, device="cuda")
+    key = _key(SEED + 6)
     print(f"[k5] checkpoint stacks: {2 * md * d * 4} bytes of dynamic shared "
           f"memory per chain (one warp), up to 4 chains per block")
     for eps in (0.3, 1.8, 0.002):
         e = torch.full((c,), eps, device="cuda")
-        before = TREE_GAUSSIAN.launches
-        got = gaussian_tree_transition(q0, p0, e, d32, unif, lam, minv, md,
-                                       -1000.0)
-        torch.cuda.synchronize()
-        if TREE_GAUSSIAN.launches != before + 1:
-            raise RuntimeError("the wrapper did not launch K5 on a CUDA "
-                               "tensor")
-        want = gaussian_tree_transition_plain(q0, p0, e, dirs, unif, lam,
-                                              minv, md, -1000.0)
-        compare_tree(got, want, f"eps {eps}")
-        iters = 3 if eps < 0.01 else 20
-        ms = cuda_time_ms(lambda: gaussian_tree_transition(
-            q0, p0, e, d32, unif, lam, minv, md, -1000.0), iters)
-        bound_ms, bound_by, steps = tree_bound(c, d, want)
-        print(f"[k5] eps {eps} on {card}: kernel {ms:.4f} ms; "
-              f"{steps:.0f} leapfrog steps, {steps / ms * 1e3:.4g} steps/s; "
-              f"bound {bound_ms:.4f} ms ({bound_by})")
+        for form in ("array", "prng", "refresh"):
+            launch, plain = tree_form(form, q0, p0, e, d32, unif, lam, minv,
+                                      key, md)
+            before = TREE_GAUSSIAN.launches
+            got = launch()
+            torch.cuda.synchronize()
+            if TREE_GAUSSIAN.launches != before + 1:
+                raise RuntimeError("the wrapper did not launch K5 on a CUDA "
+                                   "tensor")
+            want = plain()
+            compare_tree(got, want, f"eps {eps}, {form}")
+            ms = cuda_time_ms(launch, 3 if eps < 0.01 else 20)
+            bound_ms, bound_by, steps = tree_bound(c, d, want, form)
+            print(f"[k5] eps {eps}, {form} on {card}: kernel {ms:.4f} ms; "
+                  f"{steps:.0f} leapfrog steps, {steps / ms * 1e3:.4g} "
+                  f"steps/s; bound {bound_ms:.4f} ms ({bound_by})")
 
 
-def tree_at_state(card: str, res) -> dict:
-    """K5 timed on the state the whole-tree run ended in (its tuned eps and
-    metric, a fresh momentum, directions and uniforms), against its plain
-    version on the same inputs; and the host's cost of drawing the
-    uniforms."""
+def check_generator(card: str) -> None:
+    """K5's generator (the source's second launcher, which runs the
+    kernel's ``__device__`` Philox) against ``utils/philox.py`` on the card,
+    for 10,240 chains, 100 normals, the 1,033 uniform slots of max_depth 10
+    and 2 transitions: direction words and uniforms equal, normals within
+    ``NORMAL_ULP`` ulp of max(1, |x|)."""
+    import torch
+
+    from inplacedhmc_tpu_torch.ops.tree import (PHILOX_DRAWS,
+                                                direction_words_int32,
+                                                n_uniforms, philox_draws)
+    from inplacedhmc_tpu_torch.utils import philox
+
+    c, d, md, k = G_CHAINS, G_DIM, MAX_DEPTH, 2
+    key = _key(SEED + 7)
+    before = PHILOX_DRAWS.launches
+    normals, dirs, unif = philox_draws(key, c, d, md, k)
+    torch.cuda.synchronize()
+    if PHILOX_DRAWS.launches != before + 1:
+        raise RuntimeError("the generator's launcher did not launch")
+    rows = torch.arange(c, dtype=torch.int64, device="cuda")
+    n_dirs = n_unif = 0
+    worst_ulp = 0.0
+    for s in range(k):
+        n_dirs += int((dirs[s] != direction_words_int32(
+            philox.direction_words(key, rows, s))).sum())
+        n_unif += int((unif[s] != philox.uniforms(
+            key, rows, s, range(n_uniforms(md)))).sum())
+        want = philox.normals(key, rows, s, d)
+        ulp = 2.0 ** -23 * torch.clamp(want.abs(), min=1.0)
+        worst_ulp = max(worst_ulp,
+                        float(((normals[s] - want).abs() / ulp).max()))
+    print(f"[philox] {k} x {c} direction words: {n_dirs} differ; "
+          f"{unif.numel()} uniforms: {n_unif} differ; {normals.numel()} "
+          f"normals: largest difference {worst_ulp:.2f} ulp of max(1, |x|) "
+          f"(allowed {NORMAL_ULP}); uniform mean "
+          f"{float(unif.double().mean()):.6f}, normal mean "
+          f"{float(normals.double().mean()):.6f} var "
+          f"{float(normals.double().var()):.6f}")
+    if n_dirs or n_unif or not worst_ulp <= NORMAL_ULP:
+        raise RuntimeError("K5's generator disagrees with utils/philox.py")
+
+
+def check_sweep(card: str) -> None:
+    """One launch of ``SWEEP_CHECK_K`` transitions drawing everything itself
+    against that many one-transition launches fed what the generator draws
+    for its key (10,240 x 100, max_depth 10, eps 0.3, 1 row in 1,000
+    padded): every field equal bit for bit.  Timed beside the single
+    launches (each with its own key) and the bound."""
+    import torch
+
+    from inplacedhmc_tpu_torch.ops.tree import (TREE_GAUSSIAN, TreeOut,
+                                                gaussian_tree_sweep,
+                                                philox_draws)
+
+    c, d, md, k = G_CHAINS, G_DIM, MAX_DEPTH, SWEEP_CHECK_K
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    lam = torch.ones((d,), device="cuda")
+    minv = 0.5 + torch.rand((d,), generator=gen, device="cuda")
+    sqrt_mass = 1.0 / torch.sqrt(minv)
+    q0 = torch.randn((c, d), generator=gen, device="cuda")
+    e = torch.full((c,), 0.3, device="cuda")
+    valid = (torch.arange(c, device="cuda") % 1000 != 999).to(torch.int32)
+    key = _key(SEED + 9)
+    before = TREE_GAUSSIAN.launches
+    swept = gaussian_tree_sweep(q0, e, lam, minv, md, -1000.0, k,
+                                key=key, sqrt_mass=sqrt_mass, valid=valid)
+    torch.cuda.synchronize()
+    if TREE_GAUSSIAN.launches != before + 1:
+        raise RuntimeError("the sweep was not one K5 launch")
+    xi, dirs, unif = philox_draws(key, c, d, md, k)
+    q = q0
+    differ = []
+    for s in range(k):
+        one = gaussian_tree_sweep(q, e, lam, minv, md, -1000.0,
+                                  momentum=(sqrt_mass * xi[s])[None],
+                                  dirs=dirs[s:s + 1], unif=unif[s:s + 1],
+                                  valid=valid)
+        differ += [f"{f}[{s}]" for f in TreeOut._fields if f != "grad"
+                   and not torch.equal(getattr(swept, f)[s],
+                                       getattr(one, f)[0])]
+        q = one.q[0]
+    if not torch.equal(swept.grad, one.grad):
+        differ.append("grad")
+    steps = float(swept.steps.sum())
+    print(f"[sweep] {k} transitions in one launch against {k} launches: "
+          f"fields that differ {differ or 'none'}; depth mean "
+          f"{swept.depth.double().mean().item():.3f}, {steps:.0f} steps")
+    if differ:
+        raise RuntimeError("a K5 sweep differs from its single launches")
+    # timed on a start and output buffers made beforehand: nothing but the
+    # kernel is queued in the timed loop
+    ms = cuda_time_ms(lambda: gaussian_tree_sweep(
+        q0, e, lam, minv, md, -1000.0, k, key=key, sqrt_mass=sqrt_mass,
+        valid=valid, out=swept), iters=5, warmup=1)
+    keys = [_key(SEED + 10 + s) for s in range(k)]
+    one_ms = cuda_time_ms(lambda: [gaussian_tree_sweep(
+        q0, e, lam, minv, md, -1000.0, key=kk, sqrt_mass=sqrt_mass,
+        valid=valid, out=one) for kk in keys], iters=5, warmup=1)
+    bound_ms, bound_by, _ = tree_bound(c, d, swept, "refresh")
+    print(f"[sweep] {card}: one launch of {k} {ms:.4f} ms "
+          f"({ms / k:.4f} ms per transition), {k} launches of one "
+          f"{one_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}); "
+          f"{steps / ms * 1e3:.4g} steps/s")
+
+
+def tree_at_state(card: str, res, form: str = "prng", k: int = 1) -> dict:
+    """K5 timed on the state a whole-tree run ended in (its tuned eps and
+    metric, a fresh momentum and directions) in the form its route runs:
+    ``prng`` (phase 4's default route: momentum and directions from the
+    host, the uniforms drawn in the kernel) or ``refresh`` with ``k``
+    transitions per launch (the flagship's sampling loop).  Held against the
+    plain version fed the kernel's own draws; for ``refresh`` the first of
+    the ``k`` transitions is compared, and the plain version is timed over
+    all ``k``."""
     import torch
 
     from inplacedhmc_tpu_torch.core.metric import sample_momentum
     from inplacedhmc_tpu_torch.ops.tree import (
-        direction_words_int32, gaussian_tree_transition,
-        gaussian_tree_transition_plain, n_uniforms)
+        direction_words_int32, gaussian_tree_sweep, gaussian_tree_sweep_plain,
+        philox_draws)
 
     ws = res.warmup_state
     q0 = ws.z.q.contiguous()
     c, d, md = q0.shape[0], q0.shape[1], MAX_DEPTH
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     p0 = sample_momentum(ws.metric, gen, q0.shape, q0.dtype)
-    dirs = torch.randint(0, 2 ** 32, (c,), generator=gen, dtype=torch.int64,
-                         device="cuda")
-    d32 = direction_words_int32(dirs)
-    unif = torch.rand((n_uniforms(md), c), generator=gen, device="cuda")
+    d32 = direction_words_int32(torch.randint(
+        0, 2 ** 32, (c,), generator=gen, dtype=torch.int64, device="cuda"))
     e = torch.exp(ws.log_eps).expand(c).contiguous()
     lam = torch.ones((d,), device="cuda")
     minv = ws.metric.inv.contiguous()
-    args = (q0, p0, e, d32, unif, lam, minv, md, -1000.0)
-    got = gaussian_tree_transition(*args)
-    want = gaussian_tree_transition_plain(q0, p0, e, dirs, unif, lam, minv,
-                                          md, -1000.0)
-    abs_err = compare_tree(got, want,
-                           f"{c} chains, tuned eps {float(e[0]):.4g}")
-    ms = cuda_time_ms(lambda: gaussian_tree_transition(*args))
-    plain_ms = wall_ms(lambda: gaussian_tree_transition_plain(
-        q0, p0, e, dirs, unif, lam, minv, md, -1000.0), iters=2)
-    bound_ms, bound_by, steps = tree_bound(c, d, want)
-    unif_ms = cuda_time_ms(lambda: torch.rand((n_uniforms(md), c),
-                                              generator=gen, device="cuda"))
-    print(f"[k5] {c} chains at the tuned state on {card}: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.2f} ms (wall: its host loop synchronises), bound "
-          f"{bound_ms:.4g} ms ({bound_by}); {steps:.0f} steps, "
-          f"{steps / ms * 1e3:.4g} steps/s; drawing the "
-          f"[{n_uniforms(md)}, {c}] uniforms {unif_ms:.4f} ms of device "
-          f"time ({4 * n_uniforms(md) * c / 1e6:.1f} MB)")
-    return {"name": "gaussian_tree_transition", "route": "cuda",
+    sqrt_mass = ws.metric.sqrt_mass.contiguous()
+    key = _key(SEED + 5)
+    if form == "prng":
+        kw = dict(momentum=p0[None], dirs=d32[None])
+        launch, plain = tree_form("prng", q0, p0, e, d32, None, lam, minv,
+                                  key, md)
+        got, want = launch(), plain()
+    else:
+        kw = dict(sqrt_mass=sqrt_mass)
+        xi, dirs, unif = philox_draws(key, c, d, md, k)
+        got = gaussian_tree_sweep(q0, e, lam, minv, md, -1000.0, k,
+                                  key=key, **kw)
+        want = gaussian_tree_sweep_plain(
+            q0, e, lam, minv, md, -1000.0, k, momentum=sqrt_mass * xi,
+            dirs=dirs, unif=unif)
+        plain = lambda: gaussian_tree_sweep_plain(  # noqa: E731
+            q0, e, lam, minv, md, -1000.0, k, momentum=sqrt_mass * xi,
+            dirs=dirs, unif=unif)
+        got, want = _first(got), _first(want)
+    abs_err = compare_tree(got, want, f"{c} chains, tuned eps "
+                           f"{float(e[0]):.4g}, {form}, n_sweep {k}")
+    # timed on a start and output buffers made beforehand: nothing but the
+    # kernel is queued in the timed loop
+    out = gaussian_tree_sweep(q0, e, lam, minv, md, -1000.0, k, key=key,
+                              **kw)
+    ms = cuda_time_ms(lambda: gaussian_tree_sweep(
+        q0, e, lam, minv, md, -1000.0, k, key=key, out=out, **kw))
+    plain_ms = wall_ms(plain, iters=2)
+    bound_ms, bound_by, steps = tree_bound(c, d, out, form)
+    print(f"[k5] {c} chains at the tuned state, {form}, n_sweep {k}, on "
+          f"{card}: kernel {ms:.4f} ms ({ms / k:.4f} ms per transition), "
+          f"plain {plain_ms:.2f} ms (wall: its host loop synchronises), "
+          f"bound {bound_ms:.4g} ms ({bound_by}); {steps:.0f} steps, "
+          f"{steps / ms * 1e3:.4g} steps/s")
+    name = "gaussian_tree_transition" if form == "prng" \
+        else "gaussian_tree_sweep"
+    return {"name": name, "route": "cuda",
             "source": "inplacedhmc_tpu_torch/csrc/tree_gaussian.cu",
             "replaces": "inplacedhmc_tpu/ops/tree_pallas.py:92",
             "launches": None, "max_abs_err": abs_err, "ms": ms,
@@ -542,10 +758,12 @@ def run_sample(card: str, kernels) -> dict:
 
 
 def run_gaussian_sample(card: str, kernels, dim: int, n_chains: int,
-                        n_draws: int, route: str):
+                        n_draws: int, route: str, tree_opts=None):
     """``sample()`` on the ``dim``-D standard normal with the default warmup,
-    through ``route`` ("tree": K5 once per transition and nothing else;
-    "lockstep": K3 once per lockstep leaf and nothing else), with the
+    through ``route`` ("tree": K5 once per transition and nothing else, or
+    with ``tree_opts`` once per tuning transition and once per ``n_sweep``
+    sampling transitions; "lockstep": K3 once per lockstep leaf and nothing
+    else), with the
     posterior checked: finite draws, split R-hat < 1.05, mean acceptance in
     [0.6, 0.95], and every coordinate's mean and variance within five Monte
     Carlo standard errors of 0 and 1 (from the draws' own ESS, of q and of
@@ -565,11 +783,12 @@ def run_gaussian_sample(card: str, kernels, dim: int, n_chains: int,
         k.launches = 0
     t0 = time.perf_counter()
     res = sample(SEED, model, n_draws, n_chains, reporter=timer,
-                 device="cuda")
+                 device="cuda", tree_opts=tree_opts)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k.source: k.launches for k in kernels}
-    tag = f"[{route} {n_chains} x {dim}]"
+    tag = f"[{route} {n_chains} x {dim}" \
+        + (f", n_sweep {tree_opts['n_sweep']}]" if tree_opts else "]")
     for name, sec in timer.stages:
         print(f"{tag} {name}: {sec:.2f} s on {card}")
     print(f"{tag} total {wall:.2f} s on {card}; launches {launches} "
@@ -577,6 +796,8 @@ def run_gaussian_sample(card: str, kernels, dim: int, n_chains: int,
     sample_s = timer.stages[-1][1]
     stats, wstats = res.stats, res.warmup_stats
     n_trans = n_warm + n_draws
+    if tree_opts:
+        n_trans = n_warm + n_draws // tree_opts["n_sweep"]
     if route == "tree":
         ok = (launches["tree_gaussian.cu"] == n_trans
               and launches["leapfrog_gaussian.cu"] == 0)
@@ -619,6 +840,79 @@ def run_gaussian_sample(card: str, kernels, dim: int, n_chains: int,
     if not (mean_z < 5 and var_z < 5):
         raise RuntimeError("posterior moments outside 5 Monte Carlo SE")
     return res, launches, sample_s
+
+
+def bench_flagship(card: str) -> int:
+    """``bench.py``'s measurement of the flagship path, done the port's way:
+    the 100-D standard normal at 10,240 chains from q0 normal (seed 0), eps
+    0.25, the identity metric, ``run_sampling`` of ``BENCH_TRANSITIONS``
+    transitions recording ``keep_dims=(0,)``, best of 3 (each run continuing
+    from the last one's state), then the eps 0.005 probe (every tree at max
+    depth: the per-step cost with the per-transition costs amortised).
+    Prints chain leapfrog steps/s and ``leaf_work_over_wall`` = steps x
+    probe cost per step / wall for each n_sweep of ``SWEEP_KS`` (the
+    flagship options) and for phase 4's route.  Returns the fastest
+    n_sweep."""
+    import torch
+
+    from inplacedhmc_tpu_torch import NUTS
+    from inplacedhmc_tpu_torch.adapt import warmup as W
+    from inplacedhmc_tpu_torch.models import std_normal
+    from inplacedhmc_tpu_torch.sample import NUTSKernel, f32_matmuls
+
+    model = std_normal(G_DIM, device="cuda")
+    q0 = torch.randn((G_CHAINS, G_DIM),
+                     generator=torch.Generator(device="cuda").manual_seed(0),
+                     device="cuda")
+    rates = {}
+    for k in (None,) + SWEEP_KS:
+        topts = None if k is None else {
+            "refresh_inside": True, "padded_io": True, "n_sweep": k}
+        kern = NUTSKernel(model, NUTS(), tree_opts=topts)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+
+        def run_once(state):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = W.run_sampling(gen, kern.potential, kern.algorithm, state,
+                                 BENCH_TRANSITIONS,
+                                 transition_factory=kern.transition_factory,
+                                 keep_dims=(0,))
+            steps = int(out.stats.steps.sum())
+            torch.cuda.synchronize()
+            return out, steps, time.perf_counter() - t0
+
+        with f32_matmuls():
+            state = W.init_warmup_state(gen, kern.potential, G_DIM,
+                                        G_CHAINS, device="cuda", q=q0,
+                                        eps=BENCH_EPS)
+            out, _, _ = run_once(state)              # warm
+            state = state._replace(z=out.z)
+            best, best_steps = float("inf"), 0
+            for _ in range(3):
+                out, steps, dt = run_once(state)
+                if dt < best:
+                    best, best_steps = dt, steps
+                state = state._replace(z=out.z)
+            deep = state._replace(log_eps=torch.log(torch.tensor(
+                PROBE_EPS, device="cuda")))
+            run_once(deep)
+            _, steps_deep, dt_deep = run_once(deep)
+        rate = best_steps / best
+        eff = best_steps * (dt_deep / steps_deep) / best
+        rates[k] = rate
+        label = "phase 4's route (no tree_opts)" if k is None \
+            else f"n_sweep {k}"
+        print(f"[bench] {label} on {card}: {rate:.4g} chain leapfrog "
+              f"steps/s ({best_steps} steps in {best * 1e3:.2f} ms, "
+              f"{best / BENCH_TRANSITIONS * 1e3:.4f} ms per transition), "
+              f"leaf_work_over_wall {eff:.4f} (probe {steps_deep} steps in "
+              f"{dt_deep * 1e3:.2f} ms)")
+    fastest = max(SWEEP_KS, key=lambda k: rates[k])
+    print(f"[bench] fastest n_sweep {fastest} ({rates[fastest]:.4g} "
+          f"steps/s); the flagship phase ran FLAGSHIP_K = {FLAGSHIP_K} "
+          f"({rates[FLAGSHIP_K]:.4g})")
+    return fastest
 
 
 def crossover(card: str, eps: float = 0.3) -> None:
@@ -687,6 +981,8 @@ def main() -> int:
     k1 = check_logistic_kernel(card)
     k3 = check_leapfrog_kernel(card)
     check_tree_kernel(card)
+    check_generator(card)
+    check_sweep(card)
     print(f"[phase] kernel checks {time.perf_counter() - t:.2f} s")
     t = time.perf_counter()
     launches = run_sample(card, kernels)
@@ -705,6 +1001,21 @@ def main() -> int:
     del res
     print(f"[phase] whole-tree sample {time.perf_counter() - t:.2f} s")
     t = time.perf_counter()
+    topts = {"refresh_inside": True, "padded_io": True,
+             "n_sweep": FLAGSHIP_K}
+    res, launches, sample_s = run_gaussian_sample(
+        card, kernels, G_DIM, G_CHAINS, G_DRAWS, "tree", topts)
+    k5s = tree_at_state(card, res, "refresh", FLAGSHIP_K)
+    k5s["launches"] = launches["tree_gaussian.cu"]
+    n_launch = G_DRAWS // FLAGSHIP_K
+    print(f"[flagship {G_CHAINS}] K5 device time {n_launch} x "
+          f"{k5s['ms']:.4f} ms = {n_launch * k5s['ms'] / 1e3:.4f} s of the "
+          f"{sample_s:.4f} s sampling wall ({sample_s / G_DRAWS * 1e3:.4f} "
+          f"ms per transition)")
+    del res
+    bench_flagship(card)
+    print(f"[phase] flagship {time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
     res, _, _ = run_gaussian_sample(card, kernels, G_DIM, S_CHAINS, S_DRAWS,
                                     "tree")
     tree_at_state(card, res)
@@ -720,7 +1031,7 @@ def main() -> int:
     crossover(card)
     print(f"[phase] crossover {time.perf_counter() - t:.2f} s")
     print(f"[phase] total {time.perf_counter() - t_start:.2f} s")
-    print(json.dumps({"kernels": [k1, k3, k5]}))
+    print(json.dumps({"kernels": [k1, k3, k5, k5s]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,14 +12,16 @@ through a fused kernel: ``transition_factory(metric, n_chains)`` returns a
 whole-tree transition (or ``None``), ``step_factory(metric)`` a fused
 leapfrog ``step_fn`` for the lockstep tree (or ``None``).  Each factory is
 called once per window with the window's metric, so a metric re-estimate
-rebuilds the closure.  Not ported yet: streamed metric moments, chunked
-tuning windows, work-sorted scheduling, the whole-tree sweep runner and
-split-moment sampling.
+rebuilds the closure.  A whole-tree transition built with ``padded_io``
+carries a :class:`SweepRunner`, and the sampling loop then runs its kernel's
+persistent padded loop, ``n_sweep`` transitions per launch.  Not ported
+yet: streamed metric moments, chunked tuning windows, work-sorted
+scheduling and split-moment sampling.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -30,6 +32,7 @@ from ..core.metric import (Metric, estimate_dense_metric, estimate_diag_metric,
                            identity_metric, sample_momentum)
 from ..core.state import EvalPoint, PhasePoint, TreeStats, WarmupState
 from ..nuts.tree import nuts_transition
+from ..ops.common import chain_tiles
 from .optimize import lbfgs_batched
 from .step_size import (da_current_eps, da_final_eps, da_init, da_update,
                         find_initial_stepsize)
@@ -202,26 +205,102 @@ def finalize_tuning(stage: TuningNUTS, state: WarmupState, z: EvalPoint, da,
 
 class SamplingResult(NamedTuple):
     z: EvalPoint
-    draws: torch.Tensor   # [N, C, D]
+    draws: torch.Tensor   # [N, C, D] (or [N, C, len(keep_dims)])
     stats: TreeStats      # [N, C]
+
+
+class SweepRunner(NamedTuple):
+    """Sweep metadata a transition factory attaches (as ``_sweep``) to the
+    per-transition function when the whole-tree kernel was built with
+    ``padded_io``: :func:`run_sampling` then drives the persistent padded
+    loop instead of the per-transition path."""
+
+    run_padded: Callable   # (gen, q_pad, eps_col, valid_col) -> (q, lp, g, st)
+    n_sweep: int           # transitions per kernel launch
+    block_c: int           # chain tile: C is padded up to a multiple of it
+
+
+def _run_sampling_swept(gen: torch.Generator, potential: Callable,
+                        state: WarmupState, n_draws: int, sweep: SweepRunner,
+                        thin: int, kd: Optional[torch.Tensor]
+                        ) -> SamplingResult:
+    """Sampling through the kernel's padded persistent loop: the state is one
+    ``[cpad, D]`` block, and each launch runs ``n_sweep`` sequential
+    transitions from it; the last transition of its draws is the next
+    launch's start.  Semantics match the per-transition path: with
+    ``thin``, every ``thin``-th transition's draw and stats are recorded.
+    Between launches the loop only copies the recorded rows out of the
+    launch's buffers."""
+    q = state.z.q
+    c, dim = q.shape
+    dev = q.device
+    dt = torch.float32 if dev.type == "cuda" else q.dtype
+    cpad, _ = chain_tiles(c, sweep.block_c)
+    k = sweep.n_sweep
+    kr = k // thin                       # draws recorded per launch
+    n_launch = (n_draws * thin) // k
+
+    eps = torch.exp(state.log_eps).to(dt)
+    eps_col = torch.zeros((cpad,), dtype=dt, device=dev)
+    eps_col[:c] = eps.expand(c)
+    valid_col = torch.zeros((cpad,), dtype=torch.int32, device=dev)
+    valid_col[:c] = 1
+    q_pad = torch.zeros((cpad, dim), dtype=dt, device=dev)
+    q_pad[:c] = q
+    n_rec = dim if kd is None else kd.numel()
+    draws = torch.empty((n_draws, c, n_rec), dtype=q.dtype, device=dev)
+    stats = TreeStats(*(torch.empty((n_draws, c), dtype=dtype, device=dev)
+                        for dtype in (q.dtype, q.dtype) + (torch.int32,) * 5))
+    for i in range(n_launch):
+        q_draws, _, _, st = sweep.run_padded(gen, q_pad, eps_col, valid_col)
+        rows = slice(i * kr, (i + 1) * kr)
+        rec = q_draws[thin - 1::thin, :c]
+        draws[rows] = rec if kd is None else rec.index_select(2, kd)
+        for dst, src in zip(stats, st):
+            dst[rows] = src[thin - 1::thin, :c]
+        q_pad = q_draws[-1]
+    # logp and grad of the final state, once: the loop carries q only (a
+    # copy: q_pad is a view of the runner's buffers)
+    z = evaluate(potential, q_pad[:c].to(q.dtype, copy=True))
+    return SamplingResult(z=z, draws=draws, stats=stats)
 
 
 def run_sampling(gen: torch.Generator, potential: Callable, algorithm: NUTS,
                  state: WarmupState, n_draws: int,
                  step_factory: Optional[Callable] = None,
-                 transition_factory: Optional[Callable] = None
+                 transition_factory: Optional[Callable] = None,
+                 thin: int = 1,
+                 keep_dims: Optional[Sequence[int]] = None
                  ) -> SamplingResult:
-    """The post-warmup loop: fixed eps and metric, ``n_draws`` transitions,
-    positions and tree statistics recorded."""
+    """The post-warmup loop: fixed eps and metric, ``n_draws`` recorded
+    transitions.  ``thin > 1`` runs ``thin`` transitions per recorded draw
+    (keeping the last, with its statistics); ``keep_dims`` records only
+    those coordinates (the state still advances in every one).
+
+    When the whole-tree transition carries a :class:`SweepRunner` and the
+    loop divides evenly (``n_sweep % thin == 0`` and ``n_draws * thin %
+    n_sweep == 0``), the loop runs ``n_sweep`` transitions per launch on a
+    padded persistent state; otherwise one transition at a time."""
+    if thin < 1:
+        raise ValueError(f"thin must be >= 1, got {thin}")
     eps = torch.exp(state.log_eps)
     z = state.z
-    draws = torch.empty((n_draws,) + tuple(z.q.shape), dtype=z.q.dtype,
+    kd = None if keep_dims is None else torch.as_tensor(
+        list(keep_dims), dtype=torch.int64, device=z.q.device)
+    kw = _fused(state, step_factory, transition_factory)
+    sweep = getattr(kw["fused_trans"], "_sweep", None)
+    if (sweep is not None and sweep.n_sweep % thin == 0
+            and (n_draws * thin) % sweep.n_sweep == 0):
+        return _run_sampling_swept(gen, potential, state, n_draws, sweep,
+                                   thin, kd)
+    n_rec = z.q.shape[1] if kd is None else kd.numel()
+    draws = torch.empty((n_draws, z.q.shape[0], n_rec), dtype=z.q.dtype,
                         device=z.q.device)
     stats = []
-    kw = _fused(state, step_factory, transition_factory)
     for i in range(n_draws):
-        z, st = _one_transition(gen, z, eps, potential=potential,
-                                algorithm=algorithm, **kw)
-        draws[i] = z.q
+        for _ in range(thin):
+            z, st = _one_transition(gen, z, eps, potential=potential,
+                                    algorithm=algorithm, **kw)
+        draws[i] = z.q if kd is None else z.q.index_select(1, kd)
         stats.append(st)
     return SamplingResult(z=z, draws=draws, stats=_stack_stats(stats))

@@ -114,8 +114,10 @@ class CudaKernel:
 
 
 def build_all(kernels: Sequence[CudaKernel]) -> None:
-    """Build every kernel's library at once: one ``nvcc`` process per source,
-    all started together, so the builds take about as long as the slowest."""
-    with concurrent.futures.ThreadPoolExecutor(max(len(kernels), 1)) as pool:
-        for job in [pool.submit(k.build) for k in kernels]:
+    """Build every kernel's library at once: one ``nvcc`` process per source
+    (launchers of one source share its library), all started together, so
+    the builds take about as long as the slowest."""
+    by_source = {k.source: k for k in kernels}
+    with concurrent.futures.ThreadPoolExecutor(max(len(by_source), 1)) as pool:
+        for job in [pool.submit(k.build) for k in by_source.values()]:
             job.result()

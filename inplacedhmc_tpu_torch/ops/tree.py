@@ -1,29 +1,36 @@
 """The whole NUTS transition in one kernel, for diagonal-Gaussian targets.
 
-The port's counterpart of ``inplacedhmc_tpu/ops/tree_pallas.py`` in the form
-``make_gaussian_tree_transition`` builds with explicit momentum, direction
-words and proposal uniforms (``_make_kernel`` with ``dense=False`` and the
-interpret-mode uniform layout).  For targets with ``grad = -Lambda q`` and a
-diagonal ``M^-1`` the transition is the lockstep tree's (``nuts/tree.py``),
-field for field: the momentum-refresh energy, the doubling loop, the leapfrog
-leaves, the generalized U-turn checks on the checkpoint stack, the
-progressive and biased proposals, divergence at ``delta < min_delta``, the
-acceptance sum ``sum exp(min(delta, 0))`` and the termination records.
+The port's counterpart of ``inplacedhmc_tpu/ops/tree_pallas.py``
+(``_make_kernel`` with ``dense=False`` and Gaussian physics,
+``_build_transition_padded``, ``make_gaussian_tree_transition``).  For
+targets with ``grad = -Lambda q`` and a diagonal ``M^-1`` the transition is
+the lockstep tree's (``nuts/tree.py``), field for field: the momentum-refresh
+energy, the doubling loop, the leapfrog leaves, the generalized U-turn checks
+on the checkpoint stack, the progressive and biased proposals, divergence at
+``delta < min_delta``, the acceptance sum ``sum exp(min(delta, 0))`` and the
+termination records.
 
-The proposal uniforms are an explicit ``[2^md - 1 + md, C]`` array: leaf
-``n`` of the subtree of depth ``d`` reads row ``2^d - 1 + n``, the merge at
-depth ``d`` row ``2^md - 1 + d``.  So a chain's result depends on its own
-column only, whichever chains run beside it.
+One launch runs ``n_sweep = K`` sequential transitions from a start it only
+reads, the proposal of each the start of the next (the last one the carry
+of the next launch), and rows whose ``valid`` is 0 (the padding of
+``block_c`` tiles) start inactive.  Its random numbers come from the
+Philox generator of ``utils/philox.py``, keyed by two words per launch: the
+proposal uniforms always (JAX's ``use_prng``), and under ``refresh_inside``
+the momentum and the direction word too.  Leaf ``n`` of the subtree of depth
+``d`` reads uniform slot ``2^d - 1 + n``, the merge at depth ``d`` slot
+``2^md - 1 + d``; so a chain's result depends on its own draws only,
+whichever chains run beside it.  The explicit arrays of the TPU kernel's
+interpret mode stay as test hooks: momentum ``[K, C, D]``, direction words
+``[K, C]``, uniforms ``[K, 2^md - 1 + md, C]``.
 
-On a CUDA tensor :func:`gaussian_tree_transition` launches the hand-written
-kernel ``csrc/tree_gaussian.cu`` (one warp per chain); on a CPU tensor it
-runs :func:`gaussian_tree_transition_plain`, the lockstep form over all
-chains in plain torch.  There is no other path: a CUDA tensor launches the
-kernel or raises.
+On a CUDA tensor :func:`gaussian_tree_sweep` launches the hand-written kernel
+``csrc/tree_gaussian.cu`` (one warp per chain); on a CPU tensor it runs
+:func:`gaussian_tree_sweep_plain`, the lockstep form over all chains in plain
+torch, drawing the same Philox numbers.  There is no other path: a CUDA
+tensor launches the kernel or raises.
 
 Not ported yet: the dense-metric branch, logistic and other model physics,
-in-kernel random numbers (``refresh_inside``), persistent padded state,
-sweeps and bf16 checkpoint stacks.
+bf16 checkpoint stacks and D above 256.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ import torch
 
 from ..core.metric import DiagMetric, diag_metric, sample_momentum
 from ..core.state import EvalPoint, Termination, TreeStats
+from ..utils import philox
 from ..utils.bits import checkpoint_slot, direction_bit, trailing_ones
 from .common import check_tensor
 from .cuda_build import CudaKernel
@@ -43,23 +51,29 @@ from .cuda_build import CudaKernel
 #: its launches
 TREE_GAUSSIAN = CudaKernel(
     "tree_gaussian.cu", "tree_gaussian_launch",
-    [ctypes.c_void_p] * 17 + [ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-                              ctypes.c_float, ctypes.c_void_p])
+    [ctypes.c_void_p] * 19 + [ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                              ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                              ctypes.c_void_p])
+#: the same source's second launcher: it writes what the kernel's generator
+#: draws (the check of the generator against ``utils/philox.py``)
+PHILOX_DRAWS = CudaKernel(
+    "tree_gaussian.cu", "philox_draws_launch",
+    [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                             ctypes.c_int, ctypes.c_void_p])
 
 #: largest dimension the kernel's register tiles take (32 lanes x 8)
 MAX_DIM = 256
-#: largest uniform array one transition draws, in bytes: 1 GiB takes md 10
-#: up to 259,860 chains, md 14 up to 16,371.  In-kernel random numbers
-#: (ROADMAP queue 2, item 1 (b)) remove the array and this limit.
-MAX_UNIFORM_BYTES = 1 << 30
 
 
 class TreeOut(NamedTuple):
-    """What one transition returns for every chain: the proposal's ``q``,
+    """What the transitions return for every chain: the proposal's ``q``,
     ``logp`` and ``grad``, ``energy = pi0 + delta`` of the proposal,
-    ``log_sum_alpha = log sum exp(min(delta, 0))`` over the visited leaves,
-    and the int32 records ``term``, ``term_left``, ``term_right``,
-    ``depth`` and ``steps``."""
+    ``log_sum_alpha = log sum exp(min(delta, 0))`` over the visited leaves
+    (the acceptance statistic is derived from it, :func:`acceptance`), and
+    the int32 records ``term``, ``term_left``, ``term_right``, ``depth`` and
+    ``steps``: the TPU kernel's outputs.  From a sweep every field but
+    ``grad`` (that of the final proposal) has a leading axis of the ``K``
+    transitions, and ``q[K - 1]`` is the sweep's carry."""
 
     q: torch.Tensor
     logp: torch.Tensor
@@ -73,16 +87,26 @@ class TreeOut(NamedTuple):
     steps: torch.Tensor
 
 
+def acceptance(log_sum_alpha: torch.Tensor,
+               steps: torch.Tensor) -> torch.Tensor:
+    """The acceptance statistic ``min(exp(log_sum_alpha) / max(steps, 1),
+    1)``, as the JAX package derives it from the kernel's outputs."""
+    return torch.clamp(torch.exp(log_sum_alpha)
+                       / torch.clamp(steps, min=1).to(log_sum_alpha.dtype),
+                       max=1.0)
+
+
 def n_uniforms(max_depth: int) -> int:
-    """Rows of the uniform array: one per leaf position, one per merge."""
+    """Uniform slots of one transition: one per leaf position, one per
+    merge."""
     return (1 << max_depth) - 1 + max_depth
 
 
-def takes(dim: int, n_chains: int, max_depth: int) -> bool:
-    """Whether the kernel takes this problem: ``dim <= MAX_DIM`` and a
-    float32 uniform array of at most ``MAX_UNIFORM_BYTES``."""
-    return (dim <= MAX_DIM
-            and 4 * n_uniforms(max_depth) * n_chains <= MAX_UNIFORM_BYTES)
+def takes(dim: int) -> bool:
+    """Whether the kernel takes this problem: ``dim <= MAX_DIM``.  Its random
+    numbers are drawn inside it, so the chain count and ``max_depth`` set no
+    bound."""
+    return dim <= MAX_DIM
 
 
 def _check_max_depth(max_depth: int) -> None:
@@ -92,13 +116,19 @@ def _check_max_depth(max_depth: int) -> None:
 
 
 def gaussian_tree_transition_plain(q0, p0, eps, dirs, unif, lam, minv,
-                                   max_depth: int, min_delta: float
-                                   ) -> TreeOut:
-    """Plain torch version of the kernel, in ``q0``'s dtype and on its device:
-    every chain in lockstep, each update masked by the chain's own state.
-    ``q0, p0 [C, D]``; ``eps [C]``; ``dirs [C]`` 32-bit direction words
-    (any integer dtype); ``unif [2^md - 1 + md, C]``; ``lam, minv [D]``."""
+                                   max_depth: int, min_delta: float,
+                                   valid=None) -> TreeOut:
+    """Plain torch version of one transition of the kernel, in ``q0``'s
+    dtype and on its device: every chain in lockstep, each update masked by
+    the chain's own state.  ``q0, p0 [C, D]``; ``eps [C]``; ``dirs [C]``
+    32-bit direction words (any integer dtype); ``unif`` the
+    ``[2^md - 1 + md, C]`` proposal uniforms, or a function of a list of
+    slots returning their rows ``[len(slots), C]`` (the generator's draws,
+    made only for the depths a tree reaches); ``lam, minv [D]``; ``valid
+    [C]`` (default all): rows with 0 start inactive and keep the records of
+    an empty tree."""
     _check_max_depth(max_depth)
+    rows = unif if callable(unif) else (lambda slots: unif[slots])
     c, dim = q0.shape
     dt, dev = q0.dtype, q0.device
     md = max_depth
@@ -131,13 +161,17 @@ def gaussian_tree_transition_plain(q0, p0, eps, dirs, unif, lam, minv,
     tr = torch.zeros((c,), **i32)
     die_l = torch.zeros((c,), **i32)
     die_r = torch.zeros((c,), **i32)
-    active = torch.ones((c,), dtype=torch.bool, device=dev)
+    active = torch.ones((c,), dtype=torch.bool, device=dev) if valid is None \
+        else torch.as_tensor(valid, device=dev) != 0
     ckpt_s = torch.zeros((c, md, dim), **col)
     ckpt_ps = torch.zeros((c, md, dim), **col)
 
     for d in range(md):
         if not bool(active.any()):
             break
+        # this depth's leaf uniforms, then its merge uniform
+        u_d = rows(list(range((1 << d) - 1, (1 << (d + 1)) - 1))
+                   + [(1 << md) - 1 + d])
         isf = direction_bit(dirs, d)
         signi = torch.where(isf, 1, -1).to(torch.int32)
         eps_signed = torch.where(isf, 1.0, -1.0).to(dt) * eps
@@ -198,7 +232,7 @@ def gaussian_tree_transition_plain(q0, p0, eps, dirs, unif, lam, minv,
             turning = turning & ~divergent
 
             omega_new = torch.logaddexp(omega_sub, delta)
-            u = unif[(1 << d) - 1 + n]
+            u = u_d[n]
             upd = mask & ~divergent
             take = upd & (torch.log(u) < (delta - omega_new))
             sub_q = where(take, q_new, sub_q)
@@ -221,7 +255,7 @@ def gaussian_tree_transition_plain(q0, p0, eps, dirs, unif, lam, minv,
 
         # merge the subtree into the trajectory
         ok = alive
-        u2 = unif[(1 << md) - 1 + d]
+        u2 = u_d[-1]
         take2 = ok & (torch.log(u2) < (omega_sub - omega))
         prop_q = where(take2, sub_q, prop_q)
         prop_delta = torch.where(take2, sub_delta, prop_delta)
@@ -256,53 +290,195 @@ def gaussian_tree_transition_plain(q0, p0, eps, dirs, unif, lam, minv,
                    term_left=tl, term_right=tr, depth=depth, steps=steps)
 
 
-def gaussian_tree_transition(q0: torch.Tensor, p0: torch.Tensor,
-                             eps: torch.Tensor, dirs: torch.Tensor,
-                             unif: torch.Tensor, lam: torch.Tensor,
-                             minv: torch.Tensor, max_depth: int,
-                             min_delta: float) -> TreeOut:
-    """One transition for every chain.  CPU tensors take the plain version;
-    CUDA tensors launch ``csrc/tree_gaussian.cu`` on the current stream
-    (float32 and contiguous, ``dirs`` int32, ``D <= 256``) or raise."""
-    if q0.device.type == "cpu":
-        return gaussian_tree_transition_plain(q0, p0, eps, dirs, unif, lam,
-                                              minv, max_depth, min_delta)
+def _draws_at(s: int, rows, dim: int, dt, momentum, dirs, unif, key,
+              sqrt_mass):
+    """Transition ``s``'s momentum, direction words and uniforms: from the
+    explicit stacks where given, else from the generator (the momentum as
+    ``sqrt_mass * xi``)."""
+    if momentum is None:
+        p0 = sqrt_mass * philox.normals(key, rows, s, dim, dt)
+        d_s = philox.direction_words(key, rows, s)
+    else:
+        p0, d_s = momentum[s], dirs[s]
+    if unif is not None:
+        return p0, d_s, unif[s]
+    return p0, d_s, (lambda slots: philox.uniforms(key, rows, s, slots, dt))
+
+
+def gaussian_tree_sweep_plain(q0, eps, lam, minv, max_depth: int,
+                              min_delta: float, n_sweep: int = 1, *,
+                              momentum=None, dirs=None, unif=None, key=None,
+                              sqrt_mass=None, valid=None) -> TreeOut:
+    """Plain torch version of one launch: ``n_sweep`` transitions from
+    ``q0 [C, D]``, each starting from the last one's proposal.  Either
+    ``momentum [K, C, D]`` and ``dirs [K, C]`` are given, or they are drawn
+    from ``key`` (``refresh_inside``: the momentum is ``sqrt_mass * xi``);
+    ``unif [K, 2^md - 1 + md, C]`` is given or drawn from ``key``.  Returns
+    the fields of every transition with a leading ``K`` axis, and the final
+    proposal's gradient."""
+    c, dim = q0.shape
+    rows = torch.arange(c, dtype=torch.int64, device=q0.device)
+    q, outs = q0, []
+    for s in range(n_sweep):
+        p0, d_s, u_s = _draws_at(s, rows, dim, q0.dtype, momentum, dirs,
+                                 unif, key, sqrt_mass)
+        out = gaussian_tree_transition_plain(q, p0, eps, d_s, u_s, lam, minv,
+                                             max_depth, min_delta, valid)
+        outs.append(out)
+        q = out.q
+    return TreeOut(*(out.grad if f == "grad" else
+                     torch.stack([getattr(o, f) for o in outs])
+                     for f in TreeOut._fields))
+
+
+_INT_FIELDS = ("term", "term_left", "term_right", "depth", "steps")
+
+
+def _empty_out(lead: tuple, c: int, d: int, device) -> TreeOut:
+    """Output buffers: ``lead = (K,)`` for a sweep, ``()`` for one
+    transition (the kernel writes the same layout)."""
+    f32 = dict(dtype=torch.float32, device=device)
+    i32 = dict(dtype=torch.int32, device=device)
+    return TreeOut(
+        q=torch.empty(lead + (c, d), **f32),
+        logp=torch.empty(lead + (c,), **f32),
+        grad=torch.empty((c, d), **f32),
+        **{f: torch.empty(lead + (c,), **f32)
+           for f in ("energy", "log_sum_alpha")},
+        **{f: torch.empty(lead + (c,), **i32) for f in _INT_FIELDS})
+
+
+def _check_draws(momentum, dirs, sqrt_mass, unif, key) -> bool:
+    """Whether the call refreshes inside (no momentum given); raises on a
+    combination the kernel cannot take."""
+    refresh = momentum is None
+    if refresh and (dirs is not None or sqrt_mass is None):
+        raise ValueError("tree kernel: without momentum, pass sqrt_mass and "
+                         "no dirs (both are drawn from the key)")
+    if not refresh and dirs is None:
+        raise ValueError("tree kernel: momentum needs its direction words")
+    if (refresh or unif is None) and key is None:
+        raise ValueError("tree kernel: a key is needed to draw")
+    return refresh
+
+
+def _launch(q0, eps, lam, minv, max_depth: int, min_delta: float, k: int,
+            lead: tuple, momentum, dirs, unif, key, sqrt_mass, valid, out,
+            refresh: bool) -> TreeOut:
+    """Check what ``csrc/tree_gaussian.cu`` reads through raw pointers and
+    launch it on the current stream.  ``lead`` is ``(k,)`` for arrays with
+    a sweep axis, ``()`` for one transition without one."""
     if q0.device.type != "cuda":
         raise ValueError(f"tree kernel: unsupported device {q0.device}")
-    _check_max_depth(max_depth)
     if q0.ndim != 2:
         raise ValueError("tree kernel: q0 must be 2-D")
     c, d = q0.shape
     if not 1 <= d <= MAX_DIM:
         raise ValueError(f"tree kernel: D={d} outside [1, {MAX_DIM}]")
+    dev = q0.device
     checks = [("q0", q0, (c, d), torch.float32),
-              ("p0", p0, (c, d), torch.float32),
               ("eps", eps, (c,), torch.float32),
-              ("dirs", dirs, (c,), torch.int32),
-              ("unif", unif, (n_uniforms(max_depth), c), torch.float32),
               ("lam", lam, (d,), torch.float32),
               ("minv", minv, (d,), torch.float32)]
+    if refresh:
+        checks.append(("sqrt_mass", sqrt_mass, (d,), torch.float32))
+    else:
+        checks += [("momentum", momentum, lead + (c, d), torch.float32),
+                   ("dirs", dirs, lead + (c,), torch.int32)]
+    if unif is not None:
+        checks.append(("unif", unif, lead + (n_uniforms(max_depth), c),
+                       torch.float32))
+    if key is not None:
+        checks.append(("key", key, (2,), torch.int64))
+    if valid is not None:
+        checks.append(("valid", valid, (c,), torch.int32))
+    if out is None:
+        out = _empty_out(lead, c, d, dev)
+    else:
+        for name, t in zip(TreeOut._fields, out):
+            shape = (c, d) if name == "grad" else \
+                lead + (c, d) if name == "q" else lead + (c,)
+            dtype = torch.int32 if name in _INT_FIELDS else torch.float32
+            checks.append((f"out.{name}", t, shape, dtype))
     for name, t, shape, dtype in checks:
-        check_tensor("tree kernel", name, t, shape, q0.device, dtype)
-    f32 = dict(dtype=torch.float32, device=q0.device)
-    i32 = dict(dtype=torch.int32, device=q0.device)
-    out = TreeOut(q=torch.empty((c, d), **f32), logp=torch.empty((c,), **f32),
-                  grad=torch.empty((c, d), **f32),
-                  energy=torch.empty((c,), **f32),
-                  log_sum_alpha=torch.empty((c,), **f32),
-                  term=torch.empty((c,), **i32),
-                  term_left=torch.empty((c,), **i32),
-                  term_right=torch.empty((c,), **i32),
-                  depth=torch.empty((c,), **i32),
-                  steps=torch.empty((c,), **i32))
-    with torch.cuda.device(q0.device):
-        stream = torch.cuda.current_stream(q0.device).cuda_stream
+        check_tensor("tree kernel", name, t, shape, dev, dtype)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
         TREE_GAUSSIAN.launch(
-            q0.data_ptr(), p0.data_ptr(), eps.data_ptr(), dirs.data_ptr(),
-            unif.data_ptr(), lam.data_ptr(), minv.data_ptr(),
-            *(t.data_ptr() for t in out), c, d, max_depth, float(min_delta),
-            stream)
+            q0.data_ptr(), ptr(sqrt_mass if refresh else momentum),
+            eps.data_ptr(), ptr(dirs), ptr(valid), ptr(key), ptr(unif),
+            lam.data_ptr(), minv.data_ptr(), *(t.data_ptr() for t in out),
+            c, d, max_depth, k, int(refresh), float(min_delta), stream)
     return out
+
+
+def gaussian_tree_sweep(q0: torch.Tensor, eps: torch.Tensor,
+                        lam: torch.Tensor, minv: torch.Tensor,
+                        max_depth: int, min_delta: float, n_sweep: int = 1,
+                        *, momentum=None, dirs=None, unif=None, key=None,
+                        sqrt_mass=None, valid=None, out=None) -> TreeOut:
+    """``n_sweep`` transitions of every chain in one launch, from
+    ``q0 [C, D]``, which is only read (on the card it may be the last
+    transition of ``out.q``: the previous launch's carry).  CPU tensors
+    take the plain version (:func:`gaussian_tree_sweep_plain`); CUDA
+    tensors launch ``csrc/tree_gaussian.cu`` on the current stream or raise.
+    On the card everything is float32 and contiguous: ``eps [C]``, ``lam,
+    minv [D]``; ``momentum [K, C, D]`` and ``dirs [K, C]`` int32, or neither
+    and ``sqrt_mass [D]`` (``refresh_inside``); ``unif [K, 2^md - 1 + md,
+    C]`` or none; ``key [2]`` int64 where anything is drawn; ``valid [C]``
+    int32 or none (every row valid).  ``out``: a :class:`TreeOut` of
+    buffers to write into (a sampling loop's, allocated once); the returned
+    tensors are those buffers, so the next call with them overwrites
+    them."""
+    refresh = _check_draws(momentum, dirs, sqrt_mass, unif, key)
+    _check_max_depth(max_depth)
+    if n_sweep < 1:
+        raise ValueError(f"n_sweep must be >= 1, got {n_sweep}")
+    if q0.device.type == "cpu":
+        return gaussian_tree_sweep_plain(
+            q0, eps, lam, minv, max_depth, min_delta, n_sweep,
+            momentum=momentum, dirs=dirs, unif=unif, key=key,
+            sqrt_mass=sqrt_mass, valid=valid)
+    return _launch(q0, eps, lam, minv, max_depth, min_delta, n_sweep,
+                   (n_sweep,), momentum, dirs, unif, key, sqrt_mass, valid,
+                   out, refresh)
+
+
+def gaussian_tree_transition(q0: torch.Tensor, p0, eps: torch.Tensor, dirs,
+                             unif, lam: torch.Tensor, minv: torch.Tensor,
+                             max_depth: int, min_delta: float, *,
+                             key=None, valid=None,
+                             sqrt_mass=None) -> TreeOut:
+    """One transition for every chain, with no sweep axis: with the given
+    momentum ``p0 [C, D]`` and direction words ``dirs [C]`` (int32 on the
+    card), or with ``p0 = dirs = None`` and ``sqrt_mass [D]`` both drawn
+    from ``key`` (``refresh_inside``); with the uniforms ``unif [2^md - 1 +
+    md, C]`` or, with ``unif=None``, those the generator draws from
+    ``key``.  CPU tensors take the plain version; CUDA tensors launch
+    ``csrc/tree_gaussian.cu`` (float32 and contiguous, ``D <= 256``) or
+    raise."""
+    refresh = _check_draws(p0, dirs, sqrt_mass, unif, key)
+    _check_max_depth(max_depth)
+    if q0.device.type == "cpu":
+        if refresh:
+            out = gaussian_tree_sweep_plain(
+                q0, eps, lam, minv, max_depth, min_delta, key=key,
+                sqrt_mass=sqrt_mass, unif=None if unif is None
+                else unif[None], valid=valid)
+            return TreeOut(*(t if f == "grad" else t[0]
+                             for f, t in zip(TreeOut._fields, out)))
+        if unif is None:
+            rows = torch.arange(q0.shape[0], dtype=torch.int64)
+            unif = lambda slots: philox.uniforms(  # noqa: E731
+                key, rows, 0, slots, q0.dtype)
+        return gaussian_tree_transition_plain(
+            q0, p0, eps, dirs, unif, lam, minv, max_depth, min_delta, valid)
+    return _launch(q0, eps, lam, minv, max_depth, min_delta, 1, (), p0, dirs,
+                   unif, key, sqrt_mass, valid, None, refresh)
 
 
 def direction_words_int32(dirs: torch.Tensor) -> torch.Tensor:
@@ -312,22 +488,104 @@ def direction_words_int32(dirs: torch.Tensor) -> torch.Tensor:
     return torch.where(d >= 2 ** 31, d - 2 ** 32, d).to(torch.int32)
 
 
+def philox_draws(key: torch.Tensor, n_chains: int, dim: int, max_depth: int,
+                 n_sweep: int = 1):
+    """What the kernel's generator draws under ``key`` for ``n_sweep``
+    transitions of ``n_chains`` chains: standard normals ``[K, C, D]`` (the
+    momentum before its scale), direction words ``[K, C]`` (int32 bit
+    patterns) and uniforms ``[K, 2^md - 1 + md, C]``, all on ``key``'s
+    device.  On the card they come from the source's second launcher (the
+    kernel's own ``__device__`` generator); on the CPU from
+    ``utils/philox.py``."""
+    dev = key.device
+    k, c, nu = n_sweep, n_chains, n_uniforms(max_depth)
+    if dev.type == "cpu":
+        rows = torch.arange(c, dtype=torch.int64)
+        normals = torch.stack([philox.normals(key, rows, s, dim)
+                               for s in range(k)])
+        dirs = torch.stack([direction_words_int32(
+            philox.direction_words(key, rows, s)) for s in range(k)])
+        unif = torch.stack([philox.uniforms(key, rows, s, range(nu))
+                            for s in range(k)])
+        return normals, dirs, unif
+    check_tensor("philox draws", "key", key, (2,), dev, torch.int64)
+    normals = torch.empty((k, c, dim), dtype=torch.float32, device=dev)
+    dirs = torch.empty((k, c), dtype=torch.int32, device=dev)
+    unif = torch.empty((k, nu, c), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        PHILOX_DRAWS.launch(key.data_ptr(), normals.data_ptr(),
+                            dirs.data_ptr(), unif.data_ptr(), c, dim, nu, k,
+                            stream)
+    return normals, dirs, unif
+
+
+def _stats(out: TreeOut, dtype) -> TreeStats:
+    return TreeStats(energy=out.energy.to(dtype),
+                     acceptance_rate=acceptance(out.log_sum_alpha,
+                                                out.steps).to(dtype),
+                     termination=out.term, term_left=out.term_left,
+                     term_right=out.term_right, depth=out.depth,
+                     steps=out.steps)
+
+
 def make_gaussian_tree_transition(precision, metric_inv, *,
                                   max_depth: int = 10,
-                                  min_delta: float = -1000.0):
+                                  min_delta: float = -1000.0,
+                                  block_c: int = 512,
+                                  refresh_inside: bool = False,
+                                  padded_io: bool = False,
+                                  n_sweep: int = 1):
     """The whole-tree transition for ``grad = -precision * q`` targets with
-    the diagonal ``metric_inv`` (a ``[D]`` tensor or a :class:`DiagMetric`).
+    the diagonal ``metric_inv`` (a ``[D]`` tensor or a :class:`DiagMetric`),
+    as the JAX package's ``make_gaussian_tree_transition`` builds it.
 
     Returns ``transition(gen, z, eps, *, directions=None, momentum=None,
-    unif=None) -> (EvalPoint, TreeStats)`` with the semantics of
-    :func:`inplacedhmc_tpu_torch.nuts.tree.nuts_transition`.  ``gen`` draws,
-    in this order, the momentum, the ``[C]`` direction words and the
-    ``[2^md - 1 + md, C]`` proposal uniforms, each unless given.  The
-    transition runs on ``z.q``'s device, in float32 on the card and in its
-    dtype on the CPU."""
+    unif=None)`` with the semantics of
+    :func:`inplacedhmc_tpu_torch.nuts.tree.nuts_transition`.  ``gen`` draws
+    the momentum and the ``[C]`` direction words (unless given) and the
+    launch's key, from which the kernel draws the proposal uniforms (unless
+    ``unif [2^md - 1 + md, C]`` is given, a test hook).  Under
+    ``refresh_inside`` the kernel draws the momentum and the directions too,
+    and passing them raises.  With ``n_sweep = K > 1`` one call runs K
+    transitions and returns ``(z_final, q_draws [K, C, D], stats [K, C])``;
+    without ``refresh_inside`` it then needs ``momentum [K, C, D]`` and
+    ``directions [K, C]`` (``unif`` is ``[K, 2^md - 1 + md, C]``).
+
+    ``padded_io`` (needs ``refresh_inside``): returns ``(transition,
+    run_padded)``; ``run_padded(gen, q_state, eps_col, valid_col) ->
+    (q_draws [K, cpad, D], logp [K, cpad], grad [cpad, D], stats [K, cpad])``
+    runs one launch on the state of a sampling loop: it starts from
+    ``q_state [cpad, D]`` (chains padded to a multiple of ``block_c``,
+    ``ops.common.chain_tiles``), which it only reads; ``q_draws[-1]`` is the
+    carry, to be passed as the next launch's ``q_state``; ``eps_col
+    [cpad]`` and ``valid_col [cpad]`` int32 (padded rows 0) are the loop's.
+    Between launches it draws the key and nothing else: the outputs are
+    buffers allocated at the first call and overwritten by the next one.
+    ``run_padded`` carries ``block_c``, ``n_sweep`` and ``dim``.
+
+    The transition runs on ``z.q``'s device, in float32 on the card and in
+    its dtype on the CPU."""
     _check_max_depth(max_depth)
+    if n_sweep < 1:
+        raise ValueError(f"n_sweep must be >= 1, got {n_sweep}")
+    if padded_io and not refresh_inside:
+        raise ValueError("padded_io requires refresh_inside")
+    if block_c % 8 != 0:
+        raise ValueError(f"block_c must be a multiple of 8, got {block_c}")
     metric = metric_inv if isinstance(metric_inv, DiagMetric) \
         else diag_metric(torch.as_tensor(metric_inv))
+    dim = metric.inv.shape[-1]
+    consts_cache = {}
+
+    def consts(dev, dt):
+        """precision, M^-1 and the momentum scale on ``dev`` in ``dt``, cast
+        once per device and dtype"""
+        if (dev, dt) not in consts_cache:
+            consts_cache[(dev, dt)] = tuple(
+                torch.as_tensor(t, device=dev).to(dt).contiguous()
+                for t in (precision, metric.inv, metric.sqrt_mass))
+        return consts_cache[(dev, dt)]
 
     def transition(gen: torch.Generator, z: EvalPoint, eps, *,
                    directions=None, momentum=None, unif=None):
@@ -335,33 +593,74 @@ def make_gaussian_tree_transition(precision, metric_inv, *,
         c = q.shape[0]
         dev = q.device
         dt = torch.float32 if dev.type == "cuda" else q.dtype
+        lam, minv, sqrt_mass = consts(dev, dt)
 
         def cast(t):
             return torch.as_tensor(t, device=dev).to(dt).contiguous()
 
-        if momentum is None:
-            momentum = sample_momentum(metric, gen, q.shape, q.dtype)
-        if directions is None:
-            directions = torch.randint(0, 2 ** 32, (c,), generator=gen,
-                                       dtype=torch.int64, device=dev)
-        if unif is None:
-            unif = torch.rand((n_uniforms(max_depth), c), generator=gen,
-                              dtype=dt, device=dev)
-        out = gaussian_tree_transition(
-            cast(q), cast(momentum),
-            torch.as_tensor(eps, dtype=dt, device=dev).expand(c).contiguous(),
-            direction_words_int32(torch.as_tensor(directions, device=dev)),
-            cast(unif), cast(precision), cast(metric.inv), max_depth,
-            min_delta)
-        steps = out.steps
-        accept = torch.exp(out.log_sum_alpha) \
-            / torch.clamp(steps, min=1).to(out.log_sum_alpha.dtype)
-        stats = TreeStats(
-            energy=out.energy.to(q.dtype),
-            acceptance_rate=torch.clamp(accept, max=1.0).to(q.dtype),
-            termination=out.term, term_left=out.term_left,
-            term_right=out.term_right, depth=out.depth, steps=steps)
-        return (EvalPoint(q=out.q.to(q.dtype), logp=out.logp.to(q.dtype),
-                          grad=out.grad.to(q.dtype)), stats)
+        if refresh_inside:
+            if directions is not None or momentum is not None:
+                raise ValueError("refresh_inside draws the momentum and the "
+                                 "directions in the kernel; the explicit "
+                                 "hooks need a refresh_inside=False build")
+        elif n_sweep > 1:
+            if directions is None or momentum is None:
+                raise ValueError("n_sweep > 1 without refresh_inside needs "
+                                 "momentum [K, C, D] and directions [K, C]")
+        else:
+            if momentum is None:
+                momentum = sample_momentum(metric, gen, q.shape, q.dtype)
+            if directions is None:
+                directions = torch.randint(0, 2 ** 32, (c,), generator=gen,
+                                           dtype=torch.int64, device=dev)
+        key = philox.draw_key(gen) if refresh_inside or unif is None \
+            else None
+        q_in = cast(q)
+        eps_c = torch.as_tensor(eps, dtype=dt, device=dev).expand(c) \
+            .contiguous()
+        draws = dict(key=key, sqrt_mass=sqrt_mass if refresh_inside else None)
+        mom = None if momentum is None else cast(momentum)
+        d32 = None if directions is None else direction_words_int32(
+            torch.as_tensor(directions, device=dev))
+        u = None if unif is None else cast(unif)
+        if n_sweep == 1:
+            out = gaussian_tree_transition(q_in, mom, eps_c, d32, u, lam,
+                                           minv, max_depth, min_delta,
+                                           **draws)
+            return (EvalPoint(q=out.q.to(q.dtype), logp=out.logp.to(q.dtype),
+                              grad=out.grad.to(q.dtype)),
+                    _stats(out, q.dtype))
+        out = gaussian_tree_sweep(q_in, eps_c, lam, minv, max_depth,
+                                  min_delta, n_sweep, momentum=mom, dirs=d32,
+                                  unif=u, **draws)
+        z_new = EvalPoint(q=out.q[-1].to(q.dtype),
+                          logp=out.logp[-1].to(q.dtype),
+                          grad=out.grad.to(q.dtype))
+        return z_new, out.q.to(q.dtype), _stats(out, q.dtype)
 
-    return transition
+    if not padded_io:
+        return transition
+
+    buffers = {}
+
+    def run_padded(gen: torch.Generator, q_state: torch.Tensor,
+                   eps_col: torch.Tensor, valid_col: torch.Tensor):
+        dev, dt = q_state.device, q_state.dtype
+        lam, minv, sqrt_mass = consts(dev, dt)
+        buf = None
+        if dev.type == "cuda":
+            shape = tuple(q_state.shape)
+            if buffers.get("shape") != (shape, dev):
+                buffers["shape"] = (shape, dev)
+                buffers["out"] = _empty_out((n_sweep,), *shape, dev)
+            buf = buffers["out"]
+        out = gaussian_tree_sweep(
+            q_state, eps_col, lam, minv, max_depth, min_delta, n_sweep,
+            key=philox.draw_key(gen), sqrt_mass=sqrt_mass, valid=valid_col,
+            out=buf)
+        return out.q, out.logp, out.grad, _stats(out, dt)
+
+    run_padded.block_c = block_c
+    run_padded.n_sweep = n_sweep
+    run_padded.dim = dim
+    return transition, run_padded

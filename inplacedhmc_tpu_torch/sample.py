@@ -15,12 +15,21 @@ Every entry point takes ``device=`` (``"cuda"`` by default; the CPU only when
 the caller asks for it) and a seed or a ``torch.Generator`` on that device;
 no global RNG state is used.
 
+``thin`` and ``keep_dims`` thin the recorded draws and keep some of their
+coordinates.  ``tree_opts`` configure the whole-tree kernel as in the JAX
+package: ``refresh_inside`` (the kernel draws the momentum and the
+directions), ``padded_io`` (the sampling loop runs the kernel's persistent
+padded state; implies ``refresh_inside``), ``n_sweep`` (transitions per
+launch while sampling) and ``block_c`` (the chain tile the state is padded
+to).
+
 Not ported yet, and refused with ``NotImplementedError``: meshes,
 checkpoints, sketches and streamed moments, chunked tuning and blocked
-sampling, thinning, ``keep_dims``, ``post_step`` hooks, work-sorted
-scheduling, and the options of the kernels (``use_kernels``, ``tree_opts``,
-``fused_opts``).  The whole-tree kernel is ported for ``diag_gaussian``
-models only.
+sampling, ``post_step`` hooks, work-sorted scheduling, the options
+``use_kernels`` and ``fused_opts``, the ``ckpt_bf16`` tree option, and
+``tree_opts`` on models whose whole-tree kernel is not ported (logistic,
+dense Gaussian, tile physics).  The whole-tree kernel is ported for
+``diag_gaussian`` models only.
 """
 
 from __future__ import annotations
@@ -43,6 +52,14 @@ from .ops.leapfrog import make_fused_gaussian_leapfrog
 from .ops.logistic import make_logistic_potential
 from .ops.tree import make_gaussian_tree_transition
 from .ops.tree import takes as tree_takes
+
+#: ``tree_opts`` keys of the whole-tree kernel (``inplacedhmc_tpu/sample.py``)
+TREE_OPTS = ("block_c", "ckpt_bf16", "refresh_inside", "padded_io", "n_sweep")
+#: model kinds with a whole-tree kernel in the JAX package that the port has
+#: not ported yet, with their ROADMAP item
+_TREE_NOT_PORTED = {"logistic": "queue 2 item 5",
+                    "dense_gaussian": "queue 2 item 3",
+                    "tile_logp": "queue 2 item 6"}
 
 
 class MCMCResult(NamedTuple):
@@ -140,11 +157,14 @@ class NUTSKernel:
       (``ops/logistic.py``) on the lockstep tree;
     * ``"diag_gaussian"``: with a shared float32 diagonal metric, the
       whole-tree transition (``ops/tree.py``) when there are at least
-      ``TREE_MIN_CHAINS`` chains and the kernel takes the dimension and the
-      uniform array of ``max_depth`` (``ops.tree.takes``), else the lockstep
-      tree with the fused Gaussian leapfrog (``ops/leapfrog.py``) as its
-      ``step_fn``; the factories are called once per tuning window and for
-      the sampling loop, with that stage's metric;
+      ``TREE_MIN_CHAINS`` chains and the kernel takes the dimension
+      (``ops.tree.takes``), else the lockstep tree with the fused Gaussian
+      leapfrog (``ops/leapfrog.py``) as its ``step_fn``; the factories are
+      called once per tuning window and for the sampling loop, with that
+      stage's metric.  ``tree_opts`` configure the whole-tree kernel; with
+      ``padded_io`` the factory builds an ``n_sweep = 1`` transition for the
+      tuning windows and attaches a :class:`~.adapt.warmup.SweepRunner` to
+      it for the sampling loop;
     * any other model: autograd of ``model.logp``.
     """
 
@@ -155,7 +175,7 @@ class NUTSKernel:
     TREE_MIN_CHAINS = 1
 
     def __init__(self, model: Model, algorithm: NUTS = NUTS(),
-                 pooled: bool = True):
+                 pooled: bool = True, tree_opts: Optional[dict] = None):
         self.model = model
         self.algorithm = algorithm
         self.pooled = pooled
@@ -168,18 +188,39 @@ class NUTSKernel:
                                                      st["inv_var"])
         else:
             self.potential = batched_logdensity_and_grad(model.logp)
+        topts = _tree_options(kind, tree_opts)
         if kind == "diag_gaussian":
             prec = st["precision"]
+            # padded/sweep options drive the sampling loop only (tuning
+            # adapts eps per transition, which an in-kernel sweep cannot)
+            sweep_k = int(topts.pop("n_sweep", 1))
+            padded = bool(topts.pop("padded_io", sweep_k > 1))
+            if sweep_k > 1 and not padded:
+                raise ValueError("n_sweep > 1 requires padded_io")
+            if padded:
+                topts["refresh_inside"] = True
 
             def transition_factory(metric, n_chains):
                 if not (_f32_diag(metric)
                         and n_chains >= self.TREE_MIN_CHAINS
-                        and tree_takes(model.dim, n_chains,
-                                       algorithm.max_depth)):
+                        and tree_takes(model.dim)):
                     return None
-                return make_gaussian_tree_transition(
-                    prec, metric, max_depth=algorithm.max_depth,
-                    min_delta=algorithm.min_delta)
+
+                def build(**extra):
+                    return make_gaussian_tree_transition(
+                        prec, metric, max_depth=algorithm.max_depth,
+                        min_delta=algorithm.min_delta, **topts, **extra)
+
+                if not padded:
+                    return build()
+                ptrans, run_padded = build(padded_io=True, n_sweep=sweep_k)
+                # a sweep-shaped transition returns stacked draws; the
+                # tuning windows need the single one
+                trans = ptrans if sweep_k == 1 else build()
+                trans._sweep = W.SweepRunner(run_padded=run_padded,
+                                             n_sweep=sweep_k,
+                                             block_c=run_padded.block_c)
+                return trans
 
             def step_factory(metric):
                 if not _f32_diag(metric):
@@ -240,8 +281,11 @@ class NUTSKernel:
             eps: Optional[float] = None,
             dtype=torch.float32,
             device="cuda",
-            reporter=None) -> MCMCResult:
-        """Warmup, then ``n_draws`` transitions."""
+            reporter=None,
+            thin: int = 1,
+            keep_dims: Optional[Sequence[int]] = None) -> MCMCResult:
+        """Warmup, then ``n_draws`` recorded draws, ``thin`` transitions
+        each; ``keep_dims`` records only those coordinates."""
         reporter = reporter or NoProgressReport()
         if warmup_stages is None:
             warmup_stages = default_warmup_stages()
@@ -256,7 +300,8 @@ class NUTSKernel:
             out = W.run_sampling(
                 gen, self.potential, self.algorithm, state, n_draws,
                 step_factory=self.step_factory,
-                transition_factory=self.transition_factory)
+                transition_factory=self.transition_factory, thin=thin,
+                keep_dims=keep_dims)
             reporter.end_stage()
         ws = None
         if warmup_stats:
@@ -270,11 +315,38 @@ class NUTSKernel:
 
 
 #: options of the JAX drivers that the port does not run yet
-_NOT_PORTED = ("thin", "draw_block", "tuning_chunk", "warmup_checkpoint_path",
-               "sample_checkpoint_path", "keep_dims", "collect_moments",
+_NOT_PORTED = ("draw_block", "tuning_chunk", "warmup_checkpoint_path",
+               "sample_checkpoint_path", "collect_moments",
                "collect_sketch", "store_draws", "sync_blocks",
-               "checkpoint_throttle_s", "fused_opts", "tree_opts",
-               "post_step", "schedule", "use_kernels")
+               "checkpoint_throttle_s", "fused_opts", "post_step",
+               "schedule", "use_kernels")
+
+
+def _tree_options(kind: Optional[str], tree_opts: Optional[dict]) -> dict:
+    """Check ``tree_opts`` as the JAX package does: unknown keys raise
+    ``ValueError``; what the port has not ported raises
+    ``NotImplementedError``.  Models without a whole-tree kernel in either
+    package ignore them, as in JAX."""
+    topts = dict(tree_opts or {})
+    if not topts:
+        return topts
+    if kind in _TREE_NOT_PORTED:
+        raise NotImplementedError(
+            f"tree_opts: the whole-tree kernel for {kind!r} models is not "
+            f"ported to inplacedhmc_tpu_torch yet (ROADMAP "
+            f"{_TREE_NOT_PORTED[kind]})")
+    if kind != "diag_gaussian":
+        return {}
+    unknown = set(topts) - set(TREE_OPTS)
+    if unknown:
+        raise ValueError(
+            f"tree_opts {sorted(unknown)} not supported for model kind "
+            f"{kind!r} (allowed: {sorted(TREE_OPTS)})")
+    if topts.pop("ckpt_bf16", False):
+        raise NotImplementedError(
+            "tree_opts ckpt_bf16 (bf16 checkpoint stacks) is not ported to "
+            "inplacedhmc_tpu_torch yet (ROADMAP queue 2 item 1 (e))")
+    return topts
 
 
 def _refuse(options: dict):
@@ -297,21 +369,26 @@ def mcmc_with_warmup(seed: Union[int, torch.Generator], model: Model,
                      dtype=torch.float32,
                      device="cuda",
                      reporter=None,
+                     thin: int = 1,
+                     keep_dims: Optional[Sequence[int]] = None,
+                     tree_opts: Optional[dict] = None,
                      **not_ported) -> MCMCResult:
     """NUTS with the default windowed warmup on ``device``.  ``delta`` is the
     dual-averaging target acceptance rate; ``pooled`` defaults to
     ``n_chains > 1``; ``seed`` is an int or a ``torch.Generator`` on
-    ``device``."""
+    ``device``; ``thin``, ``keep_dims`` and ``tree_opts`` as in the JAX
+    package (see the module docstring)."""
     _refuse(not_ported)
     if pooled is None:
         pooled = n_chains > 1
     if warmup_stages is None:
         warmup_stages = default_warmup_stages(
             stepsize_adaptation=DualAveraging(delta=delta))
-    kern = NUTSKernel(model, algorithm, pooled)
+    kern = NUTSKernel(model, algorithm, pooled, tree_opts=tree_opts)
     return kern.run(make_generator(seed, device), n_draws, n_chains,
                     warmup_stages=warmup_stages, q=q, metric=metric, eps=eps,
-                    dtype=dtype, device=device, reporter=reporter)
+                    dtype=dtype, device=device, reporter=reporter, thin=thin,
+                    keep_dims=keep_dims)
 
 
 def sample(seed: Union[int, torch.Generator], model: Model, n_draws: int,

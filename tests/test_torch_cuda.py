@@ -1,6 +1,8 @@
 """Tests of the port that need an NVIDIA card: the CUDA kernels K1
 (``csrc/logistic_vg.cu``), K3 (``csrc/leapfrog_gaussian.cu``) and K5
-(``csrc/tree_gaussian.cu``) against their plain torch versions.
+(``csrc/tree_gaussian.cu``: its three drawing forms, its sweeps and its
+generator) against their plain torch versions, and the flagship
+``sample(tree_opts=...)`` path through K5.
 
 They carry the ``cuda`` marker and skip, inside the test, where there is no
 card.  This file imports neither JAX nor the JAX package, so on a machine
@@ -23,10 +25,11 @@ def _torch_port():
     peaks within a few memory mappings of the per-process limit
     (vm.max_map_count), which torch's libraries would push it over."""
     global torch, LOGISTIC_VG, MAX_DIM, logistic_value_and_grad
-    global logistic_value_and_grad_plain, lf, tree
+    global logistic_value_and_grad_plain, lf, tree, philox
     import torch
     import inplacedhmc_tpu_torch.ops.leapfrog as lf
     import inplacedhmc_tpu_torch.ops.tree as tree
+    import inplacedhmc_tpu_torch.utils.philox as philox
     from inplacedhmc_tpu_torch.ops.logistic import (
         LOGISTIC_VG, MAX_DIM, logistic_value_and_grad,
         logistic_value_and_grad_plain)
@@ -222,3 +225,201 @@ def test_cuda_gaussian_wrappers_refuse_what_the_kernels_do_not_take():
                                       -1000.0)
     assert lf.LEAPFROG_GAUSSIAN.launches == lf_before
     assert tree.TREE_GAUSSIAN.launches == tr_before
+
+
+def _key(seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return philox.draw_key(g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,d,md,k", [(37, 7, 5, 3), (300, 100, 10, 2)])
+def test_cuda_generator_matches_plain_philox(c, d, md, k):
+    """The kernel's ``__device__`` Philox (the source's second launcher)
+    against ``utils/philox.py`` run on the card on the same key: direction
+    words and uniforms bit for bit; the Box-Muller normals within 16 ulp of
+    max(1, |x|) (``logf``, ``cosf`` and torch's ``log``, ``cos`` may round
+    differently; ``sqrt(-2 log u1)`` is at most 5.8)."""
+    _needs_card()
+    key = _key(c)
+    before = tree.PHILOX_DRAWS.launches
+    normals, dirs, unif = tree.philox_draws(key, c, d, md, k)
+    torch.cuda.synchronize()
+    assert tree.PHILOX_DRAWS.launches == before + 1
+    rows = torch.arange(c, dtype=torch.int64, device="cuda")
+    for s in range(k):
+        want_dirs = tree.direction_words_int32(
+            philox.direction_words(key, rows, s))
+        assert torch.equal(dirs[s], want_dirs)
+        assert torch.equal(unif[s], philox.uniforms(
+            key, rows, s, range(tree.n_uniforms(md))))
+        want = philox.normals(key, rows, s, d)
+        ulp = 2.0 ** -23 * torch.clamp(want.abs(), min=1.0)
+        assert bool(((normals[s] - want).abs() <= 16 * ulp).all())
+    assert bool((unif >= 0).all() and (unif < 1).all())
+    assert float(normals.abs().max()) <= philox.MAX_NORMAL
+
+
+def _compare_tree_fields(got, want, c, allowed):
+    """At most ``allowed`` chains differ in an integer field; on the others
+    the float fields agree to 1e-4 relative (row sums in another order)."""
+    bad = torch.zeros(c, dtype=torch.bool, device="cuda")
+    for f in INT_OUT:
+        bad |= (getattr(got, f).reshape(c) != getattr(want, f))
+    assert int(bad.sum()) <= allowed
+    ok = ~bad
+    for f in ("q", "logp", "energy", "log_sum_alpha"):
+        g = getattr(got, f).reshape(1, c, -1)
+        w = getattr(want, f).reshape(1, c, -1)
+        same = (g == w) | ((g - w).abs() <= 1e-4 * (1 + w.abs()))
+        assert bool(same[:, ok].all()), f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["prng", "refresh"])
+@pytest.mark.parametrize("c,d", [(37, 7), (45, 65), (21, 256)])
+@pytest.mark.parametrize("eps", [0.25, 2.4])
+def test_cuda_tree_drawing_forms_match_plain(form, c, d, eps):
+    """K5 drawing its own uniforms (``prng``: momentum and directions given)
+    or everything (``refresh``: the momentum as sqrt-mass times its
+    normals), with one row in five not valid, against the plain version fed
+    the draws of the kernel's own generator: as in
+    ``test_cuda_tree_matches_plain_version``; the invalid rows keep the
+    records of an empty tree."""
+    _needs_card()
+    md = 6
+    x = _gaussian(5, c, d, md)
+    e = torch.full((c,), eps, device="cuda")
+    valid = (torch.arange(c, device="cuda") % 5 != 3).to(torch.int32)
+    key = _key(d)
+    xi, dirs, unif = tree.philox_draws(key, c, d, md)
+    sqrt_mass = 1.0 / torch.sqrt(x["minv"])
+    q_state = x["q"].clone()
+    before = tree.TREE_GAUSSIAN.launches
+    if form == "prng":
+        got = tree.gaussian_tree_sweep(
+            q_state, e, x["lam"], x["minv"], md, -1000.0,
+            momentum=x["p"][None], dirs=dirs, key=key, valid=valid)
+        p0 = x["p"]
+    else:
+        got = tree.gaussian_tree_sweep(
+            q_state, e, x["lam"], x["minv"], md, -1000.0, key=key,
+            sqrt_mass=sqrt_mass, valid=valid)
+        p0 = sqrt_mass * xi[0]
+    torch.cuda.synchronize()
+    assert tree.TREE_GAUSSIAN.launches == before + 1
+    want = tree.gaussian_tree_transition_plain(
+        x["q"], p0, e, dirs[0], unif[0], x["lam"], x["minv"], md, -1000.0,
+        valid)
+    _compare_tree_fields(got, want, c, c // 20)
+    assert torch.equal(q_state, x["q"])  # the start is only read
+    assert torch.equal(got.grad, -(x["lam"] * got.q[0]))
+    off = valid == 0
+    assert bool((got.term[0][off] == 0).all() and (got.term_left[0][off] == 1)
+                .all() and (got.term_right[0][off] == 0).all())
+    assert bool((got.depth[0][off] == 0).all()
+                and (got.steps[0][off] == 0).all())
+    assert torch.equal(got.q[0][off], x["q"][off])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [7, 100])
+def test_cuda_sweep_bit_identical_to_single_launches(d):
+    """One launch of K = 5 transitions drawing everything itself, against 5
+    launches of one transition fed what the generator draws for that key
+    (momentum ``sqrt_mass * xi``): every field equal bit for bit."""
+    _needs_card()
+    c, md, k = 70, 7, 5
+    x = _gaussian(6, c, d, md)
+    e = torch.full((c,), 0.3, device="cuda")
+    valid = (torch.arange(c, device="cuda") < 64).to(torch.int32)
+    key = _key(7)
+    sqrt_mass = 1.0 / torch.sqrt(x["minv"])
+    q_state = x["q"].clone()
+    swept = tree.gaussian_tree_sweep(q_state, e, x["lam"], x["minv"], md,
+                                     -1000.0, k, key=key,
+                                     sqrt_mass=sqrt_mass, valid=valid)
+    xi, dirs, unif = tree.philox_draws(key, c, d, md, k)
+    q = x["q"]
+    for s in range(k):
+        one = tree.gaussian_tree_sweep(
+            q, e, x["lam"], x["minv"], md, -1000.0,
+            momentum=(sqrt_mass * xi[s])[None], dirs=dirs[s:s + 1],
+            unif=unif[s:s + 1], valid=valid)
+        for f in tree.TreeOut._fields:
+            if f != "grad":
+                assert torch.equal(getattr(swept, f)[s], getattr(one, f)[0]), \
+                    (s, f)
+        q = one.q[0]
+    assert torch.equal(swept.grad, one.grad)
+    assert torch.equal(swept.q[-1], q)
+    assert torch.equal(q_state, x["q"])  # the start is only read
+
+    # the carry may be the output buffer's last transition: the next launch
+    # from it into the same buffers equals one from a copy into new ones
+    ref = tree.gaussian_tree_sweep(swept.q[-1].clone(), e, x["lam"],
+                                   x["minv"], md, -1000.0, k, key=key,
+                                   sqrt_mass=sqrt_mass, valid=valid)
+    again = tree.gaussian_tree_sweep(swept.q[-1], e, x["lam"], x["minv"], md,
+                                     -1000.0, k, key=key, sqrt_mass=sqrt_mass,
+                                     valid=valid, out=swept)
+    for f in tree.TreeOut._fields:
+        assert torch.equal(getattr(again, f), getattr(ref, f)), f"carry {f}"
+
+
+@pytest.mark.cuda
+def test_cuda_sweep_wrapper_refuses_what_the_kernel_does_not_take():
+    """No key where the kernel must draw, a key of the wrong type, stacks of
+    the wrong depth and an int64 ``valid`` raise before anything is
+    launched."""
+    _needs_card()
+    c, d, md = 16, 9, 4
+    x = _gaussian(8, c, d, md)
+    e = torch.full((c,), 0.3, device="cuda")
+    sm = 1.0 / torch.sqrt(x["minv"])
+    key = _key(9)
+    dirs = tree.direction_words_int32(x["dirs"])[None]
+    before = tree.TREE_GAUSSIAN.launches
+    cases = [dict(sqrt_mass=sm),
+             dict(sqrt_mass=sm, key=key.to(torch.int32)),
+             dict(momentum=x["p"][None], dirs=dirs, key=key,
+                  unif=x["unif"][None][:, 1:]),
+             dict(momentum=x["p"].expand(2, c, d).contiguous(), dirs=dirs,
+                  key=key),
+             dict(sqrt_mass=sm, key=key, valid=torch.ones(c, device="cuda",
+                                                           dtype=torch.int64))]
+    for kw in cases:
+        with pytest.raises(ValueError):
+            tree.gaussian_tree_sweep(x["q"].clone(), e, x["lam"], x["minv"],
+                                     md, -1000.0, **kw)
+    assert tree.TREE_GAUSSIAN.launches == before
+
+
+@pytest.mark.cuda
+def test_cuda_flagship_sample_sweeps_through_the_kernel():
+    """``sample()`` with ``tree_opts={"refresh_inside", "padded_io",
+    "n_sweep": 8}``, ``thin=2`` and ``keep_dims`` on a 6-D standard normal at
+    100 chains (padded to 104 by ``block_c=8``): one K5 launch per tuning
+    transition and one per 8 sampling transitions; the recorded moments
+    within 5 Monte Carlo standard errors."""
+    _needs_card()
+    from inplacedhmc_tpu_torch import TuningNUTS, default_warmup_stages
+    from inplacedhmc_tpu_torch import diagnostics as diag
+    from inplacedhmc_tpu_torch import sample
+    from inplacedhmc_tpu_torch.models import std_normal
+    stages = default_warmup_stages(init_steps=40, middle_steps=25,
+                                   doubling_stages=3, terminating_steps=25)
+    n_warm = sum(s.n for s in stages if isinstance(s, TuningNUTS))
+    tree.TREE_GAUSSIAN.launches = 0
+    res = sample(3, std_normal(6), 256, 100, warmup_stages=stages,
+                 tree_opts={"refresh_inside": True, "padded_io": True,
+                            "n_sweep": 8, "block_c": 8},
+                 thin=2, keep_dims=(0, 3, 5))
+    torch.cuda.synchronize()
+    assert tree.TREE_GAUSSIAN.launches == n_warm + 256 * 2 // 8
+    x = res.draws.double()
+    assert x.shape == (256, 100, 3) and bool(torch.isfinite(x).all())
+    ess = diag.ess_bulk(x, cap=False)
+    assert bool((x.mean(dim=(0, 1)).abs() < 5 * torch.sqrt(1 / ess)).all())
+    assert float(diag.split_rhat(x).max()) < 1.05
+    assert res.stats.steps.shape == (256, 100)

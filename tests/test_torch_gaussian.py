@@ -286,15 +286,16 @@ def test_routes_follow_metric_and_chain_count(monkeypatch):
 
 @pytest.mark.parametrize("dim, n_chains, max_depth, tree", [
     (256, 16, 10, True), (257, 16, 10, False),
-    (3, 16_371, 14, True), (3, 16_372, 14, False)])
+    (3, 16_371, 14, True), (3, 16_372, 14, True)])
 def test_route_follows_what_the_tree_kernel_takes(dim, n_chains, max_depth,
                                                   tree, monkeypatch):
     """The whole-tree route only where its kernel takes the problem: D up to
-    ``ops.tree.MAX_DIM`` (256) and a uniform array of at most 1 GiB
-    (``[2^14 - 1 + 14, 16,371]`` float32 fits, one more chain does not);
-    elsewhere the lockstep tree with the fused leapfrog, which has no such
-    bound.  The choice is made when the route is built, whatever the
-    chain-count threshold."""
+    ``ops.tree.MAX_DIM`` (256); elsewhere the lockstep tree with the fused
+    leapfrog, which has no such bound.  The kernel draws its uniforms
+    itself, so neither the chain count nor ``max_depth`` bounds it: the
+    16,372 chains at max_depth 14 whose ``[2^14 - 1 + 14, C]`` uniform array
+    would have passed 1 GiB take the whole tree too.  The choice is made
+    when the route is built, whatever the chain-count threshold."""
     monkeypatch.setattr(NUTSKernel, "TREE_MIN_CHAINS", 0)
     kern = NUTSKernel(std_normal(dim, device="cpu"), NUTS(max_depth=max_depth))
     f32 = tdiag(torch.ones(dim))

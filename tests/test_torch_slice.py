@@ -97,7 +97,7 @@ def test_sample_dense_schedule_recovers_coefficients():
 
 @pytest.mark.parametrize("option", [
     {"mesh": object()}, {"warmup_checkpoint_path": "x"},
-    {"collect_sketch": object()}, {"tuning_chunk": 5}, {"thin": 2},
+    {"collect_sketch": object()}, {"tuning_chunk": 5}, {"draw_block": 4},
     {"use_kernels": "tree"}])
 def test_options_not_ported_are_refused(option):
     model = logistic_regression(np.zeros((4, 2), np.float32),

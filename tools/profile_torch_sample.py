@@ -9,10 +9,13 @@ and the path's hand-written kernel's share of device time and of wall.
 ``--model logistic`` (the default): 10,000 x 50 data, 8192 chains, dense
 metric, the short warmup schedule, K1 once per lockstep leaf.  ``--model
 std_normal``: the 100-D standard normal at 10,240 chains, the default
-warmup, K5 once per transition.  Usage::
+warmup, K5 once per transition; with ``--tree-opts`` (a JSON object of
+``sample()``'s ``tree_opts``, e.g. the flagship path's
+``'{"refresh_inside": true, "padded_io": true, "n_sweep": 16}'``) K5 runs as
+those options ask, once per ``n_sweep`` sampling transitions.  Usage::
 
     python3 tools/profile_torch_sample.py [--model logistic|std_normal]
-        [--transitions 16]
+        [--transitions 16] [--tree-opts JSON]
 
 Needs a CUDA device.
 """
@@ -20,6 +23,7 @@ Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
 import time
@@ -32,7 +36,11 @@ def main() -> int:
     ap.add_argument("--transitions", type=int, default=16)
     ap.add_argument("--model", choices=("logistic", "std_normal"),
                     default="logistic")
+    ap.add_argument("--tree-opts", type=json.loads, default=None,
+                    help="tree_opts of the std_normal run, as JSON")
     args = ap.parse_args()
+    if args.tree_opts and args.model != "std_normal":
+        ap.error("--tree-opts applies to --model std_normal")
 
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -60,18 +68,18 @@ def main() -> int:
                                        terminating_steps=50, metric="dense")
     else:
         model = std_normal(chip_smoke.G_DIM)
-        n_chains, kernel, label, unit = chip_smoke.G_CHAINS, TREE_GAUSSIAN, \
-            "K5", "transition"
+        n_chains, kernel, label = chip_smoke.G_CHAINS, TREE_GAUSSIAN, "K5"
+        unit = "launch" if args.tree_opts else "transition"
         stages = default_warmup_stages()
-    kern = NUTSKernel(model)
+    kern = NUTSKernel(model, tree_opts=args.tree_opts)
     gen = torch.Generator(device="cuda").manual_seed(chip_smoke.SEED)
     factories = dict(step_factory=kern.step_factory,
                      transition_factory=kern.transition_factory)
     with f32_matmuls():
         state = W.init_warmup_state(gen, kern.potential, model.dim, n_chains)
         state, _ = kern.warmup(gen, state, stages)
-        W.run_sampling(gen, kern.potential, kern.algorithm, state, 2,
-                       **factories)  # warm
+        W.run_sampling(gen, kern.potential, kern.algorithm, state,
+                       args.transitions, **factories)  # warm, same path
         torch.cuda.synchronize()
         kernel.launches = 0
         with profile(activities=[ProfilerActivity.CPU,
@@ -94,11 +102,12 @@ def main() -> int:
     stem = os.path.splitext(kernel.source)[0]
     k_s = sum(r[0] for r in rows if stem in r[2]) / 1e6
     steps = int(out.stats.steps.sum())
-    print(f"[profile] {card}: {args.model}, {n_chains} chains, "
-          f"{args.transitions} transitions, wall {wall:.4f} s, {launches} "
-          f"{label} launches ({wall / max(launches, 1) * 1e3:.4f} ms wall "
-          f"per {unit}), {steps / wall:.4g} chain leapfrog steps/s (under "
-          f"the profiler)")
+    print(f"[profile] {card}: {args.model}, {n_chains} chains, tree_opts "
+          f"{args.tree_opts}, {args.transitions} transitions, wall "
+          f"{wall:.4f} s ({wall / args.transitions * 1e3:.4f} ms per "
+          f"transition), {launches} {label} launches "
+          f"({wall / max(launches, 1) * 1e3:.4f} ms wall per {unit}), "
+          f"{steps / wall:.4g} chain leapfrog steps/s (under the profiler)")
     print(f"[profile] device busy {dev_total_s:.4f} s = "
           f"{dev_total_s / wall:.4f} of wall; {label} {k_s:.4f} s = "
           f"{k_s / max(dev_total_s, 1e-12):.4f} of device time, "
