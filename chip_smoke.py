@@ -20,8 +20,13 @@ Phases, each printed with its wall time:
    10,240 x 100, max_depth 10, at three step sizes, in each of its three
    forms: the explicit uniform array, the uniforms drawn in the kernel, and
    everything drawn in the kernel, each against the plain version fed the
-   kernel's own draws); K5's generator against ``utils/philox.py``; and a
-   sweep of 16 transitions in one launch against 16 launches;
+   kernel's own draws); K5's generator against ``utils/philox.py``; a
+   sweep of 16 transitions in one launch against 16 launches; K5 with the
+   eight-schools physics (1,024 and 10,240 chains) and the funnel physics
+   (64 and 1,024 chains, some chains diverging, some starting where the
+   density overflows) at three step sizes each, against the plain version
+   fed the kernel's own uniforms, and a sweep of 16 of eight schools
+   against 16 launches;
 3. ``sample()`` on BASELINE config 3 (logistic regression, 10,000 x 50 data
    from a seed, 8192 chains, dense metric, a short warmup schedule, 128
    draws) through K1;
@@ -40,15 +45,25 @@ Phases, each printed with its wall time:
 7. ``sample()`` on the 1000-D standard normal at 64 chains, default warmup,
    1000 draws: above the whole-tree kernel's D bound (256), so the lockstep
    route with K3 as its leapfrog;
-8. the crossover between the two routes: one transition of the 100-D
-   standard normal at a fixed step size through each, at 1 to 10,240
-   chains; it fails if ``NUTSKernel.TREE_MIN_CHAINS`` contradicts the
-   timings.
+8. ``sample()`` on BASELINE config 4, eight schools, at 1,024 chains
+   (default warmup, 1,000 draws) through K5 with the eight-schools physics;
+9. ``sample()`` on BASELINE config 2, the 10-D Neal's funnel, at 64 chains
+   (``delta`` 0.9, no L-BFGS start, 1,000 draws; the examples' run) through
+   K5 with the funnel physics, and on its non-centred form through K5 with
+   the Gaussian physics;
+10. the crossover between the routes: one transition at a fixed step size
+   through each, at 1 to 10,240 chains: the 100-D standard normal through
+   K5 and the lockstep tree with K3, eight schools and the funnel through K5
+   and autograd on the lockstep tree; it fails if
+   ``NUTSKernel.TREE_MIN_CHAINS`` or ``TREE_MIN_CHAINS_BY_PHYSICS``
+   contradicts the timings.
 
 Each ``sample()`` phase resets every kernel's launch count just before the
 call and reads the counts just after, and checks the posterior (finite
 draws, split R-hat, acceptance; the coefficients' correlation for logistic
-regression, the moments within Monte Carlo error for the normal).
+regression, the moments within Monte Carlo error for the normal, the means
+of mu and log_tau against the quadrature golden for eight schools, v's
+standard deviation for the funnel).
 
 It prints a ``{"kernels": [...]}`` line, the card's line, and as its last
 line ``{"ok": true, "device": {...}}``.  Any failure raises and the script
@@ -59,6 +74,7 @@ exits non-zero before printing a result.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -70,7 +86,17 @@ G_DIM = 100                       # BASELINE config 1: the 100-D std normal
 G_CHAINS, G_DRAWS = 10_240, 256   # the whole-tree route
 S_CHAINS, S_DRAWS = 64, 1000      # examples config 1: the whole-tree route
 W_DIM = 1000                      # above K5's D bound: the lockstep route
+E_CHAINS, E_DRAWS = 1024, 1000    # BASELINE config 4: eight schools
+F_DIM, F_CHAINS, F_DRAWS = 10, 64, 1000  # config 2: the funnel, as
+                                        # examples/baseline_configs.py runs it
+# the calibrated band of the centred funnel's v sd under vanilla NUTS at
+# delta 0.9 (examples/baseline_configs.py:88-89; the exact value is 3)
+FUNNEL_V_SD_BAND = (2.45, 3.0)
+GOLDEN_EIGHT_SCHOOLS = os.path.join(os.path.dirname(os.path.abspath(
+    __file__)), "tests", "golden", "eight_schools.json")
 CROSSOVER_CHAINS = (1, 4, 16, 64, 256, 1024, 10_240)
+# the step sizes of the routes' crossover (identity metric, q0 normal)
+CROSSOVER_EPS = {"gaussian": 0.3, "eight_schools": 0.3, "funnel": 0.2}
 MAX_DEPTH = 10
 # K5 against its plain version: both sides run the same f32 operations of
 # each leaf in the same order, so the trajectories agree bit for bit; only
@@ -91,6 +117,23 @@ LOGP_TOL = 1e-5   # |logp - ref| / sum_n |term_n|
 GRAD_TOL = 1e-4   # |grad - ref| / max |ref grad|
 PEAK_FP32_FLOPS = 67e12           # H100 SXM, fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12              # H100 SXM HBM3
+# special functions (expf, logf, log1pf, cosf, sqrtf: one MUFU instruction
+# each at the core of each) on an H100 SXM: 16 results per clock per SM
+# (CUDA C Programming Guide, throughput table, compute capability 9.0),
+# 132 SMs at the 1,980 MHz boost clock
+PEAK_SFU = 132 * 16 * 1.98e9
+# the tree's own per leaf: log of the proposal uniform, exp(min(delta, 0)),
+# and the exp and log1p of the progressive logaddexp
+TREE_SFU_PER_LEAF = 4
+# each physics' device function per leaf, beyond the tree's 25 D flops
+# (csrc/tree_<physics>.cu): flops per data lane, flops per chain, special
+# functions per chain.  Eight schools: theta, r, r/sig, the three sums'
+# terms and the z gradient, 14 per observed lane; mu/10, the softplus and
+# sigmoid, the first two gradient entries and logp, 25; exp(log_tau), the
+# softplus' exp and log1p, the sigmoid's exp.  The funnel: x^2, its sum and
+# -e x, 3 per x lane; logp and d/dv, 12; exp(-v).
+PHYSICS_COST = {"gaussian": (0, 0, 0), "eight_schools": (14, 25, 4),
+                "funnel": (3, 12, 1)}
 # K5's generator: the normals may differ from torch's by the rounding of
 # logf, cosf (1-2 ulp each) scaled by sqrt(-2 log u1) <= 5.8; 16 ulp of
 # max(1, |x|) bounds that.  Direction words and uniforms are integer work
@@ -147,10 +190,13 @@ def wall_ms(fn, iters: int = 5, warmup: int = 1) -> float:
     return (time.perf_counter() - t0) / iters * 1e3
 
 
-def bound(flops: float, nbytes: float):
+def bound(flops: float, nbytes: float, sfu: float = 0.0):
     """The least time of the work on an H100 SXM, in ms, and what sets it:
-    the operations at the fp32 rate or the bytes at the memory rate."""
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+    the operations (fp32 at the fp32 rate, special functions at the SFU
+    rate; the two pipes run side by side, so the larger) or the bytes at
+    the memory rate."""
+    t_ops = max(flops / PEAK_FP32_FLOPS, sfu / PEAK_SFU)
+    t_bytes = nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -161,8 +207,8 @@ def build_kernels():
     from inplacedhmc_tpu_torch.ops.cuda_build import build_all
     from inplacedhmc_tpu_torch.ops.leapfrog import LEAPFROG_GAUSSIAN
     from inplacedhmc_tpu_torch.ops.logistic import LOGISTIC_VG
-    from inplacedhmc_tpu_torch.ops.tree import TREE_GAUSSIAN
-    kernels = [LOGISTIC_VG, LEAPFROG_GAUSSIAN, TREE_GAUSSIAN]
+    from inplacedhmc_tpu_torch.ops.tree import TREE_KERNELS
+    kernels = [LOGISTIC_VG, LEAPFROG_GAUSSIAN, *TREE_KERNELS.values()]
     build_all(kernels)
     for k in kernels:
         print(f"[build] {k.source}: {k.build_seconds:.2f} s")
@@ -335,30 +381,44 @@ def check_leapfrog_kernel(card: str) -> dict:
     return main
 
 
-def tree_bound(c: int, d: int, out, form: str = "array") -> tuple:
+def tree_bound(c: int, d: int, out, form: str = "array",
+               physics: str = "gaussian") -> tuple:
     """K5's bound for one launch on these inputs, over the steps this data
     needs.  Operations: about 25 D flops per leapfrog leaf (the update 8,
     the two row sums 5, the guards 4, the momentum sum 1, the expected
-    single U-turn level 5, the p# 1, and the selects); where the kernel
-    draws, ``PHILOX_OPS`` per uniform it reads (one per leaf, one per
-    successful doubling) and, under ``refresh``, per direction word and per
-    normal, with ``BOX_MULLER_FLOPS`` per normal.  Bytes: q, eps, valid,
-    lam, minv in; the K transitions' q and eight [C] records out (logp,
+    single U-turn level 5, the p# 1, and the selects; the Gaussian's
+    log density and gradient are among them), plus the physics' own
+    (``PHYSICS_COST``) at every leaf, every start and the final gradient;
+    where the kernel draws, ``PHILOX_OPS`` per uniform it reads (one per
+    leaf, one per successful doubling) and, under ``refresh``, per
+    direction word and per normal, with ``BOX_MULLER_FLOPS`` per normal;
+    special functions (``PEAK_SFU``): ``TREE_SFU_PER_LEAF`` and the
+    physics' per leaf, 3 per successful doubling (the merge's log and
+    logaddexp), 3 per normal.  Bytes: q, eps, valid, the physics' data
+    rows, minv in; the K transitions' q and eight [C] records out (logp,
     energy, log_sum_alpha, term, term_left, term_right, depth, steps: the
     TPU kernel's outputs; the last q is the carry) and the final grad; for
     ``array`` and ``prng`` the momentum and direction words in, for
     ``array`` the uniforms the trees read.  ``form``: ``"array"``
     (explicit uniforms), ``"prng"`` (uniforms drawn) or ``"refresh"``
     (everything drawn)."""
+    from inplacedhmc_tpu_torch.ops.tile_physics import PHYSICS
     k = out.q.shape[0] if out.q.ndim == 3 else 1
     steps = float(out.steps.sum())
-    draws = steps + float(out.depth.sum())
-    flops = 25.0 * d * steps
-    nbytes = 4.0 * (c * d + 2 * c + 2 * d) \
+    merges = float(out.depth.sum())
+    draws = steps + merges
+    lane_flops, chain_flops, phys_sfu = PHYSICS_COST[physics]
+    evals = steps + k * c + c
+    lanes = {"gaussian": 0, "eight_schools": d - 2, "funnel": d - 1}[physics]
+    flops = 25.0 * d * steps + (lane_flops * lanes + chain_flops) * evals
+    sfu = TREE_SFU_PER_LEAF * steps + 3 * merges + phys_sfu * evals
+    n_rows = len(PHYSICS[physics].rows) + 1
+    nbytes = 4.0 * (c * d + 2 * c + n_rows * d) \
         + 4.0 * (k * c * d + 8 * k * c + c * d)
     if form == "refresh":
         flops += PHILOX_OPS * (draws + k * c * (d + 1)) \
             + BOX_MULLER_FLOPS * k * c * d
+        sfu += 3 * k * c * d
         nbytes += 4.0 * d
     else:
         nbytes += 4.0 * (k * c * d + k * c)
@@ -366,7 +426,7 @@ def tree_bound(c: int, d: int, out, form: str = "array") -> tuple:
             nbytes += 4.0 * draws
         else:
             flops += PHILOX_OPS * draws
-    return (*bound(flops, nbytes), steps)
+    return (*bound(flops, nbytes, sfu), steps)
 
 
 def compare_tree(got, want, label: str) -> float:
@@ -418,35 +478,43 @@ def _key(seed: int):
     return draw_key(torch.Generator(device="cuda").manual_seed(seed))
 
 
-def tree_form(form: str, q0, p0, e, d32, unif, lam, minv, key, md: int):
-    """``(launch, plain)``: K5 in one of its forms and its plain version fed
-    the same numbers.  ``array``: the explicit uniform array; ``prng``: the
-    given momentum and directions, the uniforms drawn in the kernel;
-    ``refresh``: everything drawn in the kernel (momentum ``sqrt_mass * xi``
-    with ``sqrt_mass = minv^-1/2``).  The plain version gets what the
-    kernel's generator draws for ``key`` (``ops.tree.philox_draws``)."""
+def _physics(name: str, data: dict):
+    """``name``'s physics bound to ``data`` on the card in float32."""
+    import torch
+
+    from inplacedhmc_tpu_torch.ops.tile_physics import bind
+    return bind(name, data, "cuda", torch.float32)
+
+
+def tree_form(form: str, q0, p0, e, d32, unif, phys, minv, key, md: int):
+    """``(launch, plain)``: K5 with the physics ``phys`` in one of its forms
+    and its plain version fed the same numbers.  ``array``: the explicit
+    uniform array; ``prng``: the given momentum and directions, the
+    uniforms drawn in the kernel; ``refresh``: everything drawn in the
+    kernel (momentum ``sqrt_mass * xi`` with ``sqrt_mass = minv^-1/2``).
+    The plain version gets what the kernel's generator draws for ``key``
+    (``ops.tree.philox_draws``)."""
     import torch
 
     from inplacedhmc_tpu_torch.ops.tree import (
-        gaussian_tree_sweep, gaussian_tree_transition,
-        gaussian_tree_transition_plain, philox_draws)
+        philox_draws, tree_sweep, tree_transition, tree_transition_plain)
     c, d = q0.shape
     if form == "array":
-        return (lambda: gaussian_tree_transition(
-            q0, p0, e, d32, unif, lam, minv, md, -1000.0),
-            lambda: gaussian_tree_transition_plain(
-                q0, p0, e, d32, unif, lam, minv, md, -1000.0))
+        return (lambda: tree_transition(
+            q0, p0, e, d32, unif, phys, minv, md, -1000.0),
+            lambda: tree_transition_plain(
+                q0, p0, e, d32, unif, phys, minv, md, -1000.0))
     xi, g_dirs, g_unif = philox_draws(key, c, d, md)
     if form == "prng":
-        return (lambda: gaussian_tree_transition(
-            q0, p0, e, d32, None, lam, minv, md, -1000.0, key=key),
-            lambda: gaussian_tree_transition_plain(
-                q0, p0, e, d32, g_unif[0], lam, minv, md, -1000.0))
+        return (lambda: tree_transition(
+            q0, p0, e, d32, None, phys, minv, md, -1000.0, key=key),
+            lambda: tree_transition_plain(
+                q0, p0, e, d32, g_unif[0], phys, minv, md, -1000.0))
     sqrt_mass = 1.0 / torch.sqrt(minv)
-    return (lambda: _first(gaussian_tree_sweep(
-        q0, e, lam, minv, md, -1000.0, key=key, sqrt_mass=sqrt_mass)),
-        lambda: gaussian_tree_transition_plain(
-            q0, sqrt_mass * xi[0], e, g_dirs[0], g_unif[0], lam, minv, md,
+    return (lambda: _first(tree_sweep(
+        q0, e, phys, minv, md, -1000.0, key=key, sqrt_mass=sqrt_mass)),
+        lambda: tree_transition_plain(
+            q0, sqrt_mass * xi[0], e, g_dirs[0], g_unif[0], phys, minv, md,
             -1000.0))
 
 
@@ -478,8 +546,9 @@ def check_tree_kernel(card: str) -> None:
     for eps in (0.3, 1.8, 0.002):
         e = torch.full((c,), eps, device="cuda")
         for form in ("array", "prng", "refresh"):
-            launch, plain = tree_form(form, q0, p0, e, d32, unif, lam, minv,
-                                      key, md)
+            launch, plain = tree_form(form, q0, p0, e, d32, unif,
+                                      _physics("gaussian", {"lam": lam}),
+                                      minv, key, md)
             before = TREE_GAUSSIAN.launches
             got = launch()
             torch.cuda.synchronize()
@@ -538,41 +607,70 @@ def check_generator(card: str) -> None:
         raise RuntimeError("K5's generator disagrees with utils/philox.py")
 
 
-def check_sweep(card: str) -> None:
+def tile_model(name: str):
+    """The model of a tile physics at its BASELINE width, on the card."""
+    from inplacedhmc_tpu_torch.models import eight_schools, funnel, funnel_nc
+    return {"eight_schools": eight_schools, "funnel": lambda: funnel(F_DIM),
+            "funnel_nc": lambda: funnel_nc(F_DIM)}[name]()
+
+
+def tile_start(name: str, c: int, gen, neck: bool = False):
+    """Positions for ``c`` chains of a tile model: normal, with eight
+    schools' mu about its posterior; with ``neck``, every 16th funnel chain
+    at v = -95, where exp(-v) overflows float32, so the density and the
+    gradient are non-finite and the leaf's sanitisation runs."""
+    import torch
+    q = torch.randn((c, 10), generator=gen, device="cuda")
+    if name == "eight_schools":
+        q[:, 0] = 5.0 + 4.0 * q[:, 0]
+    if neck:
+        q[::16, 0] = -95.0
+    return q
+
+
+def check_sweep(card: str, physics: str = "gaussian") -> None:
     """One launch of ``SWEEP_CHECK_K`` transitions drawing everything itself
     against that many one-transition launches fed what the generator draws
-    for its key (10,240 x 100, max_depth 10, eps 0.3, 1 row in 1,000
-    padded): every field equal bit for bit.  Timed beside the single
-    launches (each with its own key) and the bound."""
+    for its key (max_depth 10, eps 0.3, 1 row in 1,000 padded; the standard
+    normal at 10,240 x 100, or a tile model at 1,024 x 10): every field
+    equal bit for bit.  Timed beside the single launches (each with its own
+    key) and the bound."""
     import torch
 
-    from inplacedhmc_tpu_torch.ops.tree import (TREE_GAUSSIAN, TreeOut,
-                                                gaussian_tree_sweep,
-                                                philox_draws)
+    from inplacedhmc_tpu_torch.ops.tree import (TREE_KERNELS, TreeOut,
+                                                philox_draws, tree_sweep)
 
-    c, d, md, k = G_CHAINS, G_DIM, MAX_DEPTH, SWEEP_CHECK_K
     gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
-    lam = torch.ones((d,), device="cuda")
+    if physics == "gaussian":
+        c, d = G_CHAINS, G_DIM
+        data = {"lam": torch.ones((d,), device="cuda")}
+        q0 = torch.randn((c, d), generator=gen, device="cuda")
+    else:
+        c, d = E_CHAINS, 10
+        st = tile_model(physics).structure
+        data = {**st["data"], **st["scalars"]}
+        q0 = tile_start(physics, c, gen)
+    phys = _physics(physics, data)
+    md, k = MAX_DEPTH, SWEEP_CHECK_K
     minv = 0.5 + torch.rand((d,), generator=gen, device="cuda")
     sqrt_mass = 1.0 / torch.sqrt(minv)
-    q0 = torch.randn((c, d), generator=gen, device="cuda")
     e = torch.full((c,), 0.3, device="cuda")
     valid = (torch.arange(c, device="cuda") % 1000 != 999).to(torch.int32)
     key = _key(SEED + 9)
-    before = TREE_GAUSSIAN.launches
-    swept = gaussian_tree_sweep(q0, e, lam, minv, md, -1000.0, k,
-                                key=key, sqrt_mass=sqrt_mass, valid=valid)
+    kern = TREE_KERNELS[physics]
+    before = kern.launches
+    swept = tree_sweep(q0, e, phys, minv, md, -1000.0, k, key=key,
+                       sqrt_mass=sqrt_mass, valid=valid)
     torch.cuda.synchronize()
-    if TREE_GAUSSIAN.launches != before + 1:
+    if kern.launches != before + 1:
         raise RuntimeError("the sweep was not one K5 launch")
     xi, dirs, unif = philox_draws(key, c, d, md, k)
     q = q0
     differ = []
     for s in range(k):
-        one = gaussian_tree_sweep(q, e, lam, minv, md, -1000.0,
-                                  momentum=(sqrt_mass * xi[s])[None],
-                                  dirs=dirs[s:s + 1], unif=unif[s:s + 1],
-                                  valid=valid)
+        one = tree_sweep(q, e, phys, minv, md, -1000.0,
+                         momentum=(sqrt_mass * xi[s])[None],
+                         dirs=dirs[s:s + 1], unif=unif[s:s + 1], valid=valid)
         differ += [f"{f}[{s}]" for f in TreeOut._fields if f != "grad"
                    and not torch.equal(getattr(swept, f)[s],
                                        getattr(one, f)[0])]
@@ -580,42 +678,109 @@ def check_sweep(card: str) -> None:
     if not torch.equal(swept.grad, one.grad):
         differ.append("grad")
     steps = float(swept.steps.sum())
-    print(f"[sweep] {k} transitions in one launch against {k} launches: "
-          f"fields that differ {differ or 'none'}; depth mean "
+    print(f"[sweep] {physics}, {c} x {d}: {k} transitions in one launch "
+          f"against {k} launches: fields that differ {differ or 'none'}; "
+          f"depth mean "
           f"{swept.depth.double().mean().item():.3f}, {steps:.0f} steps")
     if differ:
         raise RuntimeError("a K5 sweep differs from its single launches")
     # timed on a start and output buffers made beforehand: nothing but the
     # kernel is queued in the timed loop
-    ms = cuda_time_ms(lambda: gaussian_tree_sweep(
-        q0, e, lam, minv, md, -1000.0, k, key=key, sqrt_mass=sqrt_mass,
+    ms = cuda_time_ms(lambda: tree_sweep(
+        q0, e, phys, minv, md, -1000.0, k, key=key, sqrt_mass=sqrt_mass,
         valid=valid, out=swept), iters=5, warmup=1)
     keys = [_key(SEED + 10 + s) for s in range(k)]
-    one_ms = cuda_time_ms(lambda: [gaussian_tree_sweep(
-        q0, e, lam, minv, md, -1000.0, key=kk, sqrt_mass=sqrt_mass,
+    one_ms = cuda_time_ms(lambda: [tree_sweep(
+        q0, e, phys, minv, md, -1000.0, key=kk, sqrt_mass=sqrt_mass,
         valid=valid, out=one) for kk in keys], iters=5, warmup=1)
-    bound_ms, bound_by, _ = tree_bound(c, d, swept, "refresh")
-    print(f"[sweep] {card}: one launch of {k} {ms:.4f} ms "
+    bound_ms, bound_by, _ = tree_bound(c, d, swept, "refresh", physics)
+    print(f"[sweep] {physics} on {card}: one launch of {k} {ms:.4f} ms "
           f"({ms / k:.4f} ms per transition), {k} launches of one "
           f"{one_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}); "
           f"{steps / ms * 1e3:.4g} steps/s")
 
 
-def tree_at_state(card: str, res, form: str = "prng", k: int = 1) -> dict:
+def check_tile_kernel(card: str, physics: str, chain_counts, eps_list,
+                      neck: bool = False) -> None:
+    """K5 with a tile physics against its plain version at its model's
+    width (10), max_depth 10, for each chain count and step size, in the
+    default route's form (momentum and directions from the host, the
+    uniforms drawn in the kernel; the plain version fed the kernel's own):
+    ``compare_tree``'s rule; timed beside its bound.  With ``neck`` some
+    funnel chains start where the density overflows (``tile_start``)."""
+    import torch
+
+    from inplacedhmc_tpu_torch.ops.tree import (TREE_KERNELS,
+                                                direction_words_int32)
+
+    st = tile_model(physics).structure
+    phys = _physics(physics, {**st["data"], **st["scalars"]})
+    kern = TREE_KERNELS[physics]
+    d, md = 10, MAX_DEPTH
+    for c in chain_counts:
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 12 + c)
+        q0 = tile_start(physics, c, gen, neck)
+        minv = 0.5 + torch.rand((d,), generator=gen, device="cuda")
+        p0 = torch.randn((c, d), generator=gen, device="cuda") / minv.sqrt()
+        d32 = direction_words_int32(torch.randint(
+            0, 2 ** 32, (c,), generator=gen, dtype=torch.int64,
+            device="cuda"))
+        key = _key(SEED + 13 + c)
+        for eps in eps_list:
+            e = torch.full((c,), eps, device="cuda")
+            launch, plain = tree_form("prng", q0, p0, e, d32, None, phys,
+                                      minv, key, md)
+            before = kern.launches
+            got = launch()
+            torch.cuda.synchronize()
+            if kern.launches != before + 1:
+                raise RuntimeError(f"the wrapper did not launch K5 with the "
+                                   f"{physics} physics")
+            want = plain()
+            label = f"{physics}, {c} chains, eps {eps}"
+            compare_tree(got, want, label)
+            # every position stays finite; the density and energy too but
+            # on the chains that start where the density overflows, which
+            # diverge at their first leaf and keep their start
+            rest = q0[:, 0] != -95.0
+            n_neck = int((~rest).sum())
+            finite = bool(torch.isfinite(got.q).all()) and all(
+                bool(torch.isfinite(getattr(got, f)[rest]).all())
+                for f in ("logp", "energy"))
+            if n_neck and not bool((got.term[~rest] == 1).all()):
+                finite = False
+            ms = cuda_time_ms(launch, 20)
+            bound_ms, bound_by, steps = tree_bound(c, d, want, "prng",
+                                                   physics)
+            neck_note = (f"; the {n_neck} chains started where the density "
+                         f"overflows all diverged" if n_neck else "")
+            print(f"[k5] {label} on {card}: kernel {ms:.4f} ms; {steps:.0f} "
+                  f"leapfrog steps, {steps / ms * 1e3:.4g} steps/s; bound "
+                  f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.3f} of "
+                  f"it{neck_note}")
+            if not finite:
+                raise RuntimeError(f"K5 ({label}) returned a non-finite "
+                                   f"state, or a chain started where the "
+                                   f"density overflows did not diverge")
+
+
+def tree_at_state(card: str, res, form: str = "prng", k: int = 1,
+                  physics: str = "gaussian", data=None) -> dict:
     """K5 timed on the state a whole-tree run ended in (its tuned eps and
     metric, a fresh momentum and directions) in the form its route runs:
-    ``prng`` (phase 4's default route: momentum and directions from the
-    host, the uniforms drawn in the kernel) or ``refresh`` with ``k``
-    transitions per launch (the flagship's sampling loop).  Held against the
-    plain version fed the kernel's own draws; for ``refresh`` the first of
-    the ``k`` transitions is compared, and the plain version is timed over
-    all ``k``."""
+    ``prng`` (the default route: momentum and directions from the host, the
+    uniforms drawn in the kernel) or ``refresh`` with ``k`` transitions per
+    launch (the flagship's sampling loop).  Held against the plain version
+    fed the kernel's own draws; for ``refresh`` the first of the ``k``
+    transitions is compared, and the plain version is timed over all
+    ``k``.  ``physics`` and its ``data`` are the model's (by default the
+    standard normal's)."""
     import torch
 
     from inplacedhmc_tpu_torch.core.metric import sample_momentum
     from inplacedhmc_tpu_torch.ops.tree import (
-        direction_words_int32, gaussian_tree_sweep, gaussian_tree_sweep_plain,
-        philox_draws)
+        TREE_KERNELS, direction_words_int32, philox_draws, tree_sweep,
+        tree_sweep_plain)
 
     ws = res.warmup_state
     q0 = ws.z.q.contiguous()
@@ -625,46 +790,46 @@ def tree_at_state(card: str, res, form: str = "prng", k: int = 1) -> dict:
     d32 = direction_words_int32(torch.randint(
         0, 2 ** 32, (c,), generator=gen, dtype=torch.int64, device="cuda"))
     e = torch.exp(ws.log_eps).expand(c).contiguous()
-    lam = torch.ones((d,), device="cuda")
+    phys = _physics(physics, data or {"lam": torch.ones((d,), device="cuda")})
     minv = ws.metric.inv.contiguous()
     sqrt_mass = ws.metric.sqrt_mass.contiguous()
     key = _key(SEED + 5)
     if form == "prng":
         kw = dict(momentum=p0[None], dirs=d32[None])
-        launch, plain = tree_form("prng", q0, p0, e, d32, None, lam, minv,
+        launch, plain = tree_form("prng", q0, p0, e, d32, None, phys, minv,
                                   key, md)
         got, want = launch(), plain()
     else:
         kw = dict(sqrt_mass=sqrt_mass)
         xi, dirs, unif = philox_draws(key, c, d, md, k)
-        got = gaussian_tree_sweep(q0, e, lam, minv, md, -1000.0, k,
-                                  key=key, **kw)
-        want = gaussian_tree_sweep_plain(
-            q0, e, lam, minv, md, -1000.0, k, momentum=sqrt_mass * xi,
+        got = tree_sweep(q0, e, phys, minv, md, -1000.0, k, key=key, **kw)
+        want = tree_sweep_plain(
+            q0, e, phys, minv, md, -1000.0, k, momentum=sqrt_mass * xi,
             dirs=dirs, unif=unif)
-        plain = lambda: gaussian_tree_sweep_plain(  # noqa: E731
-            q0, e, lam, minv, md, -1000.0, k, momentum=sqrt_mass * xi,
+        plain = lambda: tree_sweep_plain(  # noqa: E731
+            q0, e, phys, minv, md, -1000.0, k, momentum=sqrt_mass * xi,
             dirs=dirs, unif=unif)
         got, want = _first(got), _first(want)
-    abs_err = compare_tree(got, want, f"{c} chains, tuned eps "
+    abs_err = compare_tree(got, want, f"{physics}, {c} chains, tuned eps "
                            f"{float(e[0]):.4g}, {form}, n_sweep {k}")
     # timed on a start and output buffers made beforehand: nothing but the
     # kernel is queued in the timed loop
-    out = gaussian_tree_sweep(q0, e, lam, minv, md, -1000.0, k, key=key,
-                              **kw)
-    ms = cuda_time_ms(lambda: gaussian_tree_sweep(
-        q0, e, lam, minv, md, -1000.0, k, key=key, out=out, **kw))
+    out = tree_sweep(q0, e, phys, minv, md, -1000.0, k, key=key, **kw)
+    ms = cuda_time_ms(lambda: tree_sweep(
+        q0, e, phys, minv, md, -1000.0, k, key=key, out=out, **kw))
     plain_ms = wall_ms(plain, iters=2)
-    bound_ms, bound_by, steps = tree_bound(c, d, out, form)
-    print(f"[k5] {c} chains at the tuned state, {form}, n_sweep {k}, on "
-          f"{card}: kernel {ms:.4f} ms ({ms / k:.4f} ms per transition), "
-          f"plain {plain_ms:.2f} ms (wall: its host loop synchronises), "
-          f"bound {bound_ms:.4g} ms ({bound_by}); {steps:.0f} steps, "
-          f"{steps / ms * 1e3:.4g} steps/s")
-    name = "gaussian_tree_transition" if form == "prng" \
-        else "gaussian_tree_sweep"
+    bound_ms, bound_by, steps = tree_bound(c, d, out, form, physics)
+    print(f"[k5] {physics}, {c} chains at the tuned state, {form}, n_sweep "
+          f"{k}, on {card}: kernel {ms:.4f} ms ({ms / k:.4f} ms per "
+          f"transition), plain {plain_ms:.2f} ms (wall: its host loop "
+          f"synchronises), bound {bound_ms:.4g} ms ({bound_by}); "
+          f"{steps:.0f} steps, {steps / ms * 1e3:.4g} steps/s")
+    name = f"tree_{physics}" if physics != "gaussian" else \
+        "gaussian_tree_transition" if form == "prng" else \
+        "gaussian_tree_sweep"
     return {"name": name, "route": "cuda",
-            "source": "inplacedhmc_tpu_torch/csrc/tree_gaussian.cu",
+            "source": f"inplacedhmc_tpu_torch/csrc/"
+                      f"{TREE_KERNELS[physics].source}",
             "replaces": "inplacedhmc_tpu/ops/tree_pallas.py:92",
             "launches": None, "max_abs_err": abs_err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
@@ -727,8 +892,10 @@ def run_sample(card: str, kernels) -> dict:
           f"(lockstep leapfrog steps >= {min_launches})")
     if launches["logistic_vg.cu"] < min_launches:
         raise RuntimeError("the main path did not go through K1")
-    if launches["leapfrog_gaussian.cu"] or launches["tree_gaussian.cu"]:
-        raise RuntimeError("the logistic path launched a Gaussian kernel")
+    others = {k: v for k, v in launches.items() if k != "logistic_vg.cu"}
+    if any(others.values()):
+        raise RuntimeError(f"the logistic path launched another kernel: "
+                           f"{others}")
 
     draws = res.draws
     if tuple(draws.shape) != (N_DRAWS, C, D) \
@@ -798,17 +965,16 @@ def run_gaussian_sample(card: str, kernels, dim: int, n_chains: int,
     n_trans = n_warm + n_draws
     if tree_opts:
         n_trans = n_warm + n_draws // tree_opts["n_sweep"]
+    mine = "tree_gaussian.cu" if route == "tree" else "leapfrog_gaussian.cu"
     if route == "tree":
-        ok = (launches["tree_gaussian.cu"] == n_trans
-              and launches["leapfrog_gaussian.cu"] == 0)
+        ok = launches[mine] == n_trans
     else:
         leaves = int(stats.steps.amax(dim=1).sum()
                      + wstats.steps.amax(dim=1).sum())
         print(f"{tag} K3 launches {launches['leapfrog_gaussian.cu']} "
               f"(lockstep leaves >= {leaves})")
-        ok = (launches["leapfrog_gaussian.cu"] >= leaves > 0
-              and launches["tree_gaussian.cu"] == 0)
-    if not ok or launches["logistic_vg.cu"]:
+        ok = launches[mine] >= leaves > 0
+    if not ok or any(v for k, v in launches.items() if k != mine):
         raise RuntimeError(f"the {route} path did not go through its kernel "
                            f"alone: {launches}")
 
@@ -839,6 +1005,109 @@ def run_gaussian_sample(card: str, kernels, dim: int, n_chains: int,
         raise RuntimeError(f"mean acceptance {accept} outside [0.6, 0.95]")
     if not (mean_z < 5 and var_z < 5):
         raise RuntimeError("posterior moments outside 5 Monte Carlo SE")
+    return res, launches, sample_s
+
+
+def run_tile_sample(card: str, kernels, name: str):
+    """``sample()`` on a BASELINE tile model through its whole-tree kernel,
+    K5 once per transition and nothing else, with its posterior checked:
+
+    * ``eight_schools``: 1,024 chains, default warmup, 1,000 draws; finite
+      draws, split R-hat < 1.05, mean acceptance in [0.6, 0.95], the means
+      of mu and log_tau within 5 Monte Carlo SE of the quadrature golden
+      (``tests/golden/eight_schools.json``; SE from the golden sd and the
+      draws' ESS);
+    * ``funnel``: the 10-D centred funnel, 64 chains, ``delta`` 0.9, no
+      L-BFGS start, 1,000 draws (``examples/baseline_configs.py``); finite
+      draws, the divergences counted, v's sd in ``FUNNEL_V_SD_BAND`` (its
+      R-hat is printed: the centred neck mixes slowly, as in JAX);
+    * ``funnel_nc``: the non-centred funnel, the same run, through the
+      Gaussian physics; split R-hat < 1.05 and v's sd (from ``constrain``)
+      within 5 SE of 3 (SE = 3 / sqrt(2 ESS of v^2)).
+
+    Returns the result, the launch counts and the sampling wall."""
+    import torch
+
+    from inplacedhmc_tpu_torch import (DualAveraging, TuningNUTS,
+                                       default_warmup_stages, sample)
+    from inplacedhmc_tpu_torch import diagnostics as diag
+
+    model = tile_model(name)
+    if name == "eight_schools":
+        stages, n_chains, n_draws = default_warmup_stages(), E_CHAINS, E_DRAWS
+    else:
+        stages = default_warmup_stages(
+            local_optimization=None,
+            stepsize_adaptation=DualAveraging(delta=0.9))
+        n_chains, n_draws = F_CHAINS, F_DRAWS
+    n_warm = sum(s.n for s in stages if isinstance(s, TuningNUTS))
+    mine = "tree_gaussian.cu" if name == "funnel_nc" else f"tree_{name}.cu"
+    timer = StageTimer()
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    res = sample(SEED, model, n_draws, n_chains, warmup_stages=stages,
+                 reporter=timer, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.source: k.launches for k in kernels}
+    tag = f"[{name} {n_chains} x {model.dim}]"
+    for stage, sec in timer.stages:
+        print(f"{tag} {stage}: {sec:.2f} s on {card}")
+    print(f"{tag} total {wall:.2f} s on {card}; launches {launches}")
+    if launches[mine] != n_warm + n_draws or any(
+            v for k, v in launches.items() if k != mine):
+        raise RuntimeError(f"the {name} path did not go through its kernel "
+                           f"alone: {launches}")
+    sample_s = timer.stages[-1][1]
+    draws, stats = res.draws, res.stats
+    if tuple(draws.shape) != (n_draws, n_chains, model.dim) \
+            or not bool(torch.isfinite(draws).all()):
+        raise RuntimeError("draws are not finite or not [n_draws, C, D]")
+    x = draws.double()
+    rhat = diag.split_rhat(x).max().item()
+    accept = stats.acceptance_rate.double().mean().item()
+    n_div = int((stats.termination == 1).sum())
+    ess = diag.ess_bulk(x, cap=False)
+    chain_steps = int(stats.steps.sum())
+    print(f"{tag} eps {torch.exp(res.warmup_state.log_eps).item():.5g}, "
+          f"split R-hat max {rhat:.4f}, acceptance mean {accept:.4f}, "
+          f"divergences {n_div} of {stats.termination.numel()} transitions, "
+          f"{card}: {chain_steps / sample_s:.4g} leapfrog steps/s, ess_bulk "
+          f"min {ess.min().item():.4g} -> {ess.min().item() / sample_s:.4g} "
+          f"ESS/s")
+    print(diag.summarize_tree_statistics(stats))
+    fails = []
+    if name == "eight_schools":
+        with open(GOLDEN_EIGHT_SCHOOLS) as f:
+            gold = json.load(f)
+        for j, key in ((0, "mu"), (1, "log_tau")):
+            mean = x[..., j].mean().item()
+            se = gold[f"{key}_sd"] / float(ess[j]) ** 0.5
+            z = abs(mean - gold[f"{key}_mean"]) / se
+            print(f"{tag} {key} mean {mean:.5f} against the golden "
+                  f"{gold[key + '_mean']:.5f}: {z:.3f} SE (SE {se:.3g})")
+            if not z < 5:
+                fails.append(f"{key} mean {z:.2f} SE from the golden")
+    if name in ("eight_schools", "funnel_nc") and not rhat < 1.05:
+        fails.append(f"split R-hat {rhat} >= 1.05")
+    if name == "eight_schools" and not 0.6 <= accept <= 0.95:
+        fails.append(f"mean acceptance {accept} outside [0.6, 0.95]")
+    if name == "funnel":
+        v_sd = x[..., 0].std().item()
+        lo, hi = FUNNEL_V_SD_BAND
+        print(f"{tag} v sd {v_sd:.4f} (calibrated band [{lo}, {hi}])")
+        if not lo <= v_sd <= hi:
+            fails.append(f"v sd {v_sd} outside [{lo}, {hi}]")
+    if name == "funnel_nc":
+        v = model.constrain(x)["v"]
+        ess_sq = diag.ess_bulk((v * v)[..., None], cap=False)[0].item()
+        z = abs(v.std().item() - 3.0) / (3.0 / (2 * ess_sq) ** 0.5)
+        print(f"{tag} v sd {v.std().item():.4f} against 3: {z:.3f} SE")
+        if not z < 5:
+            fails.append(f"v sd {z:.2f} SE from 3")
+    if fails:
+        raise RuntimeError(f"{name}: " + "; ".join(fails))
     return res, launches, sample_s
 
 
@@ -915,52 +1184,60 @@ def bench_flagship(card: str) -> int:
     return fastest
 
 
-def crossover(card: str, eps: float = 0.3) -> None:
-    """Wall time of one transition of the 100-D standard normal at a fixed
-    eps and the identity metric through each route, at each of
-    ``CROSSOVER_CHAINS``; fails unless the whole tree was the faster exactly
-    at the counts from ``NUTSKernel.TREE_MIN_CHAINS`` up."""
+def crossover(card: str, physics: str = "gaussian") -> None:
+    """Wall time of one transition at the fixed eps ``CROSSOVER_EPS``, the
+    identity metric and q0 normal, at each of ``CROSSOVER_CHAINS``, through
+    the whole-tree kernel and through the route ``NUTSKernel`` takes below
+    its threshold: the 100-D standard normal against the lockstep tree with
+    K3, eight schools (mu about its posterior) and the funnel against
+    autograd of ``logp`` on the lockstep tree.  Fails unless the whole tree
+    was the faster exactly at the counts from the threshold
+    (``NUTSKernel.TREE_MIN_CHAINS``, ``TREE_MIN_CHAINS_BY_PHYSICS``) up."""
     import torch
 
     from inplacedhmc_tpu_torch import NUTSKernel, identity_metric
-    from inplacedhmc_tpu_torch.core.hamiltonian import (
-        batched_logdensity_and_grad, evaluate)
+    from inplacedhmc_tpu_torch.core.hamiltonian import evaluate
     from inplacedhmc_tpu_torch.models import std_normal
     from inplacedhmc_tpu_torch.nuts.tree import nuts_transition
-    from inplacedhmc_tpu_torch.ops.leapfrog import \
-        make_fused_gaussian_leapfrog
-    from inplacedhmc_tpu_torch.ops.tree import make_gaussian_tree_transition
+    from inplacedhmc_tpu_torch.ops.tree import make_tree_transition
 
-    model = std_normal(G_DIM, device="cuda")
-    prec = model.structure["precision"]
-    metric = identity_metric(G_DIM, device="cuda")
-    pot = batched_logdensity_and_grad(model.logp)
-    trans = make_gaussian_tree_transition(prec, metric, max_depth=MAX_DEPTH)
-    step = make_fused_gaussian_leapfrog(prec, metric.inv)
+    if physics == "gaussian":
+        model = std_normal(G_DIM, device="cuda")
+        data = {"lam": model.structure["precision"]}
+    else:
+        model = tile_model(physics)
+        data = {**model.structure["data"], **model.structure["scalars"]}
+    kern = NUTSKernel(model)
+    metric = identity_metric(model.dim, device="cuda")
+    trans = make_tree_transition(physics, data, model.dim, metric,
+                                 max_depth=MAX_DEPTH)
+    step_fn = kern.step_factory(metric) if kern.step_factory else None
+    other = "lockstep + K3" if step_fn else "autograd on the lockstep tree"
+    eps = CROSSOVER_EPS[physics]
 
-    def step_fn(q, p, g, lp, e):
-        return step(q, p, e)
+    def lockstep(gen, z):
+        return nuts_transition(gen, kern.potential, metric, z, eps,
+                               max_depth=MAX_DEPTH, step_fn=step_fn)
 
     faster = {}
     for c in CROSSOVER_CHAINS:
         gen = torch.Generator(device="cuda").manual_seed(SEED + c)
-        z = evaluate(pot, torch.randn((c, G_DIM), generator=gen,
-                                      device="cuda"))
+        q0 = torch.randn((c, G_DIM), generator=gen, device="cuda") \
+            if physics == "gaussian" else tile_start(physics, c, gen)
+        z = evaluate(kern.potential, q0)
         k5 = wall_ms(lambda: trans(gen, z, eps), iters=10, warmup=2)
-        k3 = wall_ms(lambda: nuts_transition(
-            gen, pot, metric, z, eps, max_depth=MAX_DEPTH, step_fn=step_fn),
-            iters=3, warmup=1)
-        faster[c] = "K5" if k5 < k3 else "K3"
-        print(f"[crossover] {c} chains, eps {eps} on {card}: whole tree (K5) "
-              f"{k5:.3f} ms, lockstep + K3 {k3:.3f} ms per transition "
-              f"({k3 / k5:.1f}x)")
-    tmc = NUTSKernel.TREE_MIN_CHAINS
-    agree = all((v == "K5") == (c >= tmc) for c, v in faster.items())
-    print(f"[crossover] TREE_MIN_CHAINS {tmc}; faster route by chain count: "
-          f"{faster}")
-    if not agree:
-        raise RuntimeError(f"NUTSKernel.TREE_MIN_CHAINS = {tmc} contradicts "
-                           f"the timings: {faster}")
+        depth = int(lockstep(gen, z)[1].depth.max())   # also its warm-up
+        slow = wall_ms(lambda: lockstep(gen, z), iters=2, warmup=0)
+        faster[c] = "K5" if k5 < slow else "lockstep"
+        print(f"[crossover] {physics}, {c} chains, eps {eps} on {card}: "
+              f"whole tree (K5) {k5:.3f} ms, {other} {slow:.3f} ms per "
+              f"transition ({slow / k5:.1f}x); deepest tree {depth}")
+    tmc = kern.tree_min_chains(physics)
+    print(f"[crossover] {physics}: threshold {tmc} chains; faster route by "
+          f"chain count: {faster}")
+    if not all((v == "K5") == (c >= tmc) for c, v in faster.items()):
+        raise RuntimeError(f"the whole-tree threshold of {physics} ({tmc} "
+                           f"chains) contradicts the timings: {faster}")
 
 
 def main() -> int:
@@ -983,6 +1260,11 @@ def main() -> int:
     check_tree_kernel(card)
     check_generator(card)
     check_sweep(card)
+    check_tile_kernel(card, "eight_schools", (E_CHAINS, G_CHAINS),
+                      (0.05, 0.3, 1.5))
+    check_tile_kernel(card, "funnel", (F_CHAINS, E_CHAINS), (0.05, 0.3, 3.0),
+                      neck=True)
+    check_sweep(card, "eight_schools")
     print(f"[phase] kernel checks {time.perf_counter() - t:.2f} s")
     t = time.perf_counter()
     launches = run_sample(card, kernels)
@@ -1027,11 +1309,28 @@ def main() -> int:
                                          S_DRAWS, "lockstep")
     k3["launches"] = launches["leapfrog_gaussian.cu"]
     print(f"[phase] lockstep sample {time.perf_counter() - t:.2f} s")
+    tiles = []
+    for name in ("eight_schools", "funnel", "funnel_nc"):
+        t = time.perf_counter()
+        res, launches, sample_s = run_tile_sample(card, kernels, name)
+        if name != "funnel_nc":
+            st = tile_model(name).structure
+            entry = tree_at_state(card, res, physics=name,
+                                  data={**st["data"], **st["scalars"]})
+            entry["launches"] = launches[f"tree_{name}.cu"]
+            n = res.draws.shape[0]
+            print(f"[{name}] K5 device time about {n} x {entry['ms']:.4f} ms "
+                  f"= {n * entry['ms'] / 1e3:.3f} s of the {sample_s:.3f} s "
+                  f"sampling wall")
+            tiles.append(entry)
+        del res
+        print(f"[phase] {name} sample {time.perf_counter() - t:.2f} s")
     t = time.perf_counter()
-    crossover(card)
+    for physics in ("gaussian", "eight_schools", "funnel"):
+        crossover(card, physics)
     print(f"[phase] crossover {time.perf_counter() - t:.2f} s")
     print(f"[phase] total {time.perf_counter() - t_start:.2f} s")
-    print(json.dumps({"kernels": [k1, k3, k5, k5s]}))
+    print(json.dumps({"kernels": [k1, k3, k5, k5s, *tiles]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

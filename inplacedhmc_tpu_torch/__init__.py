@@ -3,10 +3,13 @@ with windowed warmup, for an NVIDIA H100.
 
 The JAX package stays the reference; this package imports none of it.  Its
 entry points run on the card (``device="cuda"``) unless the caller asks for
-the CPU.  Three CUDA kernels written by hand for Hopper, built by ``nvcc``
-on first use, carry the main paths: the fused logistic-regression potential
-(``csrc/logistic_vg.cu``), the whole NUTS transition for diagonal-Gaussian
-targets (``csrc/tree_gaussian.cu``) and the fused Gaussian leapfrog step
+the CPU.  CUDA kernels written by hand for Hopper, built by ``nvcc`` on
+first use, carry the main paths: the fused logistic-regression potential
+(``csrc/logistic_vg.cu``), the whole NUTS transition with a diagonal
+metric for each tile physics (``csrc/tree_kernel.cuh`` with the Gaussian's,
+eight schools' and the funnel's value and gradient:
+``csrc/tree_gaussian.cu``, ``csrc/tree_eight_schools.cu``,
+``csrc/tree_funnel.cu``) and the fused Gaussian leapfrog step
 (``csrc/leapfrog_gaussian.cu``).
 """
 

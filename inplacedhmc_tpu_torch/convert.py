@@ -3,10 +3,11 @@
 This system has no weights: a model's data (a logistic model's design and
 labels, a Gaussian model's precision) and a warmup state (positions, metric,
 step size) take their place.  :func:`model_from_numpy`,
-:func:`gaussian_model_from_numpy` and :func:`warmup_state_from_numpy` turn
-the numpy arrays of a JAX ``Model.structure`` and ``WarmupState`` into the
-port's objects; :func:`warmup_state_to_numpy` goes back.  This module imports nothing of the
-JAX package: the caller converts with ``numpy.asarray``.
+:func:`gaussian_model_from_numpy`, :func:`tile_model_from_numpy` and
+:func:`warmup_state_from_numpy` turn the numpy arrays of a JAX
+``Model.structure`` and ``WarmupState`` into the port's objects;
+:func:`warmup_state_to_numpy` goes back.  This module imports nothing of
+the JAX package: the caller converts with ``numpy.asarray``.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from .core.state import WarmupState
 from .models.base import Model
 from .models.gaussian import diag_gaussian_model
 from .models.logistic import logistic_regression
+from .ops import tile_physics
 
 
 def model_from_numpy(x, y, inv_var: float, device="cuda") -> Model:
@@ -39,6 +41,29 @@ def gaussian_model_from_numpy(precision, device="cuda") -> Model:
     prec = torch.as_tensor(np.array(precision, dtype=np.float32),
                            device=device)
     return diag_gaussian_model(f"diag_gaussian_{prec.shape[0]}", prec)
+
+
+def tile_model_from_numpy(physics: str, data, dim: int, *, scalars=None,
+                          device="cuda") -> Model:
+    """The port's model for a JAX ``{"kind": "tile_logp"}`` structure whose
+    tile physics the port writes out as ``physics``
+    (``ops/tile_physics.py``): ``data`` the structure's rows (numpy, ``[D]``
+    or ``[1, D]``; kept bit for bit as float32), ``scalars`` the constants
+    the JAX ``tile_logp`` closes over (the funnel's ``k`` and ``inv_s2``).
+    Its ``logp`` is the physics' own value, so autograd of it and the
+    physics' hand-written gradient describe the same density."""
+    rows = {k: torch.as_tensor(np.array(v, dtype=np.float32).reshape(dim),
+                               device=device) for k, v in data.items()}
+    scalars = {k: float(v) for k, v in (scalars or {}).items()}
+    phys = tile_physics.bind(physics, {**rows, **scalars})
+
+    def logp(q):
+        bound = tile_physics.bind(physics, phys.data, q.device, q.dtype)
+        return bound(q.reshape(-1, dim))[0].reshape(q.shape[:-1])
+
+    return Model(name=f"{physics}_{dim}", dim=dim, logp=logp,
+                 structure={"kind": "tile_logp", "physics": physics,
+                            "data": rows, "scalars": scalars})
 
 
 def warmup_state_from_numpy(q, metric_inv, log_eps, device="cuda", *,

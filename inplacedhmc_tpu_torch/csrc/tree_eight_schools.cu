@@ -1,0 +1,97 @@
+// K5 with eight schools' tile physics (BASELINE config 4): the body of
+// tree_kernel.cuh with the hand-written value and gradient of
+// inplacedhmc_tpu/models/eight_schools.py::_tile_logp, which the TPU kernel
+// differentiates with jax.vjp (tree_pallas.py:899-912).  Its plain version
+// is ops/tile_physics.py::eight_schools, the same operations in the same
+// order except the row sums.
+//
+// Lanes [mu, log_tau, z_1..z_8]; data rows y, sig, obs_mask (1 on the z
+// lanes).  With r_j = (y_j - mu - tau z_j) / sig_j:
+//   logp = -0.5 (mu/10)^2 - softplus(2 (log_tau - log 5)) + log_tau
+//          - 0.5 sum (z_j^2 + r_j^2)
+//   d/dz_j = tau r_j / sig_j - z_j
+//   d/dmu = sum r_j / sig_j - (mu/10)/10
+//   d/dlog_tau = 1 - 2 sigmoid(2 (log_tau - log 5)) + tau sum z_j r_j / sig_j
+// mu and log_tau come to every lane from lanes 0 and 1 (two broadcasts);
+// the log density and the two sums of the gradient's first entries are
+// three warp sums.  Per leaf about 10 flops per z lane, 3 warp sums of 5
+// shuffles, and 3 exponentials and a log1p (the SFU's).
+
+#include "tree_kernel.cuh"
+
+namespace tree {
+
+constexpr float LOG5_F32 = 1.6094379425048828f;  // float32(log 5)
+
+template <int NV>
+struct EightSchools {
+  static constexpr int kNV = NV;
+  static constexpr int kMinDim = 2;
+  static constexpr bool kFusedGaussian = false;
+  float y[NV], sig[NV];
+  bool obs[NV];
+
+  __device__ __forceinline__ void load(const PhysicsData& pd,
+                                       const bool (&in)[NV], int lane) {
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      const int d = lane + 32 * k;
+      obs[k] = in[k] && pd.row[2][d] != 0.f;
+      y[k] = obs[k] ? pd.row[0][d] : 0.f;
+      sig[k] = obs[k] ? pd.row[1][d] : 1.f;
+    }
+  }
+
+  __device__ __forceinline__ float value_grad(const float (&q)[NV],
+                                              float (&g)[NV],
+                                              int lane) const {
+    const float mu = __shfl_sync(FULL, q[0], 0);
+    const float log_tau = __shfl_sync(FULL, q[0], 1);
+    const float tau = expf(log_tau);
+    float ss = 0.f, sr = 0.f, szr = 0.f;
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      float gk = 0.f;
+      if (obs[k]) {
+        const float z = q[k];
+        const float r = fdiv(sub(y[k], add(mu, mul(tau, z))), sig[k]);
+        const float rs = fdiv(r, sig[k]);
+        ss = add(ss, add(mul(z, z), mul(r, r)));
+        sr = add(sr, rs);
+        szr = add(szr, mul(z, rs));
+        gk = sub(mul(tau, rs), z);
+      }
+      g[k] = gk;
+    }
+    ss = warp_sum(ss);
+    sr = warp_sum(sr);
+    szr = warp_sum(szr);
+    const float mu10 = fdiv(mu, 10.f);
+    const float x = mul(2.f, sub(log_tau, LOG5_F32));
+    // logaddexp(0, x) as JAX computes it; its derivative 2 sigmoid(x)
+    const float softplus = add(fmaxf(x, 0.f), log1pf(expf(-fabsf(x))));
+    const float sigmoid = fdiv(1.f, add(1.f, expf(-x)));
+    if (lane == 0) g[0] = sub(sr, fdiv(mu10, 10.f));
+    if (lane == 1) g[0] = add(sub(1.f, mul(2.f, sigmoid)), mul(tau, szr));
+    return sub(add(sub(mul(-0.5f, mul(mu10, mu10)), softplus), log_tau),
+               mul(0.5f, ss));
+  }
+};
+
+}  // namespace tree
+
+// tree::launch_physics with eight schools: row0 y, row1 sig, row2 obs_mask
+// [D]; s0, s1 are not read.  D >= 2.
+extern "C" int tree_eight_schools_launch(
+    const float* q0, const float* p0, const float* eps, const int32_t* dirs,
+    const int32_t* valid, const int64_t* key, const float* unif,
+    const float* row0, const float* row1, const float* row2, float s0,
+    float s1, const float* minv, float* q_out, float* logp_out,
+    float* grad_out, float* energy_out, float* lsa_out, int32_t* term,
+    int32_t* tl, int32_t* tr, int32_t* depth, int32_t* steps, int64_t C,
+    int D, int md, int n_sweep, int refresh, float min_delta, void* stream) {
+  return tree::launch_physics<tree::EightSchools>(
+      q0, p0, eps, dirs, valid, key, unif, row0, row1, row2, s0, s1, minv,
+      q_out, logp_out, grad_out, energy_out, lsa_out, term, tl, tr, depth,
+      steps, C, D, md, n_sweep, refresh, min_delta, stream);
+}

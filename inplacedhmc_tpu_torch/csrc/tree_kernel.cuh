@@ -1,0 +1,564 @@
+// The whole NUTS transition for a diagonal inverse metric Minv and a tile
+// physics P (the model's log density and gradient, written by hand), one
+// chain per warp, K sequential transitions per launch, with the random
+// numbers drawn inside the kernel.  Included by one source per physics
+// (tree_gaussian.cu, tree_eight_schools.cu, tree_funnel.cu), each of which
+// defines its physics and an extern "C" launcher over launch_physics<P>.
+//
+// Replaces the TPU kernel inplacedhmc_tpu/ops/tree_pallas.py::_make_kernel
+// (launched by _build_transition_padded, built by make_tree_transition and
+// make_gaussian_tree_transition) in its diagonal-metric form, with the
+// physics that make_tree_transition differentiates in the kernel (jax.vjp of
+// the model's tile_logp, tree_pallas.py:899-912) written out as a device
+// function, in the forms the sampling paths use: use_prng (proposal uniforms
+// drawn in the kernel), refresh_inside (momentum and direction word too),
+// padded_io (a `valid` column; rows with valid = 0 start inactive) and
+// n_sweep = K (the proposal of transition s is the start of s + 1; the draws
+// and records of every transition are written, the gradient once, after the
+// last; the last draw is the carry of the next launch).  For each chain it
+// computes what that kernel computes: the momentum-refresh energy pi0, the
+// doubling loop over depths d < max_depth, the 2^d leapfrog leaves of each
+// subtree, the generalized U-turn checks on the checkpoint stack, the
+// progressive proposal within a subtree and the biased one at each doubling,
+// divergence at delta < min_delta, the acceptance sum sum exp(min(delta, 0))
+// in linear space (its log taken once, at exit) and the termination records
+// (term, term_left, term_right, depth, steps).  The explicit arrays of the
+// TPU kernel's interpret mode stay as test hooks: momentum [K, C, D],
+// direction words [K, C] and uniforms [K, 2^md - 1 + md, C].
+//
+// A physics P<NV> is a struct that holds one chain's data rows in registers
+// (NV values a lane, like lam and minv) and provides
+//   void load(const PhysicsData&, const bool (&in)[NV], int lane)
+//   float value_grad(const float (&q)[NV], float (&g)[NV], int lane) const
+// value_grad returns the chain's log density, reduced over the warp and the
+// same on every lane, and writes the lane's gradient entries, 0 on lanes
+// past D (there q is 0 and the rows read 0).  The kernel calls it for the
+// start of each transition, at each leaf and for the final gradient, where
+// the TPU kernel calls its physics (tree_pallas.py:266, :538, :586, :630).
+// The Gaussian's leaf keeps its log density and kinetic energy in one fused
+// loop (P::kFusedGaussian).
+//
+// What differs from the TPU kernel, and why:
+//  * The TPU runs a tile of chains in lockstep: the leaf index is global to
+//    the tile and a leaf is skipped only when the whole tile is dead.  Here
+//    each chain has its own control flow: a warp leaves its subtree when its
+//    chain diverges or turns, its tree when the chain terminates, and an
+//    invalid (padding) row skips the tree at once.  The TPU kernel masks
+//    every update of a dead chain, so a dead chain's later leaves change
+//    nothing: the results are the same as the tile's.
+//  * Random numbers: the TPU's bits cannot be reproduced, so the kernel runs
+//    Philox4x32-10 (Salmon et al., SC'11) keyed by the launch's two words
+//    (read from device memory: the host never sees them), with one counter
+//    per draw, (chain, s, stream, slot); utils/philox.py is its plain
+//    version.  Uniforms are (bits >> 8) 2^-24, normals Box-Muller on
+//    ((bits >> 8) + 0.5) 2^-24, both as the TPU kernel converts its bits.
+//    Leaf n of subtree depth d reads uniform slot 2^d - 1 + n, the merge of
+//    depth d slot 2^md - 1 + d: a draw depends on its chain and slot only,
+//    and a chain that ends early draws nothing more.
+//  * Checkpoint stacks: even leaf n stores the pre-leaf momentum sum and p#
+//    to slot popcount(n >> 1); the U-turn checks of levels
+//    m < trailing_ones(n) read slot popcount(n >> 1) - m.  The TPU kernel's
+//    odd-leaf stores go to a dummy slot that nothing reads; here they are
+//    skipped.  The stacks ([md, D] floats each, 8 KB per chain at D = 100,
+//    md = 10) live in dynamic shared memory, one region per warp; the
+//    position, momentum and gradient vectors of the tree (15 of them) live
+//    in registers, NV = DP / 32 floats per lane.  Lanes past D hold zeros
+//    (minv and the momentum scale read as 0), so nothing of them reaches a
+//    row sum.
+//  * Arithmetic: the operations of each leaf are those of the TPU kernel and
+//    of the plain torch version (ops/tree.py, ops/tile_physics.py), each
+//    rounded on its own (__fmul_rn, __fadd_rn: no FMA contraction); only the
+//    row sums (log density, kinetic energy, U-turn statistics, and the sums
+//    inside a physics' gradient) are taken in another order, a fixed-order
+//    sum per lane and a butterfly shuffle, deterministic and the same on
+//    every lane, so every branch is uniform across the warp.  The Gaussian's
+//    gradient is elementwise, so its trajectories equal the plain version's
+//    bit for bit; a physics whose gradient holds a row sum (eight schools,
+//    the funnel) rounds that sum differently, and its trajectories agree
+//    with the plain version's to f32 round-off.
+//
+// Bound on an H100 SXM: each leapfrog leaf does about 25 D flops of tree
+// work (the update, two row sums, the guards, the expected U-turn check and
+// the selects) plus the physics' own, so a transition is about that times
+// sum(steps) flops at 67 TFLOP/s fp32, against the bytes of its inputs and
+// outputs (q in, and per transition q and the eight per-chain records out,
+// grad once) at 3.35 TB/s.  With the draws made here no uniform array
+// crosses device memory.  One warp per chain leaves 32 - D lanes idle where
+// D < 32 (22 of 32 at D = 10); a simple kernel that is right comes first,
+// the tile shape is later work.
+//
+// Registers: at D <= 128 the kernel asks for 4 blocks of 4 warps per SM
+// (__launch_bounds__), which caps it at 128 registers a thread; above that
+// the sweep loop and the generator would leave room for 3 blocks only.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace tree {
+
+constexpr int TERM_MAX_DEPTH = 0;  // core/state.py::Termination
+constexpr int TERM_DIVERGENCE = 1;
+constexpr int TERM_TURNING = 2;
+constexpr int MAX_WARPS = 4;          // chains per block
+constexpr int SMEM_LIMIT = 232448;    // dynamic shared memory of one block
+constexpr unsigned FULL = 0xffffffffu;
+
+// utils/philox.py: streams, constants
+constexpr uint32_t STREAM_MOMENTUM = 0;
+constexpr uint32_t STREAM_DIRECTION = 1;
+constexpr uint32_t STREAM_UNIFORM = 2;
+constexpr float TWO_M24 = 1.0f / 16777216.0f;
+constexpr float TWO_PI_F32 = 6.2831854820251465f;
+
+__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ float fdiv(float a, float b) { return __fdiv_rn(a, b); }
+
+// Philox4x32-10 of the counter (c0, c1, c2, c3) under the key (k0, k1)
+__device__ __forceinline__ uint4 philox(uint32_t c0, uint32_t c1, uint32_t c2,
+                                        uint32_t c3, uint32_t k0,
+                                        uint32_t k1) {
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    const uint32_t hi0 = __umulhi(0xD2511F53u, c0), lo0 = 0xD2511F53u * c0;
+    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c2), lo1 = 0xCD9E8D57u * c2;
+    c0 = hi1 ^ c1 ^ k0;
+    c1 = lo1;
+    c2 = hi0 ^ c3 ^ k1;
+    c3 = lo0;
+    k0 += 0x9E3779B9u;
+    k1 += 0xBB67AE85u;
+  }
+  return make_uint4(c0, c1, c2, c3);
+}
+
+struct Key {
+  uint32_t k0, k1;
+};
+
+__device__ __forceinline__ float draw_uniform(Key k, uint32_t chain, int s,
+                                              int slot) {
+  const uint4 w = philox(chain, (uint32_t)s, STREAM_UNIFORM, (uint32_t)slot,
+                         k.k0, k.k1);
+  return mul(__uint2float_rn(w.x >> 8), TWO_M24);
+}
+
+__device__ __forceinline__ uint32_t draw_direction(Key k, uint32_t chain,
+                                                   int s) {
+  return philox(chain, (uint32_t)s, STREAM_DIRECTION, 0u, k.k0, k.k1).x;
+}
+
+__device__ __forceinline__ float draw_normal(Key k, uint32_t chain, int s,
+                                             int dim) {
+  const uint4 w = philox(chain, (uint32_t)s, STREAM_MOMENTUM, (uint32_t)dim,
+                         k.k0, k.k1);
+  const float u1 = mul(add(__uint2float_rn(w.x >> 8), 0.5f), TWO_M24);
+  const float u2 = mul(add(__uint2float_rn(w.y >> 8), 0.5f), TWO_M24);
+  const float r = sqrtf(mul(-2.0f, logf(u1)));
+  return mul(r, cosf(mul(TWO_PI_F32, u2)));
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v = add(v, __shfl_xor_sync(FULL, v, off));
+  return v;
+}
+
+// logaddexp as jnp and torch compute it: max + log1p(exp(-|a - b|)), and
+// a + b where a - b is NaN (both -inf)
+__device__ __forceinline__ float logaddexp(float a, float b) {
+  const float dl = sub(a, b);
+  if (isnan(dl)) return add(a, b);
+  return add(fmaxf(a, b), log1pf(expf(-fabsf(dl))));
+}
+
+template <int NV>
+__device__ __forceinline__ void copy(float (&dst)[NV], const float (&src)[NV]) {
+#pragma unroll
+  for (int k = 0; k < NV; ++k) dst[k] = src[k];
+}
+
+// sum_d a_d b_d over the chain's row
+template <int NV>
+__device__ __forceinline__ float dot(const float (&a)[NV],
+                                     const float (&b)[NV]) {
+  float s = 0.f;
+#pragma unroll
+  for (int k = 0; k < NV; ++k) s = add(s, mul(a[k], b[k]));
+  return warp_sum(s);
+}
+
+// A physics' data: up to three [D] rows and two scalars, in the order of
+// ops/tile_physics.py's Spec (rows, scalars)
+struct PhysicsData {
+  const float* row[3];
+  float scalar[2];
+};
+
+struct Args {
+  const float* q0;       // [C, D] start of the sweep (may alias a row block
+                         // of q_out: each warp reads its row before writing)
+  const float* p0;       // [K, C, D] momentum, or the [D] sqrt-mass row
+  const float* eps;      // [C]
+  const int32_t* dirs;   // [K, C] direction words (unused when refreshing)
+  const int32_t* valid;  // [C] or null (every row valid)
+  const int64_t* key;    // [2] launch key (unused when nothing is drawn)
+  const float* unif;     // [K, n_unif, C] or null (drawn here)
+  PhysicsData pd;
+  const float* minv;     // [D]
+  float* q_out;          // [K, C, D]
+  float* logp_out;       // [K, C]
+  float* grad_out;       // [C, D], after the last transition
+  float* energy_out;     // [K, C]
+  float* lsa_out;        // [K, C]
+  int32_t* term_out;     // [K, C] ...
+  int32_t* tl_out;
+  int32_t* tr_out;
+  int32_t* depth_out;
+  int32_t* steps_out;
+  int64_t C;
+  int D, md, n_sweep, refresh;
+  float min_delta;
+};
+
+template <class P>
+__global__ void __launch_bounds__(32 * MAX_WARPS, P::kNV <= 4 ? 4 : 1)
+tree_kernel(const Args a) {
+  constexpr int NV = P::kNV;
+  extern __shared__ float smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t c = (int64_t)blockIdx.x * (blockDim.x >> 5) + warp;
+  if (c >= a.C) return;  // the whole warp leaves together
+  const int64_t C = a.C;
+  const int D = a.D, md = a.md;
+  const int n_unif = (1 << md) - 1 + md;
+
+  const int64_t stack_len = 2 * (int64_t)md * D;
+  float* stk_s = smem + warp * stack_len;
+  float* stk_ps = stk_s + (int64_t)md * D;
+
+  const Key key = a.key ? Key{(uint32_t)a.key[0], (uint32_t)a.key[1]}
+                        : Key{0u, 0u};
+  const bool valid = a.valid == nullptr || a.valid[c] != 0;
+  const float eps = a.eps[c];
+
+  bool in[NV];
+  float minv[NV];
+  float lq[NV], lp[NV], lg[NV], rq[NV], rp[NV], rg[NV];  // trajectory ends
+  float cq[NV], cp[NV], cg[NV];                          // subtree frontier
+  float psl[NV], psr[NV], rho[NV], scum[NV], propq[NV], subq[NV];
+  const int64_t row = c * D;
+#pragma unroll
+  for (int k = 0; k < NV; ++k) {
+    const int d = lane + 32 * k;
+    in[k] = d < D;
+    minv[k] = in[k] ? a.minv[d] : 0.f;
+    propq[k] = in[k] ? a.q0[row + d] : 0.f;  // the sweep's carry
+  }
+  P phys;
+  phys.load(a.pd, in, lane);
+
+  for (int s = 0; s < a.n_sweep; ++s) {
+    // the transition's start: the carry, its log density and gradient, and
+    // its momentum
+    const float logp0 = phys.value_grad(propq, lg, lane);
+    float kin_part = 0.f;
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      const int d = lane + 32 * k;
+      float p = 0.f;
+      if (in[k])
+        p = a.refresh ? mul(a.p0[d], draw_normal(key, (uint32_t)c, s, d))
+                      : a.p0[((int64_t)s * C + c) * D + d];
+      lq[k] = rq[k] = subq[k] = cq[k] = propq[k];
+      lp[k] = rp[k] = rho[k] = cp[k] = p;
+      rg[k] = cg[k] = lg[k];
+      psl[k] = psr[k] = mul(minv[k], p);
+      kin_part = add(kin_part, mul(mul(p, minv[k]), p));
+    }
+    const float pi0 = sub(logp0, mul(0.5f, warp_sum(kin_part)));
+    const uint32_t dirs = a.refresh ? draw_direction(key, (uint32_t)c, s)
+                                    : (uint32_t)a.dirs[(int64_t)s * C + c];
+    const float* unif_s = a.unif ? a.unif + (int64_t)s * n_unif * C : nullptr;
+    auto uniform = [&](int slot) -> float {
+      return unif_s ? unif_s[(int64_t)slot * C + c]
+                    : draw_uniform(key, (uint32_t)c, s, slot);
+    };
+
+    float omega = 0.f, prop_delta = 0.f, prop_logp = logp0;
+    float sub_delta = 0.f, sub_logp = logp0, sum_alpha = 0.f;
+    int i_left = 0, i_right = 0, steps = 0, depth = 0;
+    int term = TERM_MAX_DEPTH, tl = 1, tr = 0;  // REACHED_MAX_DEPTH (1, 0)
+
+    for (int d = 0; valid && d < md; ++d) {
+      const bool isf = (dirs >> d) & 1u;
+      const int signi = isf ? 1 : -1;
+      const float eps_signed = mul(isf ? 1.f : -1.f, eps);
+      const float half = mul(0.5f, eps_signed);
+      const int i_base = isf ? i_right : i_left;
+      const int n_leaves = 1 << d;
+#pragma unroll
+      for (int k = 0; k < NV; ++k) {
+        cq[k] = isf ? rq[k] : lq[k];
+        cp[k] = isf ? rp[k] : lp[k];
+        cg[k] = isf ? rg[k] : lg[k];
+        scum[k] = 0.f;
+      }
+      float omega_sub = -INFINITY;
+      bool died_div = false, died_turn = false;
+      int die_l = 0, die_r = 0;
+
+      for (int n = 0; n < n_leaves; ++n) {
+        // the leaf's proposal uniform, drawn before the leapfrog so that the
+        // generator's registers are free again when the leaf's are live
+        const float log_u = logf(uniform(n_leaves - 1 + n));
+        // leapfrog leaf
+        float qn[NV], pn[NV], gn[NV], psn[NV];
+        float logp_new, kin_leaf = 0.f;
+        if constexpr (P::kFusedGaussian) {
+          float lp_part = 0.f;
+#pragma unroll
+          for (int k = 0; k < NV; ++k) {
+            const float p_mid = add(cp[k], mul(half, cg[k]));
+            qn[k] = add(cq[k], mul(eps_signed, mul(minv[k], p_mid)));
+            const float lqn = mul(phys.lam[k], qn[k]);
+            gn[k] = -lqn;
+            pn[k] = add(p_mid, mul(half, gn[k]));
+            psn[k] = mul(minv[k], pn[k]);
+            lp_part = add(lp_part, mul(lqn, qn[k]));
+            kin_leaf = add(kin_leaf, mul(mul(pn[k], minv[k]), pn[k]));
+          }
+          logp_new = mul(-0.5f, warp_sum(lp_part));
+        } else {
+          float p_mid[NV];
+#pragma unroll
+          for (int k = 0; k < NV; ++k) {
+            p_mid[k] = add(cp[k], mul(half, cg[k]));
+            qn[k] = add(cq[k], mul(eps_signed, mul(minv[k], p_mid[k])));
+          }
+          logp_new = phys.value_grad(qn, gn, lane);
+#pragma unroll
+          for (int k = 0; k < NV; ++k) {
+            pn[k] = add(p_mid[k], mul(half, gn[k]));
+            psn[k] = mul(minv[k], pn[k]);
+            kin_leaf = add(kin_leaf, mul(mul(pn[k], minv[k]), pn[k]));
+          }
+        }
+        const float kin_new = mul(0.5f, warp_sum(kin_leaf));
+        // any non-finite joint density is -inf, a NaN delta is -inf
+        float joint = sub(logp_new, isfinite(kin_new) ? kin_new : INFINITY);
+        if (!isfinite(joint)) joint = -INFINITY;
+        float delta = sub(joint, pi0);
+        if (isnan(delta)) delta = -INFINITY;
+        const bool divergent = delta < a.min_delta;
+        // non-finite elements fall back to the previous point before they
+        // are stored (p# to 0)
+#pragma unroll
+        for (int k = 0; k < NV; ++k) {
+          if (!isfinite(qn[k])) qn[k] = cq[k];
+          if (!isfinite(pn[k])) pn[k] = cp[k];
+          if (!isfinite(gn[k])) gn[k] = cg[k];
+          if (!isfinite(psn[k])) psn[k] = 0.f;
+        }
+        const int i_new = i_base + (n + 1) * signi;
+        sum_alpha = add(sum_alpha, expf(fminf(delta, 0.f)));
+        steps += 1;
+
+        // even leaves open nodes: store the pre-leaf momentum sum and p#
+        if ((n & 1) == 0) {
+          const int slot = __popc(n >> 1);
+#pragma unroll
+          for (int k = 0; k < NV; ++k) {
+            if (in[k]) {
+              stk_s[slot * D + lane + 32 * k] = scum[k];
+              stk_ps[slot * D + lane + 32 * k] = psn[k];
+            }
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < NV; ++k) scum[k] = add(scum[k], pn[k]);
+
+        // U-turn checks of the nodes this leaf closes, innermost first
+        bool turning = false;
+        int turn_pos = 0;
+        const int t_ones = __ffs(~n) - 1;
+        const int idx_max = __popc(n >> 1);
+        for (int m = 0; m < t_ones; ++m) {
+          const int j = idx_max - m;
+          float ta = 0.f, tb = 0.f;
+#pragma unroll
+          for (int k = 0; k < NV; ++k) {
+            const float sv = in[k] ? stk_s[j * D + lane + 32 * k] : 0.f;
+            const float ps = in[k] ? stk_ps[j * D + lane + 32 * k] : 0.f;
+            const float rn = sub(scum[k], sv);
+            ta = add(ta, mul(rn, ps));
+            tb = add(tb, mul(rn, psn[k]));
+          }
+          ta = warp_sum(ta);
+          tb = warp_sum(tb);
+          if (ta < 0.f || tb < 0.f) {
+            turning = true;
+            turn_pos = i_base + (n - (2 << m) + 2) * signi;
+            break;
+          }
+        }
+        turning = turning && !divergent;
+
+        // progressive proposal within the subtree (unbiased multinomial)
+        const float omega_new = logaddexp(omega_sub, delta);
+        if (!divergent) {
+          if (log_u < sub(delta, omega_new)) {
+#pragma unroll
+            for (int k = 0; k < NV; ++k) subq[k] = qn[k];
+            sub_delta = delta;
+            sub_logp = logp_new;
+          }
+          omega_sub = omega_new;
+        }
+        copy(cq, qn);
+        copy(cp, pn);
+        copy(cg, gn);
+        if (divergent) {
+          died_div = true;
+          die_l = die_r = i_new;
+          break;
+        }
+        if (turning) {
+          died_turn = true;
+          die_l = min(turn_pos, i_new);
+          die_r = max(turn_pos, i_new);
+          break;
+        }
+      }
+
+      // merge the subtree into the trajectory (biased progressive sampling)
+      const bool ok = !(died_div || died_turn);
+      bool turn_top = false;
+      if (ok) {
+        if (logf(uniform((1 << md) - 1 + d)) < sub(omega_sub, omega)) {
+          copy(propq, subq);
+          prop_delta = sub_delta;
+          prop_logp = sub_logp;
+        }
+        omega = logaddexp(omega, omega_sub);
+        const int i_end = i_base + n_leaves * signi;
+#pragma unroll
+        for (int k = 0; k < NV; ++k) {
+          const float ps_end = mul(minv[k], cp[k]);
+          if (isf) {
+            rq[k] = cq[k]; rp[k] = cp[k]; rg[k] = cg[k]; psr[k] = ps_end;
+          } else {
+            lq[k] = cq[k]; lp[k] = cp[k]; lg[k] = cg[k]; psl[k] = ps_end;
+          }
+          rho[k] = add(rho[k], scum[k]);
+        }
+        if (isf) i_right = i_end; else i_left = i_end;
+        depth = d + 1;
+        turn_top = dot(rho, psl) < 0.f || dot(rho, psr) < 0.f;
+      }
+      if (died_div) term = TERM_DIVERGENCE;
+      if (died_turn || turn_top) term = TERM_TURNING;
+      if (!ok) {
+        tl = die_l;
+        tr = die_r;
+        break;
+      }
+      if (turn_top) {
+        tl = i_left;
+        tr = i_right;
+        break;
+      }
+    }
+
+    const int64_t at = (int64_t)s * C + c;
+#pragma unroll
+    for (int k = 0; k < NV; ++k)
+      if (in[k]) a.q_out[at * D + lane + 32 * k] = propq[k];
+    if (lane == 0) {
+      a.logp_out[at] = prop_logp;
+      a.energy_out[at] = add(prop_delta, pi0);
+      a.lsa_out[at] = logf(sum_alpha);
+      a.term_out[at] = term;
+      a.tl_out[at] = tl;
+      a.tr_out[at] = tr;
+      a.depth_out[at] = depth;
+      a.steps_out[at] = steps;
+    }
+  }
+
+  // the final proposal's gradient (lg is free again)
+  phys.value_grad(propq, lg, lane);
+#pragma unroll
+  for (int k = 0; k < NV; ++k)
+    if (in[k]) a.grad_out[row + lane + 32 * k] = lg[k];
+}
+
+template <class P>
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  const int per_warp = 2 * a.md * a.D * (int)sizeof(float);
+  int warps = MAX_WARPS;
+  while (warps > 1 && warps * per_warp > SMEM_LIMIT) --warps;
+  const int bytes = warps * per_warp;
+  if (bytes > SMEM_LIMIT) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      tree_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  const int64_t blocks = (a.C + warps - 1) / warps;
+  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  tree_kernel<P><<<(unsigned)blocks, 32 * warps, bytes, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// The body of every physics' extern "C" launcher.  Launches on `stream` and
+// returns the launch's cudaError_t (0 on success).  Pointers are device
+// pointers to contiguous arrays (float32 unless said). q0 [C, D] is the
+// sweep's start; it is only read, and may be the last row block of q_out
+// (the carry of the previous launch).  Momentum: with refresh = 0, p0 is
+// [K, C, D] and dirs [K, C] int32 direction words; with refresh = 1, p0 is
+// the [D] sqrt-mass row, the momentum p0 * xi and the direction word are
+// drawn here and dirs is not read.  valid [C] int32, or null for all rows;
+// key [2] int64 (the two 32-bit words of the launch); unif [K, n_unif, C]
+// explicit uniforms (a test hook), or null to draw them here.  row0..row2
+// [D] the physics' data rows (null where it has fewer), s0, s1 its scalars;
+// minv [D].  Outputs: q [K, C, D] (q[K - 1] the final carry); logp, energy,
+// log_sum_alpha [K, C]; term, term_left, term_right, depth, steps [K, C]
+// int32; grad [C, D] of the final carry.  D must be in [P's least D, 256],
+// md in [1, 30], K >= 1.
+template <template <int> class P>
+int launch_physics(
+    const float* q0, const float* p0, const float* eps, const int32_t* dirs,
+    const int32_t* valid, const int64_t* key, const float* unif,
+    const float* row0, const float* row1, const float* row2, float s0,
+    float s1, const float* minv, float* q_out, float* logp_out,
+    float* grad_out, float* energy_out, float* lsa_out, int32_t* term,
+    int32_t* tl, int32_t* tr, int32_t* depth, int32_t* steps, int64_t C,
+    int D, int md, int n_sweep, int refresh, float min_delta, void* stream) {
+  cudaError_t prior = cudaGetLastError();
+  if (prior != cudaSuccess) return (int)prior;
+  if (C == 0) return 0;
+  if (C < 0 || D < P<1>::kMinDim || md < 1 || md > 30 || n_sweep < 1 ||
+      C > 0xffffffffLL)
+    return (int)cudaErrorInvalidValue;
+  if ((refresh || !unif) && !key) return (int)cudaErrorInvalidValue;
+  if (!refresh && !dirs) return (int)cudaErrorInvalidValue;
+  const Args a{q0,      p0,       eps,        dirs,    valid,
+               key,     unif,     {{row0, row1, row2}, {s0, s1}},
+               minv,    q_out,    logp_out,   grad_out, energy_out,
+               lsa_out, term,     tl,         tr,      depth,
+               steps,   C,        D,          md,      n_sweep,
+               refresh, min_delta};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D <= 32) return (int)launch<P<1>>(a, s);
+  if (D <= 64) return (int)launch<P<2>>(a, s);
+  if (D <= 128) return (int)launch<P<4>>(a, s);
+  if (D <= 256) return (int)launch<P<8>>(a, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace tree

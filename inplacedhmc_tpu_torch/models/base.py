@@ -19,8 +19,20 @@ class Model:
     ``logp`` must accept any leading batch shape and be defined on all of
     ``R^dim`` (return ``-inf``/NaN outside the support; the sampler maps
     non-finite values to divergences).  ``structure`` optionally describes
-    the model for a fused kernel (``{"kind": "logistic", ...}``).  Models
-    compare and hash by identity.
+    the model for a fused kernel.  Its ``"kind"``:
+
+    * ``"logistic"``: ``x``, ``y``, ``inv_var`` (the fused potential);
+    * ``"diag_gaussian"``: ``precision [D]`` (the Gaussian kernels);
+    * ``"tile_logp"``: ``physics``, the name of a hand-written value and
+      gradient in ``ops/tile_physics.py`` (``"eight_schools"``,
+      ``"funnel"``; each has a device function for the whole-tree kernel);
+      ``data``, its rows (``[D]`` float32 tensors on the model's device,
+      zero past its lanes: eight schools' ``y``, ``sig``, ``obs_mask``, the
+      funnel's ``x_mask``); ``scalars``, its floats (the funnel's ``k``,
+      ``inv_s2``).  A physics the port has no device function for runs on
+      autograd and the lockstep tree.
+
+    Models compare and hash by identity.
     """
 
     name: str

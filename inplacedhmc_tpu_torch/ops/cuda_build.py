@@ -4,10 +4,11 @@ Each source in ``inplacedhmc_tpu_torch/csrc/`` exposes an ``extern "C"``
 launcher that takes raw device pointers, sizes and a ``cudaStream_t`` and
 returns the launch's ``cudaGetLastError()``.  On first use the source is
 compiled for Hopper (``sm_90a``) into a plain shared library under
-``inplacedhmc_tpu_torch/_build/``, named by a hash of the source and the
-flags so that a stale library is never loaded; it includes no PyTorch header,
-so the build takes seconds.  Nothing is built when a module is imported, and
-nothing here runs on the CPU path.
+``inplacedhmc_tpu_torch/_build/``, named by a hash of the flags, the source
+and every file it includes with ``#include "..."`` (the whole-tree kernel's
+sources share ``tree_kernel.cuh``), so that a stale library is never
+loaded; it includes no PyTorch header, so the build takes seconds.  Nothing
+is built when a module is imported, and nothing here runs on the CPU path.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import concurrent.futures
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -46,6 +48,25 @@ def find_nvcc() -> str:
                        "from source on first use")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def source_files(path: str) -> list:
+    """``path`` and every file it includes with ``#include "..."``,
+    recursively (paths relative to the including file, as ``nvcc`` resolves
+    them), each once, in the order first reached."""
+    seen, todo = [], [os.path.abspath(path)]
+    while todo:
+        p = todo.pop(0)
+        if p in seen:
+            continue
+        seen.append(p)
+        with open(p, "rb") as f:
+            todo += [os.path.join(os.path.dirname(p), inc.decode())
+                     for inc in _INCLUDE.findall(f.read())]
+    return seen
+
+
 class CudaKernel:
     """One ``extern "C"`` launcher in one source file, built on first use.
 
@@ -68,9 +89,10 @@ class CudaKernel:
         return os.path.join(CSRC_DIR, self.source)
 
     def library_path(self) -> str:
-        with open(self.source_path, "rb") as f:
-            digest = hashlib.sha256(f.read())
-        digest.update(" ".join(NVCC_FLAGS).encode())
+        digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        for path in source_files(self.source_path):
+            with open(path, "rb") as f:
+                digest.update(f.read())
         stem = os.path.splitext(self.source)[0]
         return os.path.join(BUILD_DIR, f"{stem}-{digest.hexdigest()[:16]}.so")
 

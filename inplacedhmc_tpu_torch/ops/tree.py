@@ -1,10 +1,14 @@
-"""The whole NUTS transition in one kernel, for diagonal-Gaussian targets.
+"""The whole NUTS transition in one kernel, for a diagonal metric and a tile
+physics.
 
 The port's counterpart of ``inplacedhmc_tpu/ops/tree_pallas.py``
-(``_make_kernel`` with ``dense=False`` and Gaussian physics,
-``_build_transition_padded``, ``make_gaussian_tree_transition``).  For
-targets with ``grad = -Lambda q`` and a diagonal ``M^-1`` the transition is
-the lockstep tree's (``nuts/tree.py``), field for field: the momentum-refresh
+(``_make_kernel`` with ``dense=False``, ``_build_transition_padded``,
+``make_tree_transition``, ``make_gaussian_tree_transition``).  The physics
+is the model's log density and gradient, written by hand
+(``ops/tile_physics.py``: the Gaussian of ``diag_gaussian`` models, eight
+schools, the funnel) where JAX differentiates the model's ``tile_logp`` in
+its kernel.  With a diagonal ``M^-1`` the transition is the lockstep tree's
+(``nuts/tree.py``), field for field: the momentum-refresh
 energy, the doubling loop, the leapfrog leaves, the generalized U-turn checks
 on the checkpoint stack, the progressive and biased proposals, divergence at
 ``delta < min_delta``, the acceptance sum ``sum exp(min(delta, 0))`` and the
@@ -23,14 +27,16 @@ whichever chains run beside it.  The explicit arrays of the TPU kernel's
 interpret mode stay as test hooks: momentum ``[K, C, D]``, direction words
 ``[K, C]``, uniforms ``[K, 2^md - 1 + md, C]``.
 
-On a CUDA tensor :func:`gaussian_tree_sweep` launches the hand-written kernel
-``csrc/tree_gaussian.cu`` (one warp per chain); on a CPU tensor it runs
-:func:`gaussian_tree_sweep_plain`, the lockstep form over all chains in plain
-torch, drawing the same Philox numbers.  There is no other path: a CUDA
-tensor launches the kernel or raises.
+On a CUDA tensor :func:`tree_sweep` launches the hand-written kernel of its
+physics (``csrc/tree_<physics>.cu`` over ``csrc/tree_kernel.cuh``, one warp
+per chain); on a CPU tensor it runs :func:`tree_sweep_plain`, the lockstep
+form over all chains in plain torch, drawing the same Philox numbers.  There
+is no other path: a CUDA tensor launches the kernel or raises.  The
+``gaussian_*`` functions are these with the Gaussian physics of precision
+``lam``.
 
-Not ported yet: the dense-metric branch, logistic and other model physics,
-bf16 checkpoint stacks and D above 256.
+Not ported yet: the dense-metric branch, logistic and stochastic-volatility
+physics, bf16 checkpoint stacks and D above 256.
 """
 
 from __future__ import annotations
@@ -44,17 +50,22 @@ from ..core.metric import DiagMetric, diag_metric, sample_momentum
 from ..core.state import EvalPoint, Termination, TreeStats
 from ..utils import philox
 from ..utils.bits import checkpoint_slot, direction_bit, trailing_ones
+from . import tile_physics
 from .common import check_tensor
 from .cuda_build import CudaKernel
 
-#: the kernel of ``csrc/tree_gaussian.cu``; ``TREE_GAUSSIAN.launches`` counts
-#: its launches
-TREE_GAUSSIAN = CudaKernel(
-    "tree_gaussian.cu", "tree_gaussian_launch",
-    [ctypes.c_void_p] * 19 + [ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-                              ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                              ctypes.c_void_p])
-#: the same source's second launcher: it writes what the kernel's generator
+_P = ctypes.c_void_p
+#: the whole-tree kernel of each physics, ``csrc/tree_<physics>.cu``; its
+#: ``launches`` counts its launches
+TREE_KERNELS = {
+    name: CudaKernel(
+        f"tree_{name}.cu", f"tree_{name}_launch",
+        [_P] * 10 + [ctypes.c_float] * 2 + [_P] * 11
+        + [ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+           ctypes.c_int, ctypes.c_float, _P])
+    for name in tile_physics.PHYSICS}
+TREE_GAUSSIAN = TREE_KERNELS["gaussian"]
+#: the Gaussian source's second launcher: it writes what the kernel's generator
 #: draws (the check of the generator against ``utils/philox.py``)
 PHILOX_DRAWS = CudaKernel(
     "tree_gaussian.cu", "philox_draws_launch",
@@ -115,16 +126,22 @@ def _check_max_depth(max_depth: int) -> None:
         raise ValueError(f"max_depth must be in [1, 30], got {max_depth}")
 
 
-def gaussian_tree_transition_plain(q0, p0, eps, dirs, unif, lam, minv,
-                                   max_depth: int, min_delta: float,
-                                   valid=None) -> TreeOut:
+def _gaussian(lam) -> tile_physics.Bound:
+    return tile_physics.Bound("gaussian", {"lam": lam})
+
+
+def tree_transition_plain(q0, p0, eps, dirs, unif, phys, minv,
+                          max_depth: int, min_delta: float,
+                          valid=None) -> TreeOut:
     """Plain torch version of one transition of the kernel, in ``q0``'s
     dtype and on its device: every chain in lockstep, each update masked by
     the chain's own state.  ``q0, p0 [C, D]``; ``eps [C]``; ``dirs [C]``
     32-bit direction words (any integer dtype); ``unif`` the
     ``[2^md - 1 + md, C]`` proposal uniforms, or a function of a list of
     slots returning their rows ``[len(slots), C]`` (the generator's draws,
-    made only for the depths a tree reaches); ``lam, minv [D]``; ``valid
+    made only for the depths a tree reaches); ``phys`` the physics,
+    ``phys(q) -> (logp, grad)`` (a :class:`~.tile_physics.Bound`), called
+    at the start, at every leaf and on the proposal; ``minv [D]``; ``valid
     [C]`` (default all): rows with 0 start inactive and keep the records of
     an empty tree."""
     _check_max_depth(max_depth)
@@ -142,8 +159,7 @@ def gaussian_tree_transition_plain(q0, p0, eps, dirs, unif, lam, minv,
     def where(m, a, b):
         return torch.where(m[:, None] if a.ndim == 2 else m, a, b)
 
-    logp0 = -0.5 * rowsum(lam * q0 * q0)
-    g0 = -(lam * q0)
+    logp0, g0 = phys(q0)
     pi0 = logp0 - 0.5 * rowsum(p0 * minv * p0)
     left = right = (q0, p0, g0)
     ps_l = ps_r = minv * p0
@@ -190,9 +206,7 @@ def gaussian_tree_transition_plain(q0, p0, eps, dirs, unif, lam, minv,
             mask = alive
             p_mid = cur_p + half * cur_g
             q_new = cur_q + eps_signed[:, None] * (minv * p_mid)
-            lq = lam * q_new
-            logp_new = -0.5 * rowsum(lq * q_new)
-            g_new = -lq
+            logp_new, g_new = phys(q_new)
             p_new = p_mid + half * g_new
             ps_new = minv * p_new
             kin_new = 0.5 * rowsum(p_new * minv * p_new)
@@ -284,10 +298,18 @@ def gaussian_tree_transition_plain(q0, p0, eps, dirs, unif, lam, minv,
         tr = torch.where(inner, die_r, torch.where(died_top, i_right, tr))
         active = ok & ~turn_top
 
-    return TreeOut(q=prop_q, logp=prop_logp, grad=-(lam * prop_q),
+    return TreeOut(q=prop_q, logp=prop_logp, grad=phys(prop_q)[1],
                    energy=prop_delta + pi0,
                    log_sum_alpha=torch.log(sum_alpha), term=term,
                    term_left=tl, term_right=tr, depth=depth, steps=steps)
+
+
+def gaussian_tree_transition_plain(q0, p0, eps, dirs, unif, lam, minv,
+                                   *args, **kw) -> TreeOut:
+    """:func:`tree_transition_plain` with the Gaussian physics of precision
+    ``lam [D]``."""
+    return tree_transition_plain(q0, p0, eps, dirs, unif, _gaussian(lam),
+                                 minv, *args, **kw)
 
 
 def _draws_at(s: int, rows, dim: int, dt, momentum, dirs, unif, key,
@@ -305,10 +327,9 @@ def _draws_at(s: int, rows, dim: int, dt, momentum, dirs, unif, key,
     return p0, d_s, (lambda slots: philox.uniforms(key, rows, s, slots, dt))
 
 
-def gaussian_tree_sweep_plain(q0, eps, lam, minv, max_depth: int,
-                              min_delta: float, n_sweep: int = 1, *,
-                              momentum=None, dirs=None, unif=None, key=None,
-                              sqrt_mass=None, valid=None) -> TreeOut:
+def tree_sweep_plain(q0, eps, phys, minv, max_depth: int, min_delta: float,
+                     n_sweep: int = 1, *, momentum=None, dirs=None, unif=None,
+                     key=None, sqrt_mass=None, valid=None) -> TreeOut:
     """Plain torch version of one launch: ``n_sweep`` transitions from
     ``q0 [C, D]``, each starting from the last one's proposal.  Either
     ``momentum [K, C, D]`` and ``dirs [K, C]`` are given, or they are drawn
@@ -322,13 +343,19 @@ def gaussian_tree_sweep_plain(q0, eps, lam, minv, max_depth: int,
     for s in range(n_sweep):
         p0, d_s, u_s = _draws_at(s, rows, dim, q0.dtype, momentum, dirs,
                                  unif, key, sqrt_mass)
-        out = gaussian_tree_transition_plain(q, p0, eps, d_s, u_s, lam, minv,
-                                             max_depth, min_delta, valid)
+        out = tree_transition_plain(q, p0, eps, d_s, u_s, phys, minv,
+                                    max_depth, min_delta, valid)
         outs.append(out)
         q = out.q
     return TreeOut(*(out.grad if f == "grad" else
                      torch.stack([getattr(o, f) for o in outs])
                      for f in TreeOut._fields))
+
+
+def gaussian_tree_sweep_plain(q0, eps, lam, minv, *args, **kw) -> TreeOut:
+    """:func:`tree_sweep_plain` with the Gaussian physics of precision
+    ``lam [D]``."""
+    return tree_sweep_plain(q0, eps, _gaussian(lam), minv, *args, **kw)
 
 
 _INT_FIELDS = ("term", "term_left", "term_right", "depth", "steps")
@@ -362,12 +389,13 @@ def _check_draws(momentum, dirs, sqrt_mass, unif, key) -> bool:
     return refresh
 
 
-def _launch(q0, eps, lam, minv, max_depth: int, min_delta: float, k: int,
+def _launch(q0, eps, phys, minv, max_depth: int, min_delta: float, k: int,
             lead: tuple, momentum, dirs, unif, key, sqrt_mass, valid, out,
             refresh: bool) -> TreeOut:
-    """Check what ``csrc/tree_gaussian.cu`` reads through raw pointers and
-    launch it on the current stream.  ``lead`` is ``(k,)`` for arrays with
-    a sweep axis, ``()`` for one transition without one."""
+    """Check what the physics' kernel (``csrc/tree_<physics>.cu``) reads
+    through raw pointers and launch it on the current stream.  ``lead`` is
+    ``(k,)`` for arrays with a sweep axis, ``()`` for one transition without
+    one."""
     if q0.device.type != "cuda":
         raise ValueError(f"tree kernel: unsupported device {q0.device}")
     if q0.ndim != 2:
@@ -376,10 +404,12 @@ def _launch(q0, eps, lam, minv, max_depth: int, min_delta: float, k: int,
     if not 1 <= d <= MAX_DIM:
         raise ValueError(f"tree kernel: D={d} outside [1, {MAX_DIM}]")
     dev = q0.device
+    rows = phys.rows()
     checks = [("q0", q0, (c, d), torch.float32),
               ("eps", eps, (c,), torch.float32),
-              ("lam", lam, (d,), torch.float32),
               ("minv", minv, (d,), torch.float32)]
+    checks += [(n, t, (d,), torch.float32) for n, t in
+               zip(tile_physics.PHYSICS[phys.name].rows, rows)]
     if refresh:
         checks.append(("sqrt_mass", sqrt_mass, (d,), torch.float32))
     else:
@@ -406,28 +436,31 @@ def _launch(q0, eps, lam, minv, max_depth: int, min_delta: float, k: int,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
+    row_ptrs = [t.data_ptr() for t in rows] + [None] * (3 - len(rows))
+    scalars = phys.scalars() + [0.0] * (2 - len(phys.scalars()))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        TREE_GAUSSIAN.launch(
+        TREE_KERNELS[phys.name].launch(
             q0.data_ptr(), ptr(sqrt_mass if refresh else momentum),
             eps.data_ptr(), ptr(dirs), ptr(valid), ptr(key), ptr(unif),
-            lam.data_ptr(), minv.data_ptr(), *(t.data_ptr() for t in out),
+            *row_ptrs, *scalars, minv.data_ptr(),
+            *(t.data_ptr() for t in out),
             c, d, max_depth, k, int(refresh), float(min_delta), stream)
     return out
 
 
-def gaussian_tree_sweep(q0: torch.Tensor, eps: torch.Tensor,
-                        lam: torch.Tensor, minv: torch.Tensor,
-                        max_depth: int, min_delta: float, n_sweep: int = 1,
-                        *, momentum=None, dirs=None, unif=None, key=None,
-                        sqrt_mass=None, valid=None, out=None) -> TreeOut:
+def tree_sweep(q0: torch.Tensor, eps: torch.Tensor, phys,
+               minv: torch.Tensor, max_depth: int, min_delta: float,
+               n_sweep: int = 1, *, momentum=None, dirs=None, unif=None,
+               key=None, sqrt_mass=None, valid=None, out=None) -> TreeOut:
     """``n_sweep`` transitions of every chain in one launch, from
     ``q0 [C, D]``, which is only read (on the card it may be the last
-    transition of ``out.q``: the previous launch's carry).  CPU tensors
-    take the plain version (:func:`gaussian_tree_sweep_plain`); CUDA
-    tensors launch ``csrc/tree_gaussian.cu`` on the current stream or raise.
-    On the card everything is float32 and contiguous: ``eps [C]``, ``lam,
-    minv [D]``; ``momentum [K, C, D]`` and ``dirs [K, C]`` int32, or neither
+    transition of ``out.q``: the previous launch's carry), under the physics
+    ``phys`` (a :class:`~.tile_physics.Bound`).  CPU tensors take the plain
+    version (:func:`tree_sweep_plain`); CUDA tensors launch the physics'
+    kernel on the current stream or raise.  On the card everything is
+    float32 and contiguous: ``eps [C]``, the physics' rows and ``minv [D]``;
+    ``momentum [K, C, D]`` and ``dirs [K, C]`` int32, or neither
     and ``sqrt_mass [D]`` (``refresh_inside``); ``unif [K, 2^md - 1 + md,
     C]`` or none; ``key [2]`` int64 where anything is drawn; ``valid [C]``
     int32 or none (every row valid).  ``out``: a :class:`TreeOut` of
@@ -439,34 +472,39 @@ def gaussian_tree_sweep(q0: torch.Tensor, eps: torch.Tensor,
     if n_sweep < 1:
         raise ValueError(f"n_sweep must be >= 1, got {n_sweep}")
     if q0.device.type == "cpu":
-        return gaussian_tree_sweep_plain(
-            q0, eps, lam, minv, max_depth, min_delta, n_sweep,
+        return tree_sweep_plain(
+            q0, eps, phys, minv, max_depth, min_delta, n_sweep,
             momentum=momentum, dirs=dirs, unif=unif, key=key,
             sqrt_mass=sqrt_mass, valid=valid)
-    return _launch(q0, eps, lam, minv, max_depth, min_delta, n_sweep,
+    return _launch(q0, eps, phys, minv, max_depth, min_delta, n_sweep,
                    (n_sweep,), momentum, dirs, unif, key, sqrt_mass, valid,
                    out, refresh)
 
 
-def gaussian_tree_transition(q0: torch.Tensor, p0, eps: torch.Tensor, dirs,
-                             unif, lam: torch.Tensor, minv: torch.Tensor,
-                             max_depth: int, min_delta: float, *,
-                             key=None, valid=None,
-                             sqrt_mass=None) -> TreeOut:
+def gaussian_tree_sweep(q0, eps, lam, minv, *args, **kw) -> TreeOut:
+    """:func:`tree_sweep` with the Gaussian physics of precision
+    ``lam [D]``."""
+    return tree_sweep(q0, eps, _gaussian(lam), minv, *args, **kw)
+
+
+def tree_transition(q0: torch.Tensor, p0, eps: torch.Tensor, dirs, unif,
+                    phys, minv: torch.Tensor, max_depth: int,
+                    min_delta: float, *, key=None, valid=None,
+                    sqrt_mass=None) -> TreeOut:
     """One transition for every chain, with no sweep axis: with the given
     momentum ``p0 [C, D]`` and direction words ``dirs [C]`` (int32 on the
     card), or with ``p0 = dirs = None`` and ``sqrt_mass [D]`` both drawn
     from ``key`` (``refresh_inside``); with the uniforms ``unif [2^md - 1 +
     md, C]`` or, with ``unif=None``, those the generator draws from
-    ``key``.  CPU tensors take the plain version; CUDA tensors launch
-    ``csrc/tree_gaussian.cu`` (float32 and contiguous, ``D <= 256``) or
-    raise."""
+    ``key``; under the physics ``phys``.  CPU tensors take the plain
+    version; CUDA tensors launch the physics' kernel (float32 and
+    contiguous, ``D <= 256``) or raise."""
     refresh = _check_draws(p0, dirs, sqrt_mass, unif, key)
     _check_max_depth(max_depth)
     if q0.device.type == "cpu":
         if refresh:
-            out = gaussian_tree_sweep_plain(
-                q0, eps, lam, minv, max_depth, min_delta, key=key,
+            out = tree_sweep_plain(
+                q0, eps, phys, minv, max_depth, min_delta, key=key,
                 sqrt_mass=sqrt_mass, unif=None if unif is None
                 else unif[None], valid=valid)
             return TreeOut(*(t if f == "grad" else t[0]
@@ -475,10 +513,18 @@ def gaussian_tree_transition(q0: torch.Tensor, p0, eps: torch.Tensor, dirs,
             rows = torch.arange(q0.shape[0], dtype=torch.int64)
             unif = lambda slots: philox.uniforms(  # noqa: E731
                 key, rows, 0, slots, q0.dtype)
-        return gaussian_tree_transition_plain(
-            q0, p0, eps, dirs, unif, lam, minv, max_depth, min_delta, valid)
-    return _launch(q0, eps, lam, minv, max_depth, min_delta, 1, (), p0, dirs,
+        return tree_transition_plain(
+            q0, p0, eps, dirs, unif, phys, minv, max_depth, min_delta, valid)
+    return _launch(q0, eps, phys, minv, max_depth, min_delta, 1, (), p0, dirs,
                    unif, key, sqrt_mass, valid, None, refresh)
+
+
+def gaussian_tree_transition(q0, p0, eps, dirs, unif, lam, minv, *args,
+                             **kw) -> TreeOut:
+    """:func:`tree_transition` with the Gaussian physics of precision
+    ``lam [D]``."""
+    return tree_transition(q0, p0, eps, dirs, unif, _gaussian(lam), minv,
+                           *args, **kw)
 
 
 def direction_words_int32(dirs: torch.Tensor) -> torch.Tensor:
@@ -529,16 +575,15 @@ def _stats(out: TreeOut, dtype) -> TreeStats:
                      steps=out.steps)
 
 
-def make_gaussian_tree_transition(precision, metric_inv, *,
-                                  max_depth: int = 10,
-                                  min_delta: float = -1000.0,
-                                  block_c: int = 512,
-                                  refresh_inside: bool = False,
-                                  padded_io: bool = False,
-                                  n_sweep: int = 1):
-    """The whole-tree transition for ``grad = -precision * q`` targets with
-    the diagonal ``metric_inv`` (a ``[D]`` tensor or a :class:`DiagMetric`),
-    as the JAX package's ``make_gaussian_tree_transition`` builds it.
+def make_tree_transition(physics: str, data: dict, dim: int, metric_inv, *,
+                         max_depth: int = 10, min_delta: float = -1000.0,
+                         block_c: int = 512, refresh_inside: bool = False,
+                         padded_io: bool = False, n_sweep: int = 1):
+    """The whole-tree transition for the tile physics named ``physics``
+    (``ops/tile_physics.py``) on ``data`` (its rows ``[dim]`` and scalars)
+    with the diagonal ``metric_inv`` (a ``[dim]`` tensor or a
+    :class:`DiagMetric`), as the JAX package's ``make_tree_transition``
+    builds it for a model's ``tile_logp``.
 
     Returns ``transition(gen, z, eps, *, directions=None, momentum=None,
     unif=None)`` with the semantics of
@@ -566,6 +611,7 @@ def make_gaussian_tree_transition(precision, metric_inv, *,
 
     The transition runs on ``z.q``'s device, in float32 on the card and in
     its dtype on the CPU."""
+    tile_physics.bind(physics, data)   # raises on an unknown physics
     _check_max_depth(max_depth)
     if n_sweep < 1:
         raise ValueError(f"n_sweep must be >= 1, got {n_sweep}")
@@ -575,16 +621,19 @@ def make_gaussian_tree_transition(precision, metric_inv, *,
         raise ValueError(f"block_c must be a multiple of 8, got {block_c}")
     metric = metric_inv if isinstance(metric_inv, DiagMetric) \
         else diag_metric(torch.as_tensor(metric_inv))
-    dim = metric.inv.shape[-1]
+    if metric.inv.shape != (dim,):
+        raise ValueError(f"metric of shape {tuple(metric.inv.shape)} for a "
+                         f"{dim}-dimensional model")
     consts_cache = {}
 
     def consts(dev, dt):
-        """precision, M^-1 and the momentum scale on ``dev`` in ``dt``, cast
-        once per device and dtype"""
+        """the bound physics, M^-1 and the momentum scale on ``dev`` in
+        ``dt``, cast once per device and dtype"""
         if (dev, dt) not in consts_cache:
-            consts_cache[(dev, dt)] = tuple(
+            consts_cache[(dev, dt)] = (tile_physics.bind(physics, data, dev,
+                                                         dt),) + tuple(
                 torch.as_tensor(t, device=dev).to(dt).contiguous()
-                for t in (precision, metric.inv, metric.sqrt_mass))
+                for t in (metric.inv, metric.sqrt_mass))
         return consts_cache[(dev, dt)]
 
     def transition(gen: torch.Generator, z: EvalPoint, eps, *,
@@ -593,7 +642,7 @@ def make_gaussian_tree_transition(precision, metric_inv, *,
         c = q.shape[0]
         dev = q.device
         dt = torch.float32 if dev.type == "cuda" else q.dtype
-        lam, minv, sqrt_mass = consts(dev, dt)
+        phys, minv, sqrt_mass = consts(dev, dt)
 
         def cast(t):
             return torch.as_tensor(t, device=dev).to(dt).contiguous()
@@ -624,15 +673,13 @@ def make_gaussian_tree_transition(precision, metric_inv, *,
             torch.as_tensor(directions, device=dev))
         u = None if unif is None else cast(unif)
         if n_sweep == 1:
-            out = gaussian_tree_transition(q_in, mom, eps_c, d32, u, lam,
-                                           minv, max_depth, min_delta,
-                                           **draws)
+            out = tree_transition(q_in, mom, eps_c, d32, u, phys, minv,
+                                  max_depth, min_delta, **draws)
             return (EvalPoint(q=out.q.to(q.dtype), logp=out.logp.to(q.dtype),
                               grad=out.grad.to(q.dtype)),
                     _stats(out, q.dtype))
-        out = gaussian_tree_sweep(q_in, eps_c, lam, minv, max_depth,
-                                  min_delta, n_sweep, momentum=mom, dirs=d32,
-                                  unif=u, **draws)
+        out = tree_sweep(q_in, eps_c, phys, minv, max_depth, min_delta,
+                         n_sweep, momentum=mom, dirs=d32, unif=u, **draws)
         z_new = EvalPoint(q=out.q[-1].to(q.dtype),
                           logp=out.logp[-1].to(q.dtype),
                           grad=out.grad.to(q.dtype))
@@ -646,7 +693,7 @@ def make_gaussian_tree_transition(precision, metric_inv, *,
     def run_padded(gen: torch.Generator, q_state: torch.Tensor,
                    eps_col: torch.Tensor, valid_col: torch.Tensor):
         dev, dt = q_state.device, q_state.dtype
-        lam, minv, sqrt_mass = consts(dev, dt)
+        phys, minv, sqrt_mass = consts(dev, dt)
         buf = None
         if dev.type == "cuda":
             shape = tuple(q_state.shape)
@@ -654,8 +701,8 @@ def make_gaussian_tree_transition(precision, metric_inv, *,
                 buffers["shape"] = (shape, dev)
                 buffers["out"] = _empty_out((n_sweep,), *shape, dev)
             buf = buffers["out"]
-        out = gaussian_tree_sweep(
-            q_state, eps_col, lam, minv, max_depth, min_delta, n_sweep,
+        out = tree_sweep(
+            q_state, eps_col, phys, minv, max_depth, min_delta, n_sweep,
             key=philox.draw_key(gen), sqrt_mass=sqrt_mass, valid=valid_col,
             out=buf)
         return out.q, out.logp, out.grad, _stats(out, dt)
@@ -664,3 +711,12 @@ def make_gaussian_tree_transition(precision, metric_inv, *,
     run_padded.n_sweep = n_sweep
     run_padded.dim = dim
     return transition, run_padded
+
+
+def make_gaussian_tree_transition(precision, metric_inv, **kw):
+    """:func:`make_tree_transition` for ``grad = -precision * q`` targets
+    (the Gaussian physics), as the JAX package's
+    ``make_gaussian_tree_transition`` builds it."""
+    precision = torch.as_tensor(precision)
+    return make_tree_transition("gaussian", {"lam": precision},
+                                precision.shape[0], metric_inv, **kw)

@@ -6,8 +6,11 @@ The port's counterpart of ``inplacedhmc_tpu/sample.py``:
   and picks the kernels as the JAX package's "auto" policy does: the fused
   logistic potential for ``structure["kind"] == "logistic"``; for
   ``"diag_gaussian"`` the whole-tree kernel where it takes the problem and
-  the lockstep tree with the fused Gaussian leapfrog elsewhere; autograd of
-  ``model.logp`` otherwise.
+  the lockstep tree with the fused Gaussian leapfrog elsewhere; for
+  ``"tile_logp"`` models whose physics has a device function (eight
+  schools, the funnel) the whole-tree kernel where it takes the problem and
+  autograd on the lockstep tree elsewhere; autograd of ``model.logp``
+  otherwise.
 * :func:`mcmc_with_warmup` runs the windowed warmup, then sampling.
 * :func:`sample` is the pooled-adaptation entry point.
 
@@ -28,8 +31,9 @@ checkpoints, sketches and streamed moments, chunked tuning and blocked
 sampling, ``post_step`` hooks, work-sorted scheduling, the options
 ``use_kernels`` and ``fused_opts``, the ``ckpt_bf16`` tree option, and
 ``tree_opts`` on models whose whole-tree kernel is not ported (logistic,
-dense Gaussian, tile physics).  The whole-tree kernel is ported for
-``diag_gaussian`` models only.
+dense Gaussian, tile physics without a device function).  The whole-tree
+kernel is ported for ``diag_gaussian`` models and the ``"eight_schools"``
+and ``"funnel"`` tile physics.
 """
 
 from __future__ import annotations
@@ -50,13 +54,15 @@ from .core.state import Termination, TreeStats, WarmupState
 from .models.base import Model
 from .ops.leapfrog import make_fused_gaussian_leapfrog
 from .ops.logistic import make_logistic_potential
-from .ops.tree import make_gaussian_tree_transition
+from .ops.tile_physics import PHYSICS
+from .ops.tree import make_tree_transition
 from .ops.tree import takes as tree_takes
 
 #: ``tree_opts`` keys of the whole-tree kernel (``inplacedhmc_tpu/sample.py``)
 TREE_OPTS = ("block_c", "ckpt_bf16", "refresh_inside", "padded_io", "n_sweep")
 #: model kinds with a whole-tree kernel in the JAX package that the port has
-#: not ported yet, with their ROADMAP item
+#: not ported yet (for ``"tile_logp"``: physics without a device function),
+#: with their ROADMAP item
 _TREE_NOT_PORTED = {"logistic": "queue 2 item 5",
                     "dense_gaussian": "queue 2 item 3",
                     "tile_logp": "queue 2 item 6"}
@@ -140,6 +146,19 @@ def _check_eps_sane(log_eps, where: str, stats: Optional[TreeStats] = None):
         f"{EPS_SANE_MAX:g}]){detail}")
 
 
+def _tree_physics(st: Optional[dict]):
+    """``(physics, data)`` of the model's whole-tree kernel: the Gaussian
+    for ``"diag_gaussian"``, the named physics for a ``"tile_logp"`` model
+    whose physics has a device function (its rows and scalars in one
+    dict); ``None`` for every other model."""
+    kind = None if st is None else st.get("kind")
+    if kind == "diag_gaussian":
+        return "gaussian", {"lam": st["precision"]}
+    if kind == "tile_logp" and st.get("physics") in PHYSICS:
+        return st["physics"], {**st["data"], **st.get("scalars", {})}
+    return None
+
+
 def _f32_diag(metric: Metric) -> bool:
     """One shared float32 diagonal metric: what the Gaussian kernels take."""
     return (isinstance(metric, DiagMetric) and metric.inv.ndim == 1
@@ -156,16 +175,22 @@ class NUTSKernel:
     * ``structure["kind"] == "logistic"``: the fused potential
       (``ops/logistic.py``) on the lockstep tree;
     * ``"diag_gaussian"``: with a shared float32 diagonal metric, the
-      whole-tree transition (``ops/tree.py``) when there are at least
-      ``TREE_MIN_CHAINS`` chains and the kernel takes the dimension
-      (``ops.tree.takes``), else the lockstep tree with the fused Gaussian
-      leapfrog (``ops/leapfrog.py``) as its ``step_fn``; the factories are
-      called once per tuning window and for the sampling loop, with that
-      stage's metric.  ``tree_opts`` configure the whole-tree kernel; with
-      ``padded_io`` the factory builds an ``n_sweep = 1`` transition for the
-      tuning windows and attaches a :class:`~.adapt.warmup.SweepRunner` to
-      it for the sampling loop;
+      whole-tree transition (``ops/tree.py``, Gaussian physics) when there
+      are at least ``TREE_MIN_CHAINS`` chains and the kernel takes the
+      dimension (``ops.tree.takes``), else the lockstep tree with the fused
+      Gaussian leapfrog (``ops/leapfrog.py``) as its ``step_fn``;
+    * ``"tile_logp"`` whose ``physics`` has a device function
+      (``ops/tile_physics.py``): with a shared float32 diagonal metric, the
+      whole-tree transition with that physics from
+      ``TREE_MIN_CHAINS_BY_PHYSICS[physics]`` chains where the kernel takes
+      the dimension, else autograd of ``model.logp`` on the lockstep tree;
     * any other model: autograd of ``model.logp``.
+
+    The factories are called once per tuning window and for the sampling
+    loop, with that stage's metric.  ``tree_opts`` configure the whole-tree
+    kernel; with ``padded_io`` the factory builds an ``n_sweep = 1``
+    transition for the tuning windows and attaches a
+    :class:`~.adapt.warmup.SweepRunner` to it for the sampling loop.
     """
 
     #: chains from which a ``diag_gaussian`` model runs the whole-tree
@@ -173,6 +198,9 @@ class NUTSKernel:
     #: ``chip_smoke.py`` (PERF.md), not from the TPU's 4096: the whole tree
     #: was faster at every chain count timed, down to one chain.
     TREE_MIN_CHAINS = 1
+    #: the same for each tile physics, from its own crossover against
+    #: autograd on the lockstep tree (``chip_smoke.py``, PERF.md)
+    TREE_MIN_CHAINS_BY_PHYSICS = {"eight_schools": 1, "funnel": 1}
 
     def __init__(self, model: Model, algorithm: NUTS = NUTS(),
                  pooled: bool = True, tree_opts: Optional[dict] = None):
@@ -188,9 +216,10 @@ class NUTSKernel:
                                                      st["inv_var"])
         else:
             self.potential = batched_logdensity_and_grad(model.logp)
-        topts = _tree_options(kind, tree_opts)
-        if kind == "diag_gaussian":
-            prec = st["precision"]
+        tree = _tree_physics(st)
+        topts = _tree_options(st, tree is not None, tree_opts)
+        if tree is not None:
+            physics, data = tree
             # padded/sweep options drive the sampling loop only (tuning
             # adapts eps per transition, which an in-kernel sweep cannot)
             sweep_k = int(topts.pop("n_sweep", 1))
@@ -202,13 +231,14 @@ class NUTSKernel:
 
             def transition_factory(metric, n_chains):
                 if not (_f32_diag(metric)
-                        and n_chains >= self.TREE_MIN_CHAINS
+                        and n_chains >= self.tree_min_chains(physics)
                         and tree_takes(model.dim)):
                     return None
 
                 def build(**extra):
-                    return make_gaussian_tree_transition(
-                        prec, metric, max_depth=algorithm.max_depth,
+                    return make_tree_transition(
+                        physics, data, model.dim, metric,
+                        max_depth=algorithm.max_depth,
                         min_delta=algorithm.min_delta, **topts, **extra)
 
                 if not padded:
@@ -222,14 +252,22 @@ class NUTSKernel:
                                              block_c=run_padded.block_c)
                 return trans
 
+            self.transition_factory = transition_factory
+        if kind == "diag_gaussian":
+            prec = st["precision"]
+
             def step_factory(metric):
                 if not _f32_diag(metric):
                     return None
                 step = make_fused_gaussian_leapfrog(prec, metric.inv)
                 return lambda q, p, g, lp, e: step(q, p, e)
 
-            self.transition_factory = transition_factory
             self.step_factory = step_factory
+
+    def tree_min_chains(self, physics: str) -> int:
+        """Chains from which ``physics`` runs the whole-tree kernel."""
+        return self.TREE_MIN_CHAINS_BY_PHYSICS.get(physics,
+                                                   self.TREE_MIN_CHAINS)
 
     def warmup(self, gen: torch.Generator, state: WarmupState,
                stages: Sequence, reporter=None) -> Tuple[WarmupState, list]:
@@ -322,7 +360,8 @@ _NOT_PORTED = ("draw_block", "tuning_chunk", "warmup_checkpoint_path",
                "schedule", "use_kernels")
 
 
-def _tree_options(kind: Optional[str], tree_opts: Optional[dict]) -> dict:
+def _tree_options(st: Optional[dict], has_kernel: bool,
+                  tree_opts: Optional[dict]) -> dict:
     """Check ``tree_opts`` as the JAX package does: unknown keys raise
     ``ValueError``; what the port has not ported raises
     ``NotImplementedError``.  Models without a whole-tree kernel in either
@@ -330,12 +369,16 @@ def _tree_options(kind: Optional[str], tree_opts: Optional[dict]) -> dict:
     topts = dict(tree_opts or {})
     if not topts:
         return topts
-    if kind in _TREE_NOT_PORTED:
-        raise NotImplementedError(
-            f"tree_opts: the whole-tree kernel for {kind!r} models is not "
-            f"ported to inplacedhmc_tpu_torch yet (ROADMAP "
-            f"{_TREE_NOT_PORTED[kind]})")
-    if kind != "diag_gaussian":
+    kind = None if st is None else st.get("kind")
+    if not has_kernel:
+        if kind in _TREE_NOT_PORTED:
+            what = f"{kind!r} models" + (
+                f" with physics {st.get('physics')!r}"
+                if kind == "tile_logp" else "")
+            raise NotImplementedError(
+                f"tree_opts: the whole-tree kernel for {what} is not ported "
+                f"to inplacedhmc_tpu_torch yet (ROADMAP "
+                f"{_TREE_NOT_PORTED[kind]})")
         return {}
     unknown = set(topts) - set(TREE_OPTS)
     if unknown:

@@ -1,8 +1,10 @@
 """Tests of the port that need an NVIDIA card: the CUDA kernels K1
 (``csrc/logistic_vg.cu``), K3 (``csrc/leapfrog_gaussian.cu``) and K5
 (``csrc/tree_gaussian.cu``: its three drawing forms, its sweeps and its
-generator) against their plain torch versions, and the flagship
-``sample(tree_opts=...)`` path through K5.
+generator; ``csrc/tree_eight_schools.cu`` and ``csrc/tree_funnel.cu``, its
+tile physics) against their plain torch versions, the flagship
+``sample(tree_opts=...)`` path through K5, and ``sample()`` on eight
+schools and the funnel through their kernels.
 
 They carry the ``cuda`` marker and skip, inside the test, where there is no
 card.  This file imports neither JAX nor the JAX package, so on a machine
@@ -25,8 +27,10 @@ def _torch_port():
     peaks within a few memory mappings of the per-process limit
     (vm.max_map_count), which torch's libraries would push it over."""
     global torch, LOGISTIC_VG, MAX_DIM, logistic_value_and_grad
-    global logistic_value_and_grad_plain, lf, tree, philox
+    global logistic_value_and_grad_plain, lf, tree, philox, tp, models
     import torch
+    import inplacedhmc_tpu_torch.models as models
+    import inplacedhmc_tpu_torch.ops.tile_physics as tp
     import inplacedhmc_tpu_torch.ops.leapfrog as lf
     import inplacedhmc_tpu_torch.ops.tree as tree
     import inplacedhmc_tpu_torch.utils.philox as philox
@@ -423,3 +427,152 @@ def test_cuda_flagship_sample_sweeps_through_the_kernel():
     assert bool((x.mean(dim=(0, 1)).abs() < 5 * torch.sqrt(1 / ess)).all())
     assert float(diag.split_rhat(x).max()) < 1.05
     assert res.stats.steps.shape == (256, 100)
+
+
+def _tile(name, seed, c, max_depth):
+    """A tile physics bound on the card, with positions, momentum, direction
+    words and uniforms for ``c`` chains of its 10-D model."""
+    m = models.eight_schools() if name == "eight_schools" \
+        else models.funnel(10)
+    st = m.structure
+    phys = tp.bind(st["physics"], {**st["data"], **st["scalars"]}, "cuda",
+                   torch.float32)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    kw = dict(generator=g, device="cuda")
+    q = torch.randn((c, 10), **kw)
+    if name == "eight_schools":
+        q[:, 0] = 5.0 + 4.0 * q[:, 0]
+    minv = 0.5 + torch.rand((10,), **kw)
+    return dict(phys=phys, q=q, minv=minv,
+                p=torch.randn((c, 10), **kw) / minv.sqrt(),
+                dirs=torch.randint(0, 2 ** 32, (c,), dtype=torch.int64, **kw),
+                unif=torch.rand((tree.n_uniforms(max_depth), c), **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["eight_schools", "funnel"])
+@pytest.mark.parametrize("c,eps", [(37, 0.05), (300, 0.4), (300, 2.5)])
+def test_cuda_tile_tree_matches_plain_version(name, c, eps):
+    """K5 with each tile physics against its plain version
+    (``ops/tile_physics.py`` in the plain tree), max_depth 7, at a deep, a
+    mixed and a divergent step size: the rule of
+    ``test_cuda_tree_matches_plain_version`` (integer fields equal on all
+    chains but one in twenty, float fields to 1e-4 relative on the rest);
+    the physics' gradient holds row sums taken in another order on the
+    card, so trajectories agree to f32 round-off, not bit for bit."""
+    _needs_card()
+    md = 7
+    x = _tile(name, 8, c, md)
+    e = torch.full((c,), eps, device="cuda")
+    kern = tree.TREE_KERNELS[name]
+    before = kern.launches
+    got = tree.tree_transition(
+        x["q"], x["p"], e, tree.direction_words_int32(x["dirs"]), x["unif"],
+        x["phys"], x["minv"], md, -1000.0)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    want = tree.tree_transition_plain(
+        x["q"], x["p"], e, x["dirs"], x["unif"], x["phys"], x["minv"], md,
+        -1000.0)
+    bad = torch.zeros(c, dtype=torch.bool, device="cuda")
+    for f in INT_OUT:
+        bad |= getattr(got, f) != getattr(want, f)
+    assert int(bad.sum()) <= c // 20
+    ok = ~bad
+    for f in ("q", "logp", "grad", "energy", "log_sum_alpha"):
+        g, w = getattr(got, f)[ok], getattr(want, f)[ok]
+        same = (g == w) | ((g - w).abs() <= 1e-4 * (1 + w.abs()))
+        assert bool(same.all()), f
+    for f in ("q", "logp", "grad", "energy"):
+        assert bool(torch.isfinite(getattr(got, f)).all()), f
+    if eps == 2.5:
+        assert bool((want.term == 1).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["eight_schools", "funnel"])
+def test_cuda_tile_sweep_bit_identical_to_single_launches(name):
+    """One launch of K = 5 transitions of a tile physics drawing everything
+    itself, against 5 launches of one transition fed what the generator
+    draws for that key: every field equal bit for bit."""
+    _needs_card()
+    c, md, k = 70, 7, 5
+    x = _tile(name, 9, c, md)
+    e = torch.full((c,), 0.3, device="cuda")
+    key = _key(10)
+    sqrt_mass = 1.0 / torch.sqrt(x["minv"])
+    swept = tree.tree_sweep(x["q"], e, x["phys"], x["minv"], md, -1000.0, k,
+                            key=key, sqrt_mass=sqrt_mass)
+    xi, dirs, unif = tree.philox_draws(key, c, 10, md, k)
+    q = x["q"]
+    for s in range(k):
+        one = tree.tree_sweep(
+            q, e, x["phys"], x["minv"], md, -1000.0,
+            momentum=(sqrt_mass * xi[s])[None], dirs=dirs[s:s + 1],
+            unif=unif[s:s + 1])
+        for f in tree.TreeOut._fields:
+            if f != "grad":
+                assert torch.equal(getattr(swept, f)[s], getattr(one, f)[0]), \
+                    (s, f)
+        q = one.q[0]
+    assert torch.equal(swept.grad, one.grad)
+
+
+@pytest.mark.cuda
+def test_cuda_tile_wrapper_refuses_what_the_kernel_does_not_take():
+    """A data row in float64 or of the wrong length, or eight schools at
+    D = 1 (its kernel reads mu and log_tau from lanes 0 and 1), raise
+    before anything is launched."""
+    _needs_card()
+    md = 5
+    x = _tile("eight_schools", 11, 16, md)
+    e = torch.full((16,), 0.3, device="cuda")
+    d32 = tree.direction_words_int32(x["dirs"])
+    kern = tree.TREE_KERNELS["eight_schools"]
+    before = kern.launches
+    for bad in ({"y": x["phys"].data["y"].double()},
+                {"sig": x["phys"].data["sig"][:9].contiguous()}):
+        phys = tp.Bound("eight_schools", {**x["phys"].data, **bad})
+        with pytest.raises(ValueError):
+            tree.tree_transition(x["q"], x["p"], e, d32, x["unif"], phys,
+                                 x["minv"], md, -1000.0)
+    one = tp.bind("eight_schools", {k: v[:1] for k, v in
+                                    x["phys"].data.items()}, "cuda",
+                  torch.float32)
+    with pytest.raises(RuntimeError):
+        tree.tree_transition(x["q"][:, :1].contiguous(), x["p"][:, :1]
+                             .contiguous(), e, d32, x["unif"], one,
+                             x["minv"][:1].contiguous(), md, -1000.0)
+    assert kern.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["eight_schools", "funnel"])
+def test_cuda_tile_sample_goes_through_its_kernel(name):
+    """``sample()`` on eight schools or the funnel at 64 chains, a short
+    warmup and 200 draws: one launch of the model's K5 per transition and
+    none of another kernel; finite draws."""
+    _needs_card()
+    from inplacedhmc_tpu_torch import (DualAveraging, FindLocalOptimum,
+                                       TuningNUTS, default_warmup_stages,
+                                       sample)
+    m = models.eight_schools() if name == "eight_schools" \
+        else models.funnel(10)
+    stages = default_warmup_stages(
+        local_optimization=None if name == "funnel" else FindLocalOptimum(),
+        stepsize_adaptation=DualAveraging(delta=0.9 if name == "funnel"
+                                          else 0.8),
+        init_steps=40, middle_steps=25, doubling_stages=2,
+        terminating_steps=25)
+    n_warm = sum(s.n for s in stages if isinstance(s, TuningNUTS))
+    kernels = list(tree.TREE_KERNELS.values()) + [lf.LEAPFROG_GAUSSIAN,
+                                                  LOGISTIC_VG]
+    for k in kernels:
+        k.launches = 0
+    res = sample(1, m, 200, 64, warmup_stages=stages, device="cuda")
+    torch.cuda.synchronize()
+    counts = {k.source: k.launches for k in kernels}
+    assert counts.pop(f"tree_{name}.cu") == n_warm + 200, counts
+    assert not any(counts.values()), counts
+    assert bool(torch.isfinite(res.draws).all())
+
