@@ -26,6 +26,12 @@ Phases, each printed with its wall time:
    (64 and 1,024 chains, some chains diverging, some starting where the
    density overflows) at three step sizes each, against the plain version
    fed the kernel's own uniforms, and a sweep of 16 of eight schools
+   against 16 launches; K5-dense (a ``[D, D]`` M^-1, each physics' second
+   launcher): the Gaussian physics under a dense metric at 10,240 x 100,
+   the dense Gaussian's physics on the 250-D Wishart-precision target
+   (``mvn_target``) at 1,024 and 64 chains under a diagonal and under a
+   dense metric, at three step sizes each, in the three forms, eight
+   schools and the funnel under a dense metric; a dense sweep of 16
    against 16 launches;
 3. ``sample()`` on BASELINE config 3 (logistic regression, 10,000 x 50 data
    from a seed, 8192 chains, dense metric, a short warmup schedule, 128
@@ -51,19 +57,28 @@ Phases, each printed with its wall time:
    (``delta`` 0.9, no L-BFGS start, 1,000 draws; the examples' run) through
    K5 with the funnel physics, and on its non-centred form through K5 with
    the Gaussian physics;
-10. the crossover between the routes: one transition at a fixed step size
-   through each, at 1 to 10,240 chains: the 100-D standard normal through
-   K5 and the lockstep tree with K3, eight schools and the funnel through K5
-   and autograd on the lockstep tree; it fails if
-   ``NUTSKernel.TREE_MIN_CHAINS`` or ``TREE_MIN_CHAINS_BY_PHYSICS``
-   contradicts the timings.
+10. ``sample()`` on the 250-D multivariate normal of Hoffman and Gelman
+   (2014) with a Wishart precision of 300 degrees of freedom (``mvn``) at
+   1,024 chains, dense windows, 1,000 draws: K5 with the dense Gaussian's
+   physics, diagonal until the first dense window closes and dense after;
+   the same with the flagship ``tree_opts`` and 1,024 draws;
+11. ``sample()`` on the 100-D standard normal at 10,240 chains with dense
+   windows, 256 draws: the Gaussian K5 under a dense metric;
+12. the crossover between the routes: one transition through each, at 1 to
+   10,240 chains: the 100-D standard normal through K5 and the lockstep
+   tree with K3, eight schools and the funnel through K5 and autograd on
+   the lockstep tree, at a fixed step size from the identity metric; the
+   250-D ``mvn`` and the 100-D normal through K5-dense and autograd on the
+   lockstep tree at the tuned step size and dense metric of phases 10 and
+   11; it fails if ``NUTSKernel.TREE_MIN_CHAINS`` or
+   ``TREE_MIN_CHAINS_BY_PHYSICS`` contradicts the timings.
 
 Each ``sample()`` phase resets every kernel's launch count just before the
 call and reads the counts just after, and checks the posterior (finite
 draws, split R-hat, acceptance; the coefficients' correlation for logistic
-regression, the moments within Monte Carlo error for the normal, the means
-of mu and log_tau against the quadrature golden for eight schools, v's
-standard deviation for the funnel).
+regression, the moments within Monte Carlo error for the normals and the
+``mvn``, the means of mu and log_tau against the quadrature golden for
+eight schools, v's standard deviation for the funnel).
 
 It prints a ``{"kernels": [...]}`` line, the card's line, and as its last
 line ``{"ok": true, "device": {...}}``.  Any failure raises and the script
@@ -73,11 +88,14 @@ exits non-zero before printing a result.
 
 from __future__ import annotations
 
+import functools
 import json
+import math
 import os
 import subprocess
 import sys
 import time
+from typing import Optional
 
 SEED = 20261017
 C, N, D = 8192, 10_000, 50        # chains, observations, features
@@ -107,6 +125,11 @@ MAX_DEPTH = 10
 # ties have a probability of order 1e-6 per decision, a few thousand
 # decisions per chain at max depth: one chain in a thousand is allowed.
 TREE_MISMATCH_FRACTION = 1e-3
+# With D-term products (a dense metric's p#, the dense Gaussian's P q) the
+# products too add their terms in another order, and a proposal's test
+# falls within the two sides' difference more often: such a chain counts
+# as a tie only when the plain version, its uniforms shifted by that
+# difference, makes the kernel's choice (compare_tree).
 TREE_RTOL = 1e-4  # float fields of the chains that agree, relative to 1 + |x|
 # K1 sums N = 1e4 f32 terms per chain in another order than the float64
 # reference: a random-walk rounding error of about sqrt(N) * 2^-24 = 6e-6 of
@@ -131,9 +154,11 @@ TREE_SFU_PER_LEAF = 4
 # terms and the z gradient, 14 per observed lane; mu/10, the softplus and
 # sigmoid, the first two gradient entries and logp, 25; exp(log_tau), the
 # softplus' exp and log1p, the sigmoid's exp.  The funnel: x^2, its sum and
-# -e x, 3 per x lane; logp and d/dv, 12; exp(-v).
+# -e x, 3 per x lane; logp and d/dv, 12; exp(-v).  The dense Gaussian:
+# the negation and the log density's terms, 3 per lane, beside its product
+# P q (counted by tree_bound).
 PHYSICS_COST = {"gaussian": (0, 0, 0), "eight_schools": (14, 25, 4),
-                "funnel": (3, 12, 1)}
+                "funnel": (3, 12, 1), "dense_gaussian": (3, 0, 0)}
 # K5's generator: the normals may differ from torch's by the rounding of
 # logf, cosf (1-2 ulp each) scaled by sqrt(-2 log u1) <= 5.8; 16 ulp of
 # max(1, |x|) bounds that.  Direction words and uniforms are integer work
@@ -143,6 +168,16 @@ NORMAL_ULP = 16
 # Box-Muller about 30 more flops (log, sqrt, cos, the conversions)
 PHILOX_OPS, BOX_MULLER_FLOPS = 100, 30
 SWEEP_CHECK_K = 16                # the n_sweep of the bit-identity check
+# the dense metric's target: Hoffman and Gelman's 250-D multivariate normal
+# with a Wishart precision, at 300 degrees of freedom (mvn_target)
+MVN_DIM, MVN_DF, MVN_SEED = 250, 300, 0
+MVN_CHAINS, MVN_DRAWS = 1024, 1000
+MVN_SWEEP_DRAWS = 1024            # a multiple of FLAGSHIP_K
+DENSE_G_DRAWS = 256               # the 100-D normal with dense windows
+# the TPU code each dense-metric form replaces: the dense branch of
+# _make_kernel, and the dense Gaussian's _dense_gaussian_tile_vg
+DENSE_REPLACES = {"gaussian": "179", "eight_schools": "179", "funnel": "179",
+                  "dense_gaussian": "1118"}
 FLAGSHIP_K = 16                   # n_sweep of the flagship sample()
 SWEEP_KS = (1, 4, 16, 64)         # the n_sweep values the bench times
 BENCH_EPS, BENCH_TRANSITIONS, PROBE_EPS = 0.25, 64, 0.005  # bench.py's
@@ -207,10 +242,14 @@ def build_kernels():
     from inplacedhmc_tpu_torch.ops.cuda_build import build_all
     from inplacedhmc_tpu_torch.ops.leapfrog import LEAPFROG_GAUSSIAN
     from inplacedhmc_tpu_torch.ops.logistic import LOGISTIC_VG
-    from inplacedhmc_tpu_torch.ops.tree import TREE_KERNELS
-    kernels = [LOGISTIC_VG, LEAPFROG_GAUSSIAN, *TREE_KERNELS.values()]
+    from inplacedhmc_tpu_torch.ops.tree import (TREE_DENSE_KERNELS,
+                                                TREE_KERNELS)
+    kernels = [LOGISTIC_VG, LEAPFROG_GAUSSIAN, *TREE_KERNELS.values(),
+               *TREE_DENSE_KERNELS.values()]
     build_all(kernels)
     for k in kernels:
+        if k.build_seconds is None:   # a second launcher of a built source
+            continue
         print(f"[build] {k.source}: {k.build_seconds:.2f} s")
         for line in k.build_log.splitlines():
             if "Compiling entry" in line:
@@ -219,6 +258,12 @@ def build_kernels():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"[build]   {line.strip()}")
     return kernels
+
+
+def launch_counts(kernels) -> dict:
+    """Each launcher's count of launches, by its symbol (a source's two
+    launchers count apart)."""
+    return {k.symbol: k.launches for k in kernels}
 
 
 def _library_logistic(q, x, y, w, s2):
@@ -382,7 +427,7 @@ def check_leapfrog_kernel(card: str) -> dict:
 
 
 def tree_bound(c: int, d: int, out, form: str = "array",
-               physics: str = "gaussian") -> tuple:
+               physics: str = "gaussian", dense: bool = False) -> tuple:
     """K5's bound for one launch on these inputs, over the steps this data
     needs.  Operations: about 25 D flops per leapfrog leaf (the update 8,
     the two row sums 5, the guards 4, the momentum sum 1, the expected
@@ -401,7 +446,11 @@ def tree_bound(c: int, d: int, out, form: str = "array",
     ``array`` and ``prng`` the momentum and direction words in, for
     ``array`` the uniforms the trees read.  ``form``: ``"array"``
     (explicit uniforms), ``"prng"`` (uniforms drawn) or ``"refresh"``
-    (everything drawn)."""
+    (everything drawn).  Each [D, D] product (a dense metric's p# at every
+    leaf twice and at every start once, the start's kinetic energy; a merge
+    takes the new end's p# from its last leaf; the refresh's momentum once
+    per transition; the dense Gaussian's P q at every evaluation) adds
+    2 D^2 flops, and each matrix its D^2 floats read once."""
     from inplacedhmc_tpu_torch.ops.tile_physics import PHYSICS
     k = out.q.shape[0] if out.q.ndim == 3 else 1
     steps = float(out.steps.sum())
@@ -409,17 +458,24 @@ def tree_bound(c: int, d: int, out, form: str = "array",
     draws = steps + merges
     lane_flops, chain_flops, phys_sfu = PHYSICS_COST[physics]
     evals = steps + k * c + c
-    lanes = {"gaussian": 0, "eight_schools": d - 2, "funnel": d - 1}[physics]
+    lanes = {"gaussian": 0, "eight_schools": d - 2, "funnel": d - 1,
+             "dense_gaussian": d}[physics]
     flops = 25.0 * d * steps + (lane_flops * lanes + chain_flops) * evals
+    phys_mat = PHYSICS[physics].matrix is not None
+    products = phys_mat * evals
+    if dense:
+        products += 2 * steps + k * c + (k * c if form == "refresh" else 0)
+    flops += 2.0 * d * d * products
     sfu = TREE_SFU_PER_LEAF * steps + 3 * merges + phys_sfu * evals
-    n_rows = len(PHYSICS[physics].rows) + 1
-    nbytes = 4.0 * (c * d + 2 * c + n_rows * d) \
+    n_rows = len(PHYSICS[physics].rows) + (0 if dense else 1)
+    n_mats = phys_mat + dense * (1 + (form == "refresh"))
+    nbytes = 4.0 * (c * d + 2 * c + n_rows * d + n_mats * d * d) \
         + 4.0 * (k * c * d + 8 * k * c + c * d)
     if form == "refresh":
         flops += PHILOX_OPS * (draws + k * c * (d + 1)) \
             + BOX_MULLER_FLOPS * k * c * d
         sfu += 3 * k * c * d
-        nbytes += 4.0 * d
+        nbytes += 0.0 if dense else 4.0 * d
     else:
         nbytes += 4.0 * (k * c * d + k * c)
         if form == "array":
@@ -429,39 +485,100 @@ def tree_bound(c: int, d: int, out, form: str = "array",
     return (*bound(flops, nbytes, sfu), steps)
 
 
-def compare_tree(got, want, label: str) -> float:
+def compare_tree(got, want, label: str, matrix=None, grad_q=None,
+                 replay=None) -> float:
     """K5 against its plain version: the chains whose integer fields differ,
     or whose float fields differ beyond TREE_RTOL, may be at most
-    TREE_MISMATCH_FRACTION of all; returns the largest absolute difference
-    over the other chains."""
+    TREE_MISMATCH_FRACTION of all, not counting the verified ties below;
+    returns the largest absolute difference over the other chains.  With
+    ``matrix``, the physics' ``[D, D]`` P of
+    ``grad = -(q P)`` (the dense Gaussian), the gradient is a D-term product
+    whose components cancel: a component also agrees within the bound of
+    the two products' difference, ``|dq| |P| + 2 gamma_D |q| |P|`` (the
+    proposals' difference carried through P, and each f32 product within
+    gamma_D = D u / (1 - D u), u = 2^-24, of the sum of its terms'
+    magnitudes: Higham, Accuracy and Stability of Numerical Algorithms,
+    section 3.1).  ``grad_q``: the kernel's and the plain version's
+    positions of the gradients, where those are not ``got.q`` and
+    ``want.q`` (a sweep's final gradient beside its first transition).
+
+    A verified tie (``replay``): a proposal's test ``log u < x`` decides the
+    other way when x lies within the two sides' rounding difference of
+    log u.  Each side of a test is a difference of two joint densities (one
+    of them through a logaddexp), so it differs by at most 4 e, e the
+    largest energy difference of the agreeing chains; where no chain agrees
+    but bit for bit, e is 0 and no tie can be verified.  ``replay(rows,
+    shift)`` runs the plain version on those chains with every uniform
+    times exp(shift); a differing chain is a verified tie when the shift
+    -4e or +4e gives the kernel's integer fields and its q, logp, energy
+    and log_sum_alpha (by the rule above)."""
     import torch
     c = got.q.shape[0]
+    q_got, q_want = (got.q, want.q) if grad_q is None else grad_q
+    ints = ("term", "term_left", "term_right", "depth", "steps")
     bad = torch.zeros((c,), dtype=torch.bool, device=got.q.device)
-    for f in ("term", "term_left", "term_right", "depth", "steps"):
+    for f in ints:
         bad |= getattr(got, f) != getattr(want, f)
     n_int = int(bad.sum())
-    diffs = {}
+
+    def agree(g, w):
+        return (g == w) | ((g - w).abs() <= TREE_RTOL * (1 + w.abs()))
+
+    diffs, n_field = {}, {}
     for f in ("q", "logp", "grad", "energy", "log_sum_alpha"):
         g, w = getattr(got, f), getattr(want, f)
-        same = (g == w) | ((g - w).abs() <= TREE_RTOL * (1 + w.abs()))
+        same = agree(g, w)
+        if f == "grad" and matrix is not None:
+            a = matrix.abs().double()
+            n = matrix.shape[0] * 2.0 ** -24
+            lim = (q_got - q_want).abs().double() @ a \
+                + 2 * n / (1 - n) * (q_want.abs().double() @ a)
+            same |= (g - w).abs().double() <= lim
         if same.ndim == 2:
             same = same.all(dim=1)
+        n_field[f] = int((~same).sum())
         bad |= ~same
-        diffs[f] = torch.where(g == w, torch.zeros_like(g), (g - w).abs())
-    n_bad = int(bad.sum())
+        d = torch.where(g == w, torch.zeros_like(g), (g - w).abs())
+        diffs[f] = d if d.ndim == 1 else d.amax(dim=1)
     ok = ~bad
-    abs_err = max((v[ok].max().item() if bool(ok.any()) else 0.0)
-                  for v in diffs.values())
+    err = {f: (v[ok].max().item() if bool(ok.any()) else 0.0)
+           for f, v in diffs.items()}
+    rows = torch.nonzero(bad).flatten()
+    ties, notes = 0, []
+    shift = 4.0 * err["energy"]
+    if replay is not None and len(rows) and shift > 0:
+        for sign in (-1.0, 1.0):
+            r = replay(rows, sign * shift)
+            tie = torch.ones((len(rows),), dtype=torch.bool,
+                             device=rows.device)
+            for f in ints:
+                tie &= getattr(got, f)[rows] == getattr(r, f)
+            for f in ("q", "logp", "energy", "log_sum_alpha"):
+                same = agree(getattr(got, f)[rows], getattr(r, f))
+                tie &= same.all(dim=1) if same.ndim == 2 else same
+            for i in torch.nonzero(tie).flatten().tolist():
+                notes.append(f"chain {int(rows[i])} at {sign * shift:+.3g} "
+                             f"(q {float(diffs['q'][rows[i]]):.3g} from the "
+                             f"plain version's)")
+            ties += int(tie.sum())
+            rows = rows[~tie]
+            if not len(rows):
+                break
+    n_bad = int(bad.sum())
+    allowed = TREE_MISMATCH_FRACTION * c
     print(f"[k5] {label}: {n_int} chains of {c} differ in the integer fields, "
-          f"{n_bad - n_int} more in a float field beyond {TREE_RTOL:g} "
-          f"(allowed {TREE_MISMATCH_FRACTION:g} of all); max abs err "
-          f"{abs_err:.3e} on the rest; terminations "
-          f"{torch.bincount(want.term.long(), minlength=3).tolist()} "
-          f"(max depth, divergence, turning), depth mean "
+          f"{n_bad - n_int} more in a float field beyond {TREE_RTOL:g} (by "
+          f"field {({f: n for f, n in n_field.items() if n})}); verified "
+          f"ties {ties}{' (' + '; '.join(notes) + ')' if notes else ''}; "
+          f"{n_bad - ties} counted, allowed {allowed:g}; max abs err on the "
+          f"rest {max(err.values()):.3e} (by field "
+          f"{({f: float(f'{v:.3e}') for f, v in err.items()})}); "
+          f"terminations {torch.bincount(want.term.long(), minlength=3).tolist()}"
+          f" (max depth, divergence, turning), depth mean "
           f"{want.depth.double().mean().item():.3f}")
-    if n_bad > TREE_MISMATCH_FRACTION * c:
+    if n_bad - ties > allowed:
         raise RuntimeError(f"K5 disagrees with its plain version ({label})")
-    return abs_err
+    return max(err.values())
 
 
 def _first(out):
@@ -486,36 +603,48 @@ def _physics(name: str, data: dict):
     return bind(name, data, "cuda", torch.float32)
 
 
-def tree_form(form: str, q0, p0, e, d32, unif, phys, minv, key, md: int):
+def tree_form(form: str, q0, p0, e, d32, unif, phys, minv, key, md: int,
+              scale=None):
     """``(launch, plain)``: K5 with the physics ``phys`` in one of its forms
     and its plain version fed the same numbers.  ``array``: the explicit
     uniform array; ``prng``: the given momentum and directions, the
     uniforms drawn in the kernel; ``refresh``: everything drawn in the
-    kernel (momentum ``sqrt_mass * xi`` with ``sqrt_mass = minv^-1/2``).
+    kernel (momentum ``sqrt_mass * xi`` with ``sqrt_mass = minv^-1/2``, or
+    for a dense ``minv`` ``mass_chol xi`` with ``scale = mass_chol^T``).
     The plain version gets what the kernel's generator draws for ``key``
-    (``ops.tree.philox_draws``)."""
+    (``ops.tree.philox_draws``); ``plain(rows, shift)`` runs it on those
+    chains with every uniform times exp(shift) (``compare_tree``'s
+    replay)."""
     import torch
 
     from inplacedhmc_tpu_torch.ops.tree import (
-        philox_draws, tree_sweep, tree_transition, tree_transition_plain)
+        philox_draws, refresh_momentum, tree_sweep, tree_transition,
+        tree_transition_plain)
     c, d = q0.shape
     if form == "array":
+        u_plain = unif
+    else:
+        xi, g_dirs, g_unif = philox_draws(key, c, d, md)
+        u_plain = g_unif[0]
+    if form == "refresh":
+        sqrt_mass = 1.0 / torch.sqrt(minv) if scale is None else scale
+        p0, d32 = refresh_momentum(sqrt_mass, xi[0]), g_dirs[0]
+
+    def plain(rows=None, shift: float = 0.0):
+        r = slice(None) if rows is None else rows
+        return tree_transition_plain(
+            q0[r], p0[r], e[r], d32[r], u_plain[:, r] * math.exp(shift),
+            phys, minv, md, -1000.0)
+
+    if form == "array":
         return (lambda: tree_transition(
-            q0, p0, e, d32, unif, phys, minv, md, -1000.0),
-            lambda: tree_transition_plain(
-                q0, p0, e, d32, unif, phys, minv, md, -1000.0))
-    xi, g_dirs, g_unif = philox_draws(key, c, d, md)
+            q0, p0, e, d32, unif, phys, minv, md, -1000.0), plain)
     if form == "prng":
         return (lambda: tree_transition(
-            q0, p0, e, d32, None, phys, minv, md, -1000.0, key=key),
-            lambda: tree_transition_plain(
-                q0, p0, e, d32, g_unif[0], phys, minv, md, -1000.0))
-    sqrt_mass = 1.0 / torch.sqrt(minv)
+            q0, p0, e, d32, None, phys, minv, md, -1000.0, key=key), plain)
     return (lambda: _first(tree_sweep(
         q0, e, phys, minv, md, -1000.0, key=key, sqrt_mass=sqrt_mass)),
-        lambda: tree_transition_plain(
-            q0, sqrt_mass * xi[0], e, g_dirs[0], g_unif[0], phys, minv, md,
-            -1000.0))
+        plain)
 
 
 def check_tree_kernel(card: str) -> None:
@@ -556,7 +685,7 @@ def check_tree_kernel(card: str) -> None:
                 raise RuntimeError("the wrapper did not launch K5 on a CUDA "
                                    "tensor")
             want = plain()
-            compare_tree(got, want, f"eps {eps}, {form}")
+            compare_tree(got, want, f"eps {eps}, {form}", replay=plain)
             ms = cuda_time_ms(launch, 3 if eps < 0.01 else 20)
             bound_ms, bound_by, steps = tree_bound(c, d, want, form)
             print(f"[k5] eps {eps}, {form} on {card}: kernel {ms:.4f} ms; "
@@ -738,7 +867,7 @@ def check_tile_kernel(card: str, physics: str, chain_counts, eps_list,
                                    f"{physics} physics")
             want = plain()
             label = f"{physics}, {c} chains, eps {eps}"
-            compare_tree(got, want, label)
+            compare_tree(got, want, label, replay=plain)
             # every position stays finite; the density and energy too but
             # on the chains that start where the density overflows, which
             # diverge at their first leaf and keep their start
@@ -764,23 +893,301 @@ def check_tile_kernel(card: str, physics: str, chain_counts, eps_list,
                                    f"density overflows did not diverge")
 
 
-def tree_at_state(card: str, res, form: str = "prng", k: int = 1,
-                  physics: str = "gaussian", data=None) -> dict:
-    """K5 timed on the state a whole-tree run ended in (its tuned eps and
-    metric, a fresh momentum and directions) in the form its route runs:
-    ``prng`` (the default route: momentum and directions from the host, the
-    uniforms drawn in the kernel) or ``refresh`` with ``k`` transitions per
-    launch (the flagship's sampling loop).  Held against the plain version
-    fed the kernel's own draws; for ``refresh`` the first of the ``k``
-    transitions is compared, and the plain version is timed over all
-    ``k``.  ``physics`` and its ``data`` are the model's (by default the
-    standard normal's)."""
+@functools.lru_cache(maxsize=None)
+def mvn_target():
+    """The 250-D multivariate normal of Hoffman and Gelman (2014), section
+    4.1, with 300 degrees of freedom where they use 250: the precision is
+    A = X X^T with X ``[250, 300]`` standard normal from numpy's
+    ``default_rng(MVN_SEED)`` (a Wishart draw with identity scale), and
+    ``mvn`` gets ``cov = inv(A)`` in float64, which it holds as float32 and
+    inverts on the card.  Returns the model and ``sigma``, the float64
+    inverse of the float32 precision the model holds: the covariance the
+    gates hold the draws to."""
+    import numpy as np
     import torch
 
-    from inplacedhmc_tpu_torch.core.metric import sample_momentum
+    from inplacedhmc_tpu_torch.models import mvn
+
+    x = np.random.default_rng(MVN_SEED).standard_normal((MVN_DIM, MVN_DF))
+    a = x @ x.T
+    model = mvn(np.linalg.inv(a), device="cuda")
+    sigma = torch.linalg.inv(model.structure["precision"].double())
+    eig = np.linalg.eigvalsh(a)
+    sd = torch.sqrt(torch.diag(sigma))
+    print(f"[mvn] target: {MVN_DIM}-D, Wishart precision with {MVN_DF} "
+          f"degrees of freedom (seed {MVN_SEED}): eigenvalues of A "
+          f"{eig[0]:.4g} to {eig[-1]:.6g}, cond(A) {eig[-1] / eig[0]:.4g}; "
+          f"marginal sds {float(sd.min()):.4f} to {float(sd.max()):.4f}")
+    return model, sigma
+
+
+def _spd(d: int, gen):
+    """A dense symmetric positive definite ``M^-1`` of eigenvalues in about
+    [0.5, 2.5]: 0.5 I + 0.5 B B^T with B ``[d, d]`` normal / sqrt(d)."""
+    import torch
+    b = torch.randn((d, d), generator=gen, device="cuda") / d ** 0.5
+    m = 0.5 * torch.eye(d, device="cuda") + 0.5 * (b @ b.T)
+    return 0.5 * (m + m.T)
+
+
+def kernel_order_product(xi, s):
+    """``xi @ s`` in the order of the kernel's warp mat-vec
+    (``tree_kernel.cuh::matvec``): over i in order, each product and each
+    sum rounded on its own.  The dense refresh's momentum as the kernel
+    computes it, bit for bit."""
+    import torch
+    acc = torch.zeros_like(xi)
+    for i in range(s.shape[0]):
+        acc = acc + xi[..., i:i + 1] * s[i]
+    return acc
+
+
+def dense_case(card: str, label: str, physics: str, data: dict, q0, minv,
+               eps_list, forms=("array", "prng", "refresh"),
+               seed: int = 0) -> dict:
+    """K5 with ``physics`` and the metric ``minv`` (``[D]`` diagonal or
+    ``[D, D]`` dense) against its plain version fed the kernel's own draws,
+    at each step size and in each form (``tree_form``), by
+    ``compare_tree``'s rule; each timed beside its bound.  Returns
+    ``{(eps, form): (ms, plain_ms, bound_ms, bound_by, max_abs_err)}``."""
+    import torch
+
+    from inplacedhmc_tpu_torch.core.metric import dense_metric
+    from inplacedhmc_tpu_torch.ops.tree import (TREE_DENSE_KERNELS,
+                                                TREE_KERNELS,
+                                                direction_words_int32,
+                                                n_uniforms)
+    c, d = q0.shape
+    md = MAX_DEPTH
+    dense = minv.ndim == 2
+    kern = (TREE_DENSE_KERNELS if dense else TREE_KERNELS)[physics]
+    scale = dense_metric(minv).mass_chol.T.contiguous() if dense \
+        else 1.0 / torch.sqrt(minv)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 20 + seed)
+    xi = torch.randn((c, d), generator=gen, device="cuda")
+    p0 = (xi @ scale if dense else scale * xi).contiguous()
+    d32 = direction_words_int32(torch.randint(
+        0, 2 ** 32, (c,), generator=gen, dtype=torch.int64, device="cuda"))
+    unif = torch.rand((n_uniforms(md), c), generator=gen, device="cuda")
+    key = _key(SEED + 21 + seed)
+    phys = _physics(physics, data)
+    times = {}
+    for eps in eps_list:
+        e = torch.full((c,), eps, device="cuda")
+        for form in forms:
+            launch, plain = tree_form(form, q0, p0, e, d32, unif, phys, minv,
+                                      key, md, scale)
+            before = kern.launches
+            got = launch()
+            torch.cuda.synchronize()
+            if kern.launches != before + 1:
+                raise RuntimeError(f"the wrapper did not launch "
+                                   f"{kern.symbol}")
+            want = plain()
+            tag = f"{label}, eps {eps:.4g}, {form}"
+            err = compare_tree(got, want, tag, phys.matrix(), replay=plain)
+            if not bool(torch.isfinite(got.q).all()):
+                raise RuntimeError(f"K5 ({tag}) returned a non-finite state")
+            deep = float(want.depth.double().mean()) > 7
+            ms = cuda_time_ms(launch, 3 if deep else 10, 1)
+            plain_ms = wall_ms(plain, iters=1, warmup=0)
+            bound_ms, bound_by, steps = tree_bound(c, d, want, form, physics,
+                                                   dense)
+            # a launch lasts as long as its longest chain, whose [D, D]
+            # products (tree_bound's count) run one after another
+            i = int(want.steps.argmax())
+            n_leaf = int(want.steps[i])
+            n_prod = (phys.matrix() is not None) * (n_leaf + 2) \
+                + dense * (2 * n_leaf + 1 + (form == "refresh"))
+            per = f"; longest chain {n_leaf} leaves, {n_prod} products, " \
+                f"{ms / n_prod * 1e3:.2f} us per product" if n_prod else ""
+            print(f"[k5-dense] {tag} on {card}: kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.2f} ms (wall); {steps:.0f} leapfrog steps, "
+                  f"{steps / ms * 1e3:.4g} steps/s; bound {bound_ms:.4f} ms "
+                  f"({bound_by}), {bound_ms / ms:.4f} of it{per}")
+            times[(eps, form)] = (ms, plain_ms, bound_ms, bound_by, err)
+    return times
+
+
+def sass_spills() -> None:
+    """The local-memory loads and stores (``LDL``, ``STL``: spills) in the
+    SASS of each K5 instantiation of ``tree_dense_gaussian.cu``
+    (``cuobjdump -sass`` beside ``nvcc``), beside its loads from device
+    memory (``LDG``) and its shuffles."""
+    import re
+
+    from inplacedhmc_tpu_torch.ops.cuda_build import find_nvcc
+    from inplacedhmc_tpu_torch.ops.tree import TREE_DENSE_KERNELS
+    cuobjdump = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
+    sass = subprocess.run(
+        [cuobjdump, "-sass", TREE_DENSE_KERNELS["dense_gaussian"].build()],
+        capture_output=True, text=True, check=True).stdout
+    for block in sass.split("Function : ")[1:]:
+        name = block.split("\n")[0].strip()
+        if "tree_kernel" in name:
+            count = {op: len(re.findall(rf"\b{op}\b", block))
+                     for op in ("LDL", "STL", "LDG", "SHFL")}
+            print(f"[sass] {name}: {count}")
+
+
+def check_dense_tree_kernel(card: str) -> dict:
+    """K5-dense (the ``[D, D]`` M^-1 launchers) and the dense Gaussian's
+    physics against their plain versions (``dense_case``), max_depth 10:
+
+    * the Gaussian physics (the 100-D standard normal) under a dense metric
+      (``_spd``) at 10,240 x 100, eps 0.3, 1.8 (divergences) and 0.002
+      (every tree at max depth), in the three forms;
+    * ``dense_gaussian`` on the 250-D target (``mvn_target``) at 1,024 and
+      at 64 chains, from draws of the target, under its diagonal metric
+      diag(Sigma) at 0.5, 1.5 and 0.1 of the stability limit 2 /
+      sqrt(lambda_max) of the preconditioned precision, and under the dense
+      metric Sigma at eps 0.3, 2.5 and 0.05, in the three forms;
+    * eight schools and the funnel under a dense metric at their D = 10,
+      1,024 chains, the default route's form.
+
+    First the spills of the dense Gaussian's instantiations
+    (``sass_spills``); each case's timing line gives the time per ``[D, D]``
+    product on its longest chain.  Returns the kernels-line entry of
+    ``dense_gaussian`` under its diagonal metric (the mvn run's early
+    windows), timed at 1,024 chains and half the stability limit, drawing
+    its uniforms."""
+    import torch
+
+    t = time.perf_counter()
+    sass_spills()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 19)
+    d = G_DIM
+    dense_case(card, f"gaussian, dense metric, {G_CHAINS} x {d}", "gaussian",
+               {"lam": torch.ones((d,), device="cuda")},
+               torch.randn((G_CHAINS, d), generator=gen, device="cuda"),
+               _spd(d, gen), (0.3, 1.8, 0.002), seed=1)
+    model, sigma = mvn_target()
+    prec = model.structure["precision"]
+    chol = torch.linalg.cholesky(sigma)
+    var = torch.diag(sigma)
+    pre = prec.double() * torch.sqrt(var[:, None] * var[None, :])
+    limit = 2.0 / float(torch.linalg.eigvalsh(pre).max()) ** 0.5
+    sigma32 = sigma.float()
+    sigma32 = (0.5 * (sigma32 + sigma32.T)).contiguous()
+    entry = None
+    for c in (MVN_CHAINS, 64):
+        q0 = (torch.randn((c, MVN_DIM), generator=gen, dtype=torch.float64,
+                          device="cuda") @ chol.T).float().contiguous()
+        times = dense_case(
+            card, f"dense_gaussian, diagonal metric, {c} x {MVN_DIM}",
+            "dense_gaussian", {"prec": prec}, q0, var.float().contiguous(),
+            (0.5 * limit, 1.5 * limit, 0.1 * limit), seed=2)
+        if c == MVN_CHAINS:
+            ms, plain_ms, bound_ms, bound_by, err = times[(0.5 * limit,
+                                                           "prng")]
+            entry = {"name": "tree_dense_gaussian", "route": "cuda",
+                     "source": "inplacedhmc_tpu_torch/csrc/"
+                               "tree_dense_gaussian.cu",
+                     "replaces": "inplacedhmc_tpu/ops/tree_pallas.py:1118",
+                     "launches": None, "max_abs_err": err, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": None}
+        dense_case(card, f"dense_gaussian, dense metric, {c} x {MVN_DIM}",
+                   "dense_gaussian", {"prec": prec}, q0, sigma32,
+                   (0.3, 2.5, 0.05), seed=3)
+    for name, eps in (("eight_schools", 0.3), ("funnel", 0.2)):
+        st = tile_model(name).structure
+        dense_case(card, f"{name}, dense metric, {E_CHAINS} x 10", name,
+                   {**st["data"], **st["scalars"]},
+                   tile_start(name, E_CHAINS, gen), _spd(10, gen), (eps,),
+                   forms=("prng",), seed=4)
+    print(f"[k5-dense] checks {time.perf_counter() - t:.2f} s")
+    return entry
+
+
+def check_dense_sweep(card: str) -> None:
+    """K5-dense, ``dense_gaussian`` on the 250-D target at 1,024 chains
+    under the dense metric Sigma, eps 0.3, 1 row in 1,000 padded: one launch
+    of ``SWEEP_CHECK_K`` transitions drawing everything itself against that
+    many one-transition launches fed what its generator draws (the momentum
+    ``xi mass_chol^T`` in the kernel's order of operations,
+    ``kernel_order_product``): every field equal bit for bit.  Timed beside
+    the single launches and the bound."""
+    import torch
+
+    from inplacedhmc_tpu_torch.core.metric import dense_metric
+    from inplacedhmc_tpu_torch.ops.tree import (TREE_DENSE_KERNELS, TreeOut,
+                                                philox_draws, tree_sweep)
+
+    model, sigma = mvn_target()
+    c, d, md, k = MVN_CHAINS, MVN_DIM, MAX_DEPTH, SWEEP_CHECK_K
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    q0 = (torch.randn((c, d), generator=gen, dtype=torch.float64,
+                      device="cuda") @ torch.linalg.cholesky(sigma).T) \
+        .float().contiguous()
+    minv = sigma.float()
+    minv = (0.5 * (minv + minv.T)).contiguous()
+    scale = dense_metric(minv).mass_chol.T.contiguous()
+    phys = _physics("dense_gaussian", {"prec": model.structure["precision"]})
+    e = torch.full((c,), 0.3, device="cuda")
+    valid = (torch.arange(c, device="cuda") % 1000 != 999).to(torch.int32)
+    key = _key(SEED + 23)
+    kern = TREE_DENSE_KERNELS["dense_gaussian"]
+    before = kern.launches
+    swept = tree_sweep(q0, e, phys, minv, md, -1000.0, k, key=key,
+                       sqrt_mass=scale, valid=valid)
+    torch.cuda.synchronize()
+    if kern.launches != before + 1:
+        raise RuntimeError("the dense sweep was not one K5 launch")
+    xi, dirs, unif = philox_draws(key, c, d, md, k)
+    q = q0
+    differ = []
+    for s in range(k):
+        one = tree_sweep(q, e, phys, minv, md, -1000.0,
+                         momentum=kernel_order_product(xi[s], scale)[None],
+                         dirs=dirs[s:s + 1], unif=unif[s:s + 1], valid=valid)
+        differ += [f"{f}[{s}]" for f in TreeOut._fields if f != "grad"
+                   and not torch.equal(getattr(swept, f)[s],
+                                       getattr(one, f)[0])]
+        q = one.q[0]
+    if not torch.equal(swept.grad, one.grad):
+        differ.append("grad")
+    steps = float(swept.steps.sum())
+    print(f"[sweep] dense_gaussian, dense metric, {c} x {d}: {k} transitions "
+          f"in one launch against {k} launches: fields that differ "
+          f"{differ or 'none'}; depth mean "
+          f"{swept.depth.double().mean().item():.3f}, {steps:.0f} steps")
+    if differ:
+        raise RuntimeError("a K5-dense sweep differs from its single launches")
+    ms = cuda_time_ms(lambda: tree_sweep(
+        q0, e, phys, minv, md, -1000.0, k, key=key, sqrt_mass=scale,
+        valid=valid, out=swept), iters=3, warmup=1)
+    keys = [_key(SEED + 30 + s) for s in range(k)]
+    one_ms = cuda_time_ms(lambda: [tree_sweep(
+        q0, e, phys, minv, md, -1000.0, key=kk, sqrt_mass=scale, valid=valid,
+        out=one) for kk in keys], iters=3, warmup=1)
+    bound_ms, bound_by, _ = tree_bound(c, d, swept, "refresh",
+                                       "dense_gaussian", True)
+    print(f"[sweep] dense_gaussian, dense metric on {card}: one launch of {k} "
+          f"{ms:.4f} ms ({ms / k:.4f} ms per transition), {k} launches of "
+          f"one {one_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}); "
+          f"{steps / ms * 1e3:.4g} steps/s")
+
+
+def tree_at_state(card: str, res, form: str = "prng", k: int = 1,
+                  physics: str = "gaussian", data=None,
+                  name: Optional[str] = None) -> dict:
+    """K5 timed on the state a whole-tree run ended in (its tuned eps and
+    metric, diagonal or dense, a fresh momentum and directions) in the form
+    its route runs: ``prng`` (the default route: momentum and directions
+    from the host, the uniforms drawn in the kernel) or ``refresh`` with
+    ``k`` transitions per launch (the flagship's sampling loop).  Held
+    against the plain version fed the kernel's own draws; for ``refresh``
+    the first of the ``k`` transitions is compared, and the plain version is
+    timed over all ``k``.  ``physics`` and its ``data`` are the model's (by
+    default the standard normal's); ``name`` the entry's in the kernels
+    line."""
+    import torch
+
+    from inplacedhmc_tpu_torch.core.metric import DenseMetric, sample_momentum
     from inplacedhmc_tpu_torch.ops.tree import (
-        TREE_KERNELS, direction_words_int32, philox_draws, tree_sweep,
-        tree_sweep_plain)
+        TREE_KERNELS, direction_words_int32, philox_draws, refresh_momentum,
+        tree_sweep, tree_sweep_plain, tree_transition_plain)
 
     ws = res.warmup_state
     q0 = ws.z.q.contiguous()
@@ -791,46 +1198,65 @@ def tree_at_state(card: str, res, form: str = "prng", k: int = 1,
         0, 2 ** 32, (c,), generator=gen, dtype=torch.int64, device="cuda"))
     e = torch.exp(ws.log_eps).expand(c).contiguous()
     phys = _physics(physics, data or {"lam": torch.ones((d,), device="cuda")})
+    dense = isinstance(ws.metric, DenseMetric)
     minv = ws.metric.inv.contiguous()
-    sqrt_mass = ws.metric.sqrt_mass.contiguous()
+    scale = (ws.metric.mass_chol.T if dense else ws.metric.sqrt_mass) \
+        .contiguous()
     key = _key(SEED + 5)
+    grad_q = None
     if form == "prng":
         kw = dict(momentum=p0[None], dirs=d32[None])
         launch, plain = tree_form("prng", q0, p0, e, d32, None, phys, minv,
                                   key, md)
         got, want = launch(), plain()
     else:
-        kw = dict(sqrt_mass=sqrt_mass)
+        kw = dict(sqrt_mass=scale)
         xi, dirs, unif = philox_draws(key, c, d, md, k)
-        got = tree_sweep(q0, e, phys, minv, md, -1000.0, k, key=key, **kw)
-        want = tree_sweep_plain(
-            q0, e, phys, minv, md, -1000.0, k, momentum=sqrt_mass * xi,
-            dirs=dirs, unif=unif)
-        plain = lambda: tree_sweep_plain(  # noqa: E731
-            q0, e, phys, minv, md, -1000.0, k, momentum=sqrt_mass * xi,
-            dirs=dirs, unif=unif)
+        p_all = refresh_momentum(scale, xi)
+
+        def plain():
+            return tree_sweep_plain(q0, e, phys, minv, md, -1000.0, k,
+                                    momentum=p_all, dirs=dirs, unif=unif)
+
+        def first(rows, shift):  # the first transition, for a replay
+            return tree_transition_plain(
+                q0[rows], p_all[0][rows], e[rows], dirs[0][rows],
+                unif[0][:, rows] * math.exp(shift), phys, minv, md, -1000.0)
+
+        got, want = tree_sweep(q0, e, phys, minv, md, -1000.0, k, key=key,
+                               **kw), plain()
+        grad_q = (got.q[-1], want.q[-1])
         got, want = _first(got), _first(want)
     abs_err = compare_tree(got, want, f"{physics}, {c} chains, tuned eps "
-                           f"{float(e[0]):.4g}, {form}, n_sweep {k}")
+                           f"{float(e[0]):.4g}, {form}, n_sweep {k}",
+                           phys.matrix(), grad_q,
+                           plain if form == "prng" else first)
     # timed on a start and output buffers made beforehand: nothing but the
     # kernel is queued in the timed loop
     out = tree_sweep(q0, e, phys, minv, md, -1000.0, k, key=key, **kw)
+    # a dense state's launches take tens of ms and its plain version
+    # seconds (it ran once above): fewer repeats
     ms = cuda_time_ms(lambda: tree_sweep(
-        q0, e, phys, minv, md, -1000.0, k, key=key, out=out, **kw))
-    plain_ms = wall_ms(plain, iters=2)
-    bound_ms, bound_by, steps = tree_bound(c, d, out, form, physics)
-    print(f"[k5] {physics}, {c} chains at the tuned state, {form}, n_sweep "
+        q0, e, phys, minv, md, -1000.0, k, key=key, out=out, **kw),
+        *((5, 1) if dense else (20, 3)))
+    plain_ms = wall_ms(plain, *((1, 0) if dense else (2, 1)))
+    bound_ms, bound_by, steps = tree_bound(c, d, out, form, physics, dense)
+    metric = "dense" if dense else "diagonal"
+    print(f"[k5] {physics}, {c} chains at the tuned state ({metric} "
+          f"metric), {form}, n_sweep "
           f"{k}, on {card}: kernel {ms:.4f} ms ({ms / k:.4f} ms per "
           f"transition), plain {plain_ms:.2f} ms (wall: its host loop "
           f"synchronises), bound {bound_ms:.4g} ms ({bound_by}); "
           f"{steps:.0f} steps, {steps / ms * 1e3:.4g} steps/s")
-    name = f"tree_{physics}" if physics != "gaussian" else \
-        "gaussian_tree_transition" if form == "prng" else \
-        "gaussian_tree_sweep"
+    if name is None:
+        name = f"tree_{physics}" if physics != "gaussian" else \
+            "gaussian_tree_transition" if form == "prng" else \
+            "gaussian_tree_sweep"
     return {"name": name, "route": "cuda",
             "source": f"inplacedhmc_tpu_torch/csrc/"
                       f"{TREE_KERNELS[physics].source}",
-            "replaces": "inplacedhmc_tpu/ops/tree_pallas.py:92",
+            "replaces": "inplacedhmc_tpu/ops/tree_pallas.py:"
+                        + (DENSE_REPLACES[physics] if dense else "92"),
             "launches": None, "max_abs_err": abs_err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None}
@@ -876,7 +1302,7 @@ def run_sample(card: str, kernels) -> dict:
                  reporter=timer, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k.source: k.launches for k in kernels}
+    launches = launch_counts(kernels)
 
     for name, sec in timer.stages:
         print(f"[sample] {name}: {sec:.2f} s on {card}")
@@ -888,11 +1314,11 @@ def run_sample(card: str, kernels) -> dict:
     # one K1 launch each
     min_launches = int(stats.steps.amax(dim=1).sum() +
                        wstats.steps.amax(dim=1).sum())
-    print(f"[sample] K1 launches {launches['logistic_vg.cu']} "
+    print(f"[sample] K1 launches {launches['logistic_vg_launch']} "
           f"(lockstep leapfrog steps >= {min_launches})")
-    if launches["logistic_vg.cu"] < min_launches:
+    if launches["logistic_vg_launch"] < min_launches:
         raise RuntimeError("the main path did not go through K1")
-    others = {k: v for k, v in launches.items() if k != "logistic_vg.cu"}
+    others = {k: v for k, v in launches.items() if k != "logistic_vg_launch"}
     if any(others.values()):
         raise RuntimeError(f"the logistic path launched another kernel: "
                            f"{others}")
@@ -924,57 +1350,83 @@ def run_sample(card: str, kernels) -> dict:
     return launches
 
 
+def tree_launches(physics: str, stages, n_sampling: int) -> dict:
+    """What ``sample()`` launches of each K5 launcher of ``physics``: one
+    per tuning transition under the window's metric (the identity diagonal
+    until a window that estimates one has closed, then that window's form)
+    and ``n_sampling`` under the last one."""
+    from inplacedhmc_tpu_torch import TuningNUTS
+    from inplacedhmc_tpu_torch.ops.tree import (TREE_DENSE_KERNELS,
+                                                TREE_KERNELS)
+    n = {"diag": 0, "dense": 0}
+    form = "diag"
+    for stage in stages:
+        if isinstance(stage, TuningNUTS):
+            n[form] += stage.n
+            form = stage.metric or form
+    n[form] += n_sampling
+    return {TREE_KERNELS[physics].symbol: n["diag"],
+            TREE_DENSE_KERNELS[physics].symbol: n["dense"]}
+
+
 def run_gaussian_sample(card: str, kernels, dim: int, n_chains: int,
-                        n_draws: int, route: str, tree_opts=None):
-    """``sample()`` on the ``dim``-D standard normal with the default warmup,
-    through ``route`` ("tree": K5 once per transition and nothing else, or
-    with ``tree_opts`` once per tuning transition and once per ``n_sweep``
-    sampling transitions; "lockstep": K3 once per lockstep leaf and nothing
-    else), with the
-    posterior checked: finite draws, split R-hat < 1.05, mean acceptance in
-    [0.6, 0.95], and every coordinate's mean and variance within five Monte
-    Carlo standard errors of 0 and 1 (from the draws' own ESS, of q and of
-    q^2)."""
+                        n_draws: int, route: str, tree_opts=None, *,
+                        model=None, metric: str = "diag", var=None,
+                        physics: str = "gaussian"):
+    """``sample()`` on a Gaussian, by default the ``dim``-D standard normal,
+    with the default warmup whose windows estimate a ``metric`` ("diag" or
+    "dense"), through ``route`` ("tree": K5 once per transition, under the
+    launcher of the window's metric form (``tree_launches``), and nothing
+    else, or with ``tree_opts`` once per tuning transition and once per
+    ``n_sweep`` sampling transitions; "lockstep": K3 once per lockstep leaf
+    and nothing else), with the posterior checked: finite draws, split
+    R-hat < 1.05, mean acceptance in [0.6, 0.95], and every coordinate's
+    mean and variance within five Monte Carlo standard errors of 0 and of
+    its variance ``var`` (default 1; from the draws' own ESS, of q and of
+    q^2).  ``model`` (another Gaussian, ``physics`` its whole-tree physics)
+    replaces the standard normal."""
     import torch
 
-    from inplacedhmc_tpu_torch import (NUTSKernel, TuningNUTS,
-                                       default_warmup_stages, sample)
+    from inplacedhmc_tpu_torch import (NUTSKernel, default_warmup_stages,
+                                       sample)
     from inplacedhmc_tpu_torch import diagnostics as diag
     from inplacedhmc_tpu_torch.models import std_normal
 
-    model = std_normal(dim, device="cuda")
-    n_warm = sum(s.n for s in default_warmup_stages()
-                 if isinstance(s, TuningNUTS))
+    if model is None:
+        model = std_normal(dim, device="cuda")
+    dim = model.dim
+    stages = default_warmup_stages(metric=metric)
     timer = StageTimer()
     for k in kernels:
         k.launches = 0
     t0 = time.perf_counter()
-    res = sample(SEED, model, n_draws, n_chains, reporter=timer,
-                 device="cuda", tree_opts=tree_opts)
+    res = sample(SEED, model, n_draws, n_chains, warmup_stages=stages,
+                 reporter=timer, device="cuda", tree_opts=tree_opts)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k.source: k.launches for k in kernels}
-    tag = f"[{route} {n_chains} x {dim}" \
+    launches = launch_counts(kernels)
+    tag = f"[{route} {model.name} {n_chains} x {dim}, {metric} windows" \
         + (f", n_sweep {tree_opts['n_sweep']}]" if tree_opts else "]")
     for name, sec in timer.stages:
         print(f"{tag} {name}: {sec:.2f} s on {card}")
-    print(f"{tag} total {wall:.2f} s on {card}; launches {launches} "
+    print(f"{tag} total {wall:.2f} s on {card}; launches "
+          f"{ {k: v for k, v in launches.items() if v} } "
           f"(TREE_MIN_CHAINS {NUTSKernel.TREE_MIN_CHAINS})")
     sample_s = timer.stages[-1][1]
     stats, wstats = res.stats, res.warmup_stats
-    n_trans = n_warm + n_draws
-    if tree_opts:
-        n_trans = n_warm + n_draws // tree_opts["n_sweep"]
-    mine = "tree_gaussian.cu" if route == "tree" else "leapfrog_gaussian.cu"
     if route == "tree":
-        ok = launches[mine] == n_trans
+        mine = tree_launches(physics, stages, n_draws // (
+            tree_opts["n_sweep"] if tree_opts else 1))
+        print(f"{tag} K5 launches expected {mine}")
+        ok = all(launches[k] == v for k, v in mine.items())
     else:
+        mine = {"leapfrog_gaussian_launch": 0}
         leaves = int(stats.steps.amax(dim=1).sum()
                      + wstats.steps.amax(dim=1).sum())
-        print(f"{tag} K3 launches {launches['leapfrog_gaussian.cu']} "
+        print(f"{tag} K3 launches {launches['leapfrog_gaussian_launch']} "
               f"(lockstep leaves >= {leaves})")
-        ok = launches[mine] >= leaves > 0
-    if not ok or any(v for k, v in launches.items() if k != mine):
+        ok = launches["leapfrog_gaussian_launch"] >= leaves > 0
+    if not ok or any(v for k, v in launches.items() if k not in mine):
         raise RuntimeError(f"the {route} path did not go through its kernel "
                            f"alone: {launches}")
 
@@ -983,18 +1435,22 @@ def run_gaussian_sample(card: str, kernels, dim: int, n_chains: int,
             or not bool(torch.isfinite(draws).all()):
         raise RuntimeError("draws are not finite or not [n_draws, C, D]")
     x = draws.double()
+    var = torch.ones((dim,), dtype=torch.float64, device=x.device) \
+        if var is None else var
     rhat = diag.split_rhat(x).max().item()
     ess = diag.ess_bulk(x, cap=False)
     ess_sq = diag.ess_bulk(x * x, cap=False)
     accept = stats.acceptance_rate.double().mean().item()
-    mean_z = (x.mean(dim=(0, 1)) / torch.sqrt(1.0 / ess)).abs().max().item()
-    var_z = ((x * x).mean(dim=(0, 1)) - x.mean(dim=(0, 1)) ** 2 - 1.0).abs() \
-        / torch.sqrt(2.0 / ess_sq)
+    mean = x.mean(dim=(0, 1))
+    mean_z = (mean / torch.sqrt(var / ess)).abs().max().item()
+    var_z = ((x * x).mean(dim=(0, 1)) - mean ** 2 - var).abs() \
+        / (var * torch.sqrt(2.0 / ess_sq))
     var_z = var_z.max().item()
     chain_steps = int(stats.steps.sum())
     print(f"{tag} eps {torch.exp(res.warmup_state.log_eps).item():.5g}, "
           f"split R-hat max {rhat:.4f}, acceptance mean {accept:.4f}, "
-          f"max |mean| / SE {mean_z:.3f}, max |var - 1| / SE {var_z:.3f}")
+          f"max |mean| / SE {mean_z:.3f}, max |var - var_true| / SE "
+          f"{var_z:.3f}")
     print(f"{tag} {card}: {chain_steps / sample_s:.4g} leapfrog steps/s "
           f"(chain steps while sampling / sampling wall), ess_bulk min "
           f"{ess.min().item():.4g} -> {ess.min().item() / sample_s:.4g} ESS/s")
@@ -1041,7 +1497,8 @@ def run_tile_sample(card: str, kernels, name: str):
             stepsize_adaptation=DualAveraging(delta=0.9))
         n_chains, n_draws = F_CHAINS, F_DRAWS
     n_warm = sum(s.n for s in stages if isinstance(s, TuningNUTS))
-    mine = "tree_gaussian.cu" if name == "funnel_nc" else f"tree_{name}.cu"
+    mine = "tree_gaussian_launch" if name == "funnel_nc" \
+        else f"tree_{name}_launch"
     timer = StageTimer()
     for k in kernels:
         k.launches = 0
@@ -1050,7 +1507,7 @@ def run_tile_sample(card: str, kernels, name: str):
                  reporter=timer, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k.source: k.launches for k in kernels}
+    launches = launch_counts(kernels)
     tag = f"[{name} {n_chains} x {model.dim}]"
     for stage, sec in timer.stages:
         print(f"{tag} {stage}: {sec:.2f} s on {card}")
@@ -1184,36 +1641,43 @@ def bench_flagship(card: str) -> int:
     return fastest
 
 
-def crossover(card: str, physics: str = "gaussian") -> None:
-    """Wall time of one transition at the fixed eps ``CROSSOVER_EPS``, the
-    identity metric and q0 normal, at each of ``CROSSOVER_CHAINS``, through
+def crossover(card: str, physics: str = "gaussian", state=None,
+              model=None, start=None) -> None:
+    """Wall time of one transition at each of ``CROSSOVER_CHAINS``, through
     the whole-tree kernel and through the route ``NUTSKernel`` takes below
-    its threshold: the 100-D standard normal against the lockstep tree with
-    K3, eight schools (mu about its posterior) and the funnel against
-    autograd of ``logp`` on the lockstep tree.  Fails unless the whole tree
-    was the faster exactly at the counts from the threshold
+    its threshold, from q0 normal at the fixed eps ``CROSSOVER_EPS`` and
+    the identity metric, or at the tuned eps and metric of a run's
+    ``state`` (a ``WarmupState``) with ``model`` and positions from
+    ``start(c, gen)``: the 100-D standard normal against the lockstep tree
+    with K3 (with a dense metric: autograd on the lockstep tree), eight
+    schools (mu about its posterior), the funnel and the dense Gaussian
+    against autograd of ``logp`` on the lockstep tree.  Fails unless the
+    whole tree was the faster exactly at the counts from the threshold
     (``NUTSKernel.TREE_MIN_CHAINS``, ``TREE_MIN_CHAINS_BY_PHYSICS``) up."""
     import torch
 
-    from inplacedhmc_tpu_torch import NUTSKernel, identity_metric
+    from inplacedhmc_tpu_torch import DenseMetric, NUTSKernel, identity_metric
     from inplacedhmc_tpu_torch.core.hamiltonian import evaluate
     from inplacedhmc_tpu_torch.models import std_normal
     from inplacedhmc_tpu_torch.nuts.tree import nuts_transition
     from inplacedhmc_tpu_torch.ops.tree import make_tree_transition
+    from inplacedhmc_tpu_torch.sample import _tree_physics
 
-    if physics == "gaussian":
-        model = std_normal(G_DIM, device="cuda")
-        data = {"lam": model.structure["precision"]}
-    else:
-        model = tile_model(physics)
-        data = {**model.structure["data"], **model.structure["scalars"]}
+    if model is None:
+        model = std_normal(G_DIM, device="cuda") if physics == "gaussian" \
+            else tile_model(physics)
+    _, data = _tree_physics(model.structure)
     kern = NUTSKernel(model)
-    metric = identity_metric(model.dim, device="cuda")
+    if state is None:
+        metric = identity_metric(model.dim, device="cuda")
+        eps = CROSSOVER_EPS[physics]
+    else:
+        metric, eps = state.metric, float(torch.exp(state.log_eps))
     trans = make_tree_transition(physics, data, model.dim, metric,
                                  max_depth=MAX_DEPTH)
     step_fn = kern.step_factory(metric) if kern.step_factory else None
     other = "lockstep + K3" if step_fn else "autograd on the lockstep tree"
-    eps = CROSSOVER_EPS[physics]
+    form = "dense" if isinstance(metric, DenseMetric) else "diagonal"
 
     def lockstep(gen, z):
         return nuts_transition(gen, kern.potential, metric, z, eps,
@@ -1222,19 +1686,21 @@ def crossover(card: str, physics: str = "gaussian") -> None:
     faster = {}
     for c in CROSSOVER_CHAINS:
         gen = torch.Generator(device="cuda").manual_seed(SEED + c)
-        q0 = torch.randn((c, G_DIM), generator=gen, device="cuda") \
+        q0 = start(c, gen) if start is not None \
+            else torch.randn((c, G_DIM), generator=gen, device="cuda") \
             if physics == "gaussian" else tile_start(physics, c, gen)
         z = evaluate(kern.potential, q0)
         k5 = wall_ms(lambda: trans(gen, z, eps), iters=10, warmup=2)
         depth = int(lockstep(gen, z)[1].depth.max())   # also its warm-up
         slow = wall_ms(lambda: lockstep(gen, z), iters=2, warmup=0)
         faster[c] = "K5" if k5 < slow else "lockstep"
-        print(f"[crossover] {physics}, {c} chains, eps {eps} on {card}: "
-              f"whole tree (K5) {k5:.3f} ms, {other} {slow:.3f} ms per "
-              f"transition ({slow / k5:.1f}x); deepest tree {depth}")
+        print(f"[crossover] {physics} ({model.dim}-D, {form} metric), {c} "
+              f"chains, eps {eps:.4g} on {card}: whole tree (K5) {k5:.3f} "
+              f"ms, {other} {slow:.3f} ms per transition "
+              f"({slow / k5:.1f}x); deepest tree {depth}")
     tmc = kern.tree_min_chains(physics)
-    print(f"[crossover] {physics}: threshold {tmc} chains; faster route by "
-          f"chain count: {faster}")
+    print(f"[crossover] {physics} ({form} metric): threshold {tmc} chains; "
+          f"faster route by chain count: {faster}")
     if not all((v == "K5") == (c >= tmc) for c, v in faster.items()):
         raise RuntimeError(f"the whole-tree threshold of {physics} ({tmc} "
                            f"chains) contradicts the timings: {faster}")
@@ -1265,10 +1731,12 @@ def main() -> int:
     check_tile_kernel(card, "funnel", (F_CHAINS, E_CHAINS), (0.05, 0.3, 3.0),
                       neck=True)
     check_sweep(card, "eight_schools")
+    k5d_diag = check_dense_tree_kernel(card)
+    check_dense_sweep(card)
     print(f"[phase] kernel checks {time.perf_counter() - t:.2f} s")
     t = time.perf_counter()
     launches = run_sample(card, kernels)
-    k1["launches"] = launches["logistic_vg.cu"]
+    k1["launches"] = launches["logistic_vg_launch"]
     print(f"[sample] K1 device time about {k1['launches']} x {k1['ms']:.4f} "
           f"ms = {k1['launches'] * k1['ms'] / 1e3:.2f} s of sample()'s wall")
     print(f"[phase] logistic sample {time.perf_counter() - t:.2f} s")
@@ -1276,7 +1744,7 @@ def main() -> int:
     res, launches, sample_s = run_gaussian_sample(
         card, kernels, G_DIM, G_CHAINS, G_DRAWS, "tree")
     k5 = tree_at_state(card, res)
-    k5["launches"] = launches["tree_gaussian.cu"]
+    k5["launches"] = launches["tree_gaussian_launch"]
     print(f"[tree {G_CHAINS}] K5 device time {G_DRAWS} x {k5['ms']:.4f} ms "
           f"= {G_DRAWS * k5['ms'] / 1e3:.3f} s of the {sample_s:.3f} s "
           f"sampling wall")
@@ -1288,7 +1756,7 @@ def main() -> int:
     res, launches, sample_s = run_gaussian_sample(
         card, kernels, G_DIM, G_CHAINS, G_DRAWS, "tree", topts)
     k5s = tree_at_state(card, res, "refresh", FLAGSHIP_K)
-    k5s["launches"] = launches["tree_gaussian.cu"]
+    k5s["launches"] = launches["tree_gaussian_launch"]
     n_launch = G_DRAWS // FLAGSHIP_K
     print(f"[flagship {G_CHAINS}] K5 device time {n_launch} x "
           f"{k5s['ms']:.4f} ms = {n_launch * k5s['ms'] / 1e3:.4f} s of the "
@@ -1307,7 +1775,7 @@ def main() -> int:
     t = time.perf_counter()
     _, launches, _ = run_gaussian_sample(card, kernels, W_DIM, S_CHAINS,
                                          S_DRAWS, "lockstep")
-    k3["launches"] = launches["leapfrog_gaussian.cu"]
+    k3["launches"] = launches["leapfrog_gaussian_launch"]
     print(f"[phase] lockstep sample {time.perf_counter() - t:.2f} s")
     tiles = []
     for name in ("eight_schools", "funnel", "funnel_nc"):
@@ -1317,7 +1785,7 @@ def main() -> int:
             st = tile_model(name).structure
             entry = tree_at_state(card, res, physics=name,
                                   data={**st["data"], **st["scalars"]})
-            entry["launches"] = launches[f"tree_{name}.cu"]
+            entry["launches"] = launches[f"tree_{name}_launch"]
             n = res.draws.shape[0]
             print(f"[{name}] K5 device time about {n} x {entry['ms']:.4f} ms "
                   f"= {n * entry['ms'] / 1e3:.3f} s of the {sample_s:.3f} s "
@@ -1325,12 +1793,61 @@ def main() -> int:
             tiles.append(entry)
         del res
         print(f"[phase] {name} sample {time.perf_counter() - t:.2f} s")
+    # the dense metric: the 250-D Wishart-precision mvn at 1,024 chains on
+    # the default route and with the flagship options, the 100-D normal at
+    # 10,240 chains with dense windows
+    model, sigma = mvn_target()
+    var = torch.diag(sigma)
+    mvn_data = {"prec": model.structure["precision"]}
+    dense = []
+    t = time.perf_counter()
+    res, launches, sample_s = run_gaussian_sample(
+        card, kernels, 0, MVN_CHAINS, MVN_DRAWS, "tree", model=model,
+        metric="dense", var=var, physics="dense_gaussian")
+    entry = tree_at_state(card, res, physics="dense_gaussian", data=mvn_data,
+                          name="tree_dense_gaussian_dense")
+    entry["launches"] = launches["tree_dense_gaussian_dense_launch"]
+    k5d_diag["launches"] = launches["tree_dense_gaussian_launch"]
+    print(f"[mvn] K5-dense device time {MVN_DRAWS} x {entry['ms']:.4f} ms = "
+          f"{MVN_DRAWS * entry['ms'] / 1e3:.3f} s of the {sample_s:.3f} s "
+          f"sampling wall")
+    dense += [k5d_diag, entry]
+    mvn_state = res.warmup_state
+    del res
+    print(f"[phase] mvn sample {time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
+    res, launches, sample_s = run_gaussian_sample(
+        card, kernels, 0, MVN_CHAINS, MVN_SWEEP_DRAWS, "tree", topts,
+        model=model, metric="dense", var=var, physics="dense_gaussian")
+    entry = tree_at_state(card, res, "refresh", FLAGSHIP_K,
+                          physics="dense_gaussian", data=mvn_data,
+                          name="tree_dense_gaussian_dense_sweep")
+    entry["launches"] = launches["tree_dense_gaussian_dense_launch"]
+    dense.append(entry)
+    del res
+    print(f"[phase] mvn flagship sample {time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
+    res, launches, sample_s = run_gaussian_sample(
+        card, kernels, G_DIM, G_CHAINS, DENSE_G_DRAWS, "tree",
+        metric="dense")
+    entry = tree_at_state(card, res, name="gaussian_tree_transition_dense")
+    entry["launches"] = launches["tree_gaussian_dense_launch"]
+    dense.append(entry)
+    gauss_state = res.warmup_state
+    del res
+    print(f"[phase] dense-window whole-tree sample "
+          f"{time.perf_counter() - t:.2f} s")
     t = time.perf_counter()
     for physics in ("gaussian", "eight_schools", "funnel"):
         crossover(card, physics)
+    chol = torch.linalg.cholesky(sigma).T.float()
+    crossover(card, "dense_gaussian", mvn_state, model,
+              lambda c, gen: torch.randn((c, MVN_DIM), generator=gen,
+                                         device="cuda") @ chol)
+    crossover(card, "gaussian", gauss_state)
     print(f"[phase] crossover {time.perf_counter() - t:.2f} s")
     print(f"[phase] total {time.perf_counter() - t_start:.2f} s")
-    print(json.dumps({"kernels": [k1, k3, k5, k5s, *tiles]}))
+    print(json.dumps({"kernels": [k1, k3, k5, k5s, *tiles, *dense]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

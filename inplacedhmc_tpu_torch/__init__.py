@@ -5,12 +5,12 @@ The JAX package stays the reference; this package imports none of it.  Its
 entry points run on the card (``device="cuda"``) unless the caller asks for
 the CPU.  CUDA kernels written by hand for Hopper, built by ``nvcc`` on
 first use, carry the main paths: the fused logistic-regression potential
-(``csrc/logistic_vg.cu``), the whole NUTS transition with a diagonal
-metric for each tile physics (``csrc/tree_kernel.cuh`` with the Gaussian's,
-eight schools' and the funnel's value and gradient:
-``csrc/tree_gaussian.cu``, ``csrc/tree_eight_schools.cu``,
-``csrc/tree_funnel.cu``) and the fused Gaussian leapfrog step
-(``csrc/leapfrog_gaussian.cu``).
+(``csrc/logistic_vg.cu``), the whole NUTS transition with a diagonal or
+dense metric for each tile physics (``csrc/tree_kernel.cuh`` with the
+Gaussian's, eight schools', the funnel's and the dense Gaussian's value and
+gradient: ``csrc/tree_gaussian.cu``, ``csrc/tree_eight_schools.cu``,
+``csrc/tree_funnel.cu``, ``csrc/tree_dense_gaussian.cu``) and the fused
+Gaussian leapfrog step (``csrc/leapfrog_gaussian.cu``).
 """
 
 from .config import (DualAveraging, FindLocalOptimum, FixedStepsize,

@@ -3,11 +3,12 @@
 This system has no weights: a model's data (a logistic model's design and
 labels, a Gaussian model's precision) and a warmup state (positions, metric,
 step size) take their place.  :func:`model_from_numpy`,
-:func:`gaussian_model_from_numpy`, :func:`tile_model_from_numpy` and
-:func:`warmup_state_from_numpy` turn the numpy arrays of a JAX
-``Model.structure`` and ``WarmupState`` into the port's objects;
-:func:`warmup_state_to_numpy` goes back.  This module imports nothing of
-the JAX package: the caller converts with ``numpy.asarray``.
+:func:`gaussian_model_from_numpy`, :func:`mvn_model_from_numpy`,
+:func:`tile_model_from_numpy` and :func:`warmup_state_from_numpy` turn the
+numpy arrays of a JAX ``Model.structure`` and ``WarmupState`` into the
+port's objects; :func:`warmup_state_to_numpy` goes back.  This module
+imports nothing of the JAX package: the caller converts with
+``numpy.asarray``.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from .core.hamiltonian import evaluate
 from .core.metric import DenseMetric, dense_metric, diag_metric
 from .core.state import WarmupState
 from .models.base import Model
-from .models.gaussian import diag_gaussian_model
+from .models.gaussian import dense_gaussian_model, diag_gaussian_model
 from .models.logistic import logistic_regression
 from .ops import tile_physics
 
@@ -41,6 +42,16 @@ def gaussian_model_from_numpy(precision, device="cuda") -> Model:
     prec = torch.as_tensor(np.array(precision, dtype=np.float32),
                            device=device)
     return diag_gaussian_model(f"diag_gaussian_{prec.shape[0]}", prec)
+
+
+def mvn_model_from_numpy(precision, device="cuda") -> Model:
+    """The port's dense-Gaussian model from the symmetrized ``precision [D,
+    D]`` of a JAX ``{"kind": "dense_gaussian"}`` structure (``mvn``), kept
+    bit for bit (a numpy array becomes float32): both packages then sample
+    the same density."""
+    prec = torch.as_tensor(np.array(precision, dtype=np.float32),
+                           device=device)
+    return dense_gaussian_model(f"mvn_{prec.shape[0]}", prec)
 
 
 def tile_model_from_numpy(physics: str, data, dim: int, *, scalars=None,

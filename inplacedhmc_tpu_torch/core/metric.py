@@ -61,8 +61,10 @@ def dense_metric(inv: torch.Tensor) -> DenseMetric:
     return DenseMetric(inv=inv, mass_chol=l_inv.transpose(-1, -2))
 
 
-def _matvec(m: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
-    """``m @ p`` per chain: ``m`` is ``[D, D]`` (shared) or ``[C, D, D]``."""
+def matvec(m: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """``m @ p`` per chain: ``m`` is ``[D, D]`` (shared) or ``[C, D, D]``.
+    The one dense product of ``p#``, the kinetic energy and the momentum
+    draw, here and in the whole-tree kernel's plain version."""
     if m.ndim == 2:
         return p @ m.transpose(0, 1)
     return torch.einsum("...ij,...j->...i", m, p)
@@ -72,14 +74,14 @@ def kinetic_energy(metric: Metric, p: torch.Tensor) -> torch.Tensor:
     """``K(p) = 1/2 p^T M^-1 p``.  ``p``: [C, D] -> [C]."""
     if isinstance(metric, DiagMetric):
         return 0.5 * torch.sum(p * metric.inv * p, dim=-1)
-    return 0.5 * torch.sum(p * _matvec(metric.inv, p), dim=-1)
+    return 0.5 * torch.sum(p * matvec(metric.inv, p), dim=-1)
 
 
 def psharp(metric: Metric, p: torch.Tensor) -> torch.Tensor:
     """``p# = M^-1 p``: the integrator's q-update and the U-turn statistic."""
     if isinstance(metric, DiagMetric):
         return metric.inv * p
-    return _matvec(metric.inv, p)
+    return matvec(metric.inv, p)
 
 
 def sample_momentum(metric: Metric, gen: torch.Generator, shape,
@@ -90,7 +92,7 @@ def sample_momentum(metric: Metric, gen: torch.Generator, shape,
                      device=metric.inv.device)
     if isinstance(metric, DiagMetric):
         return metric.sqrt_mass * xi
-    return _matvec(metric.mass_chol, xi)
+    return matvec(metric.mass_chol, xi)
 
 
 def _regularize(var, n_eff, lam, target=None):

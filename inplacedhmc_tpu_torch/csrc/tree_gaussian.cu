@@ -67,21 +67,10 @@ __global__ void philox_draws_kernel(const int64_t* keyg, float* normals,
 
 }  // namespace tree
 
-// tree::launch_physics with the Gaussian: row0 is the precision lam [D];
-// row1, row2, s0, s1 are not read.
-extern "C" int tree_gaussian_launch(
-    const float* q0, const float* p0, const float* eps, const int32_t* dirs,
-    const int32_t* valid, const int64_t* key, const float* unif,
-    const float* row0, const float* row1, const float* row2, float s0,
-    float s1, const float* minv, float* q_out, float* logp_out,
-    float* grad_out, float* energy_out, float* lsa_out, int32_t* term,
-    int32_t* tl, int32_t* tr, int32_t* depth, int32_t* steps, int64_t C,
-    int D, int md, int n_sweep, int refresh, float min_delta, void* stream) {
-  return tree::launch_physics<tree::Gaussian>(
-      q0, p0, eps, dirs, valid, key, unif, row0, row1, row2, s0, s1, minv,
-      q_out, logp_out, grad_out, energy_out, lsa_out, term, tl, tr, depth,
-      steps, C, D, md, n_sweep, refresh, min_delta, stream);
-}
+// The two launchers (diagonal and dense Minv) of tree::launch_physics with
+// the Gaussian: row0 is the precision lam [D]; row1, row2, mat, s0, s1 are
+// not read.  Under a dense Minv the leaf is the generic one.
+TREE_LAUNCHERS(gaussian, tree::Gaussian)
 
 // Writes what the tree kernel's generator draws under `key` (int64 [2]) for
 // C chains, D coordinates, n_unif uniform slots and K transitions: normals

@@ -1,13 +1,16 @@
-// The whole NUTS transition for a diagonal inverse metric Minv and a tile
-// physics P (the model's log density and gradient, written by hand), one
-// chain per warp, K sequential transitions per launch, with the random
+// The whole NUTS transition for a diagonal or dense inverse metric Minv and
+// a tile physics P (the model's log density and gradient, written by hand),
+// one chain per warp, K sequential transitions per launch, with the random
 // numbers drawn inside the kernel.  Included by one source per physics
-// (tree_gaussian.cu, tree_eight_schools.cu, tree_funnel.cu), each of which
-// defines its physics and an extern "C" launcher over launch_physics<P>.
+// (tree_gaussian.cu, tree_eight_schools.cu, tree_funnel.cu,
+// tree_dense_gaussian.cu), each of which defines its physics and its two
+// extern "C" launchers with TREE_LAUNCHERS (diagonal and dense Minv).
 //
 // Replaces the TPU kernel inplacedhmc_tpu/ops/tree_pallas.py::_make_kernel
-// (launched by _build_transition_padded, built by make_tree_transition and
-// make_gaussian_tree_transition) in its diagonal-metric form, with the
+// (launched by _build_transition_padded, built by make_tree_transition,
+// make_gaussian_tree_transition and make_dense_gaussian_tree_transition)
+// in both its metric forms (dense = False and the dense branch,
+// tree_pallas.py:179-221, with the dense refresh of :522-530), with the
 // physics that make_tree_transition differentiates in the kernel (jax.vjp of
 // the model's tile_logp, tree_pallas.py:899-912) written out as a device
 // function, in the forms the sampling paths use: use_prng (proposal uniforms
@@ -36,7 +39,24 @@
 // start of each transition, at each leaf and for the final gradient, where
 // the TPU kernel calls its physics (tree_pallas.py:266, :538, :586, :630).
 // The Gaussian's leaf keeps its log density and kinetic energy in one fused
-// loop (P::kFusedGaussian).
+// loop (P::kFusedGaussian) under a diagonal metric.
+//
+// The dense metric (kDense): Minv is [D, D] and every p# = Minv p is a warp
+// mat-vec (matvec below: v_i broadcast from its lane, row i of the matrix
+// read by the 32 lanes at once, i in order, each product and sum rounded on
+// its own); the refresh draws xi and takes p = xi S with S = mass_chol^T
+// [D, D] in the momentum slot.  A leaf does two products, Minv p_mid for
+// the position update and Minv p_new, which serves both the U-turn p# and
+// the kinetic energy 0.5 p . p#; a physics with a matrix (the dense
+// Gaussian) does a third.  A merge takes the new end's p# from the
+// subtree's last leaf, and a transition's start does one product (two
+// under refresh).  The TPU kernel takes the turn statistic as a
+// cheaper 1-pass bf16 product and the energy and the update as a 3-pass
+// split-bf16 one (tree_pallas.py:182-221); one f32 product for all is at
+// least as exact as each of them and keeps both exactness classes.  The
+// matrices ([D, D] floats, 250 KB at D = 250) are read from device memory
+// through the read-only cache and stay resident in L2; two of them do not
+// fit in shared memory beside the checkpoint stacks.
 //
 // What differs from the TPU kernel, and why:
 //  * The TPU runs a tile of chains in lockstep: the leaf index is global to
@@ -79,13 +99,19 @@
 //
 // Bound on an H100 SXM: each leapfrog leaf does about 25 D flops of tree
 // work (the update, two row sums, the guards, the expected U-turn check and
-// the selects) plus the physics' own, so a transition is about that times
-// sum(steps) flops at 67 TFLOP/s fp32, against the bytes of its inputs and
-// outputs (q in, and per transition q and the eight per-chain records out,
-// grad once) at 3.35 TB/s.  With the draws made here no uniform array
-// crosses device memory.  One warp per chain leaves 32 - D lanes idle where
-// D < 32 (22 of 32 at D = 10); a simple kernel that is right comes first,
-// the tile shape is later work.
+// the selects) plus the physics' own, and 2 D^2 flops per mat-vec under a
+// dense metric, so a transition is about that times sum(steps) flops at 67
+// TFLOP/s fp32, against the bytes of its inputs and outputs (q in, the
+// matrices once, and per transition q and the eight per-chain records out,
+// grad once) at 3.35 TB/s.  The dense products reread their matrices from
+// L2 at every leaf of every chain, one row per step of a warp at its
+// register cap: their time is L2 latency, far from the bound
+// (chip_smoke.py prints the time per product on the longest chain); staging tiles in shared memory, several
+// chains per block sharing a tile, or 3xTF32 tensor cores are later work.
+// With the draws made here no uniform array crosses device memory.  One
+// warp per chain leaves 32 - D lanes idle where D < 32 (22 of 32 at D =
+// 10); a simple kernel that is right comes first, the tile shape is later
+// work.
 //
 // Registers: at D <= 128 the kernel asks for 4 blocks of 4 warps per SM
 // (__launch_bounds__), which caps it at 128 registers a thread; above that
@@ -193,24 +219,56 @@ __device__ __forceinline__ float dot(const float (&a)[NV],
   return warp_sum(s);
 }
 
-// A physics' data: up to three [D] rows and two scalars, in the order of
-// ops/tile_physics.py's Spec (rows, scalars)
+// out_j = sum_i v_i M[i][j] over the chain's row, M a [D, D] row-major
+// matrix (symmetric, or mass_chol^T for the refresh): v_i is broadcast from
+// its lane, lane l adds M[i][l + 32k] v_i for i = 0 .. D-1 in order, so row
+// i is read by the 32 lanes at once.  Lanes past D read nothing and get 0.
+// out may alias v.
+template <int NV>
+__device__ __forceinline__ void matvec(const float* __restrict__ m, int D,
+                                       const float (&v)[NV],
+                                       float (&out)[NV], int lane) {
+  float acc[NV];
+#pragma unroll
+  for (int k = 0; k < NV; ++k) acc[k] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < NV; ++kk) {
+    const int n = min(32, D - 32 * kk);  // the sources in register kk
+#pragma unroll 4
+    for (int src = 0; src < n; ++src) {
+      const float vi = __shfl_sync(FULL, v[kk], src);
+      const float* row = m + (int64_t)(32 * kk + src) * D + lane;
+#pragma unroll
+      for (int k = 0; k < NV; ++k)
+        if (lane + 32 * k < D)
+          acc[k] = add(acc[k], mul(__ldg(row + 32 * k), vi));
+    }
+  }
+  copy(out, acc);
+}
+
+// A physics' data: up to three [D] rows, two scalars and a [D, D] matrix,
+// in the order of ops/tile_physics.py's Spec (rows, scalars, matrix), and
+// the dimension
 struct PhysicsData {
   const float* row[3];
   float scalar[2];
+  const float* mat;
+  int D;
 };
 
 struct Args {
   const float* q0;       // [C, D] start of the sweep (may alias a row block
                          // of q_out: each warp reads its row before writing)
-  const float* p0;       // [K, C, D] momentum, or the [D] sqrt-mass row
+  const float* p0;       // [K, C, D] momentum, or the momentum's scale:
+                         // the [D] sqrt-mass row, [D, D] mass_chol^T dense
   const float* eps;      // [C]
   const int32_t* dirs;   // [K, C] direction words (unused when refreshing)
   const int32_t* valid;  // [C] or null (every row valid)
   const int64_t* key;    // [2] launch key (unused when nothing is drawn)
   const float* unif;     // [K, n_unif, C] or null (drawn here)
   PhysicsData pd;
-  const float* minv;     // [D]
+  const float* minv;     // [D], or [D, D] dense
   float* q_out;          // [K, C, D]
   float* logp_out;       // [K, C]
   float* grad_out;       // [C, D], after the last transition
@@ -226,7 +284,7 @@ struct Args {
   float min_delta;
 };
 
-template <class P>
+template <class P, bool kDense>
 __global__ void __launch_bounds__(32 * MAX_WARPS, P::kNV <= 4 ? 4 : 1)
 tree_kernel(const Args a) {
   constexpr int NV = P::kNV;
@@ -258,7 +316,7 @@ tree_kernel(const Args a) {
   for (int k = 0; k < NV; ++k) {
     const int d = lane + 32 * k;
     in[k] = d < D;
-    minv[k] = in[k] ? a.minv[d] : 0.f;
+    minv[k] = (in[k] && !kDense) ? a.minv[d] : 0.f;
     propq[k] = in[k] ? a.q0[row + d] : 0.f;  // the sweep's carry
   }
   P phys;
@@ -269,18 +327,39 @@ tree_kernel(const Args a) {
     // its momentum
     const float logp0 = phys.value_grad(propq, lg, lane);
     float kin_part = 0.f;
+    if constexpr (kDense) {
+      float pv[NV];  // xi under refresh, then the momentum xi mass_chol^T
 #pragma unroll
-    for (int k = 0; k < NV; ++k) {
-      const int d = lane + 32 * k;
-      float p = 0.f;
-      if (in[k])
-        p = a.refresh ? mul(a.p0[d], draw_normal(key, (uint32_t)c, s, d))
-                      : a.p0[((int64_t)s * C + c) * D + d];
-      lq[k] = rq[k] = subq[k] = cq[k] = propq[k];
-      lp[k] = rp[k] = rho[k] = cp[k] = p;
-      rg[k] = cg[k] = lg[k];
-      psl[k] = psr[k] = mul(minv[k], p);
-      kin_part = add(kin_part, mul(mul(p, minv[k]), p));
+      for (int k = 0; k < NV; ++k) {
+        const int d = lane + 32 * k;
+        pv[k] = !in[k]     ? 0.f
+                : a.refresh ? draw_normal(key, (uint32_t)c, s, d)
+                            : a.p0[((int64_t)s * C + c) * D + d];
+      }
+      if (a.refresh) matvec(a.p0, D, pv, pv, lane);
+      matvec(a.minv, D, pv, psl, lane);
+#pragma unroll
+      for (int k = 0; k < NV; ++k) {
+        lq[k] = rq[k] = subq[k] = cq[k] = propq[k];
+        lp[k] = rp[k] = rho[k] = cp[k] = pv[k];
+        rg[k] = cg[k] = lg[k];
+        psr[k] = psl[k];
+        kin_part = add(kin_part, mul(pv[k], psl[k]));
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < NV; ++k) {
+        const int d = lane + 32 * k;
+        float p = 0.f;
+        if (in[k])
+          p = a.refresh ? mul(a.p0[d], draw_normal(key, (uint32_t)c, s, d))
+                        : a.p0[((int64_t)s * C + c) * D + d];
+        lq[k] = rq[k] = subq[k] = cq[k] = propq[k];
+        lp[k] = rp[k] = rho[k] = cp[k] = p;
+        rg[k] = cg[k] = lg[k];
+        psl[k] = psr[k] = mul(minv[k], p);
+        kin_part = add(kin_part, mul(mul(p, minv[k]), p));
+      }
     }
     const float pi0 = sub(logp0, mul(0.5f, warp_sum(kin_part)));
     const uint32_t dirs = a.refresh ? draw_direction(key, (uint32_t)c, s)
@@ -321,7 +400,7 @@ tree_kernel(const Args a) {
         // leapfrog leaf
         float qn[NV], pn[NV], gn[NV], psn[NV];
         float logp_new, kin_leaf = 0.f;
-        if constexpr (P::kFusedGaussian) {
+        if constexpr (P::kFusedGaussian && !kDense) {
           float lp_part = 0.f;
 #pragma unroll
           for (int k = 0; k < NV; ++k) {
@@ -337,17 +416,37 @@ tree_kernel(const Args a) {
           logp_new = mul(-0.5f, warp_sum(lp_part));
         } else {
           float p_mid[NV];
+          if constexpr (kDense) {
 #pragma unroll
-          for (int k = 0; k < NV; ++k) {
-            p_mid[k] = add(cp[k], mul(half, cg[k]));
-            qn[k] = add(cq[k], mul(eps_signed, mul(minv[k], p_mid[k])));
+            for (int k = 0; k < NV; ++k)
+              p_mid[k] = add(cp[k], mul(half, cg[k]));
+            matvec(a.minv, D, p_mid, qn, lane);  // Minv p_mid
+#pragma unroll
+            for (int k = 0; k < NV; ++k)
+              qn[k] = add(cq[k], mul(eps_signed, qn[k]));
+          } else {
+#pragma unroll
+            for (int k = 0; k < NV; ++k) {
+              p_mid[k] = add(cp[k], mul(half, cg[k]));
+              qn[k] = add(cq[k], mul(eps_signed, mul(minv[k], p_mid[k])));
+            }
           }
           logp_new = phys.value_grad(qn, gn, lane);
+          if constexpr (kDense) {
 #pragma unroll
-          for (int k = 0; k < NV; ++k) {
-            pn[k] = add(p_mid[k], mul(half, gn[k]));
-            psn[k] = mul(minv[k], pn[k]);
-            kin_leaf = add(kin_leaf, mul(mul(pn[k], minv[k]), pn[k]));
+            for (int k = 0; k < NV; ++k)
+              pn[k] = add(p_mid[k], mul(half, gn[k]));
+            matvec(a.minv, D, pn, psn, lane);
+#pragma unroll
+            for (int k = 0; k < NV; ++k)
+              kin_leaf = add(kin_leaf, mul(pn[k], psn[k]));
+          } else {
+#pragma unroll
+            for (int k = 0; k < NV; ++k) {
+              pn[k] = add(p_mid[k], mul(half, gn[k]));
+              psn[k] = mul(minv[k], pn[k]);
+              kin_leaf = add(kin_leaf, mul(mul(pn[k], minv[k]), pn[k]));
+            }
           }
         }
         const float kin_new = mul(0.5f, warp_sum(kin_leaf));
@@ -424,6 +523,16 @@ tree_kernel(const Args a) {
         copy(cq, qn);
         copy(cp, pn);
         copy(cg, gn);
+        if constexpr (kDense) {
+          // the frontier's p#, the new end's at the merge: the ends' p# are
+          // read only there, and a subtree that merges ended on a finite
+          // leaf, whose psn is M^-1 cp as a new product would give it
+#pragma unroll
+          for (int k = 0; k < NV; ++k) {
+            psr[k] = isf ? psn[k] : psr[k];
+            psl[k] = isf ? psl[k] : psn[k];
+          }
+        }
         if (divergent) {
           died_div = true;
           die_l = die_r = i_new;
@@ -450,11 +559,13 @@ tree_kernel(const Args a) {
         const int i_end = i_base + n_leaves * signi;
 #pragma unroll
         for (int k = 0; k < NV; ++k) {
-          const float ps_end = mul(minv[k], cp[k]);
+          const float ps_end = kDense ? 0.f : mul(minv[k], cp[k]);
           if (isf) {
-            rq[k] = cq[k]; rp[k] = cp[k]; rg[k] = cg[k]; psr[k] = ps_end;
+            rq[k] = cq[k]; rp[k] = cp[k]; rg[k] = cg[k];
+            if (!kDense) psr[k] = ps_end;  // dense: set at the last leaf
           } else {
-            lq[k] = cq[k]; lp[k] = cp[k]; lg[k] = cg[k]; psl[k] = ps_end;
+            lq[k] = cq[k]; lp[k] = cp[k]; lg[k] = cg[k];
+            if (!kDense) psl[k] = ps_end;
           }
           rho[k] = add(rho[k], scum[k]);
         }
@@ -499,7 +610,7 @@ tree_kernel(const Args a) {
     if (in[k]) a.grad_out[row + lane + 32 * k] = lg[k];
 }
 
-template <class P>
+template <class P, bool kDense>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   const int per_warp = 2 * a.md * a.D * (int)sizeof(float);
   int warps = MAX_WARPS;
@@ -507,58 +618,80 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   const int bytes = warps * per_warp;
   if (bytes > SMEM_LIMIT) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      tree_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      tree_kernel<P, kDense>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
   if (err != cudaSuccess) return err;
   const int64_t blocks = (a.C + warps - 1) / warps;
   if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
-  tree_kernel<P><<<(unsigned)blocks, 32 * warps, bytes, stream>>>(a);
+  tree_kernel<P, kDense><<<(unsigned)blocks, 32 * warps, bytes, stream>>>(a);
   return cudaGetLastError();
 }
 
-// The body of every physics' extern "C" launcher.  Launches on `stream` and
-// returns the launch's cudaError_t (0 on success).  Pointers are device
-// pointers to contiguous arrays (float32 unless said). q0 [C, D] is the
-// sweep's start; it is only read, and may be the last row block of q_out
-// (the carry of the previous launch).  Momentum: with refresh = 0, p0 is
-// [K, C, D] and dirs [K, C] int32 direction words; with refresh = 1, p0 is
-// the [D] sqrt-mass row, the momentum p0 * xi and the direction word are
-// drawn here and dirs is not read.  valid [C] int32, or null for all rows;
-// key [2] int64 (the two 32-bit words of the launch); unif [K, n_unif, C]
-// explicit uniforms (a test hook), or null to draw them here.  row0..row2
-// [D] the physics' data rows (null where it has fewer), s0, s1 its scalars;
-// minv [D].  Outputs: q [K, C, D] (q[K - 1] the final carry); logp, energy,
-// log_sum_alpha [K, C]; term, term_left, term_right, depth, steps [K, C]
-// int32; grad [C, D] of the final carry.  D must be in [P's least D, 256],
-// md in [1, 30], K >= 1.
-template <template <int> class P>
-int launch_physics(
-    const float* q0, const float* p0, const float* eps, const int32_t* dirs,
-    const int32_t* valid, const int64_t* key, const float* unif,
-    const float* row0, const float* row1, const float* row2, float s0,
-    float s1, const float* minv, float* q_out, float* logp_out,
-    float* grad_out, float* energy_out, float* lsa_out, int32_t* term,
-    int32_t* tl, int32_t* tr, int32_t* depth, int32_t* steps, int64_t C,
-    int D, int md, int n_sweep, int refresh, float min_delta, void* stream) {
+// The body of every physics' extern "C" launchers (TREE_LAUNCHERS), with a
+// diagonal (kDense = false) or dense (kDense = true) Minv.  Launches on
+// `stream` and returns the launch's cudaError_t (0 on success).  Pointers
+// are device pointers to contiguous arrays (float32 unless said).  q0 [C, D]
+// is the sweep's start; it is only read, and may be the last row block of
+// q_out (the carry of the previous launch).  Momentum: with refresh = 0, p0
+// is [K, C, D] and dirs [K, C] int32 direction words; with refresh = 1, p0
+// is the momentum's scale, the [D] sqrt-mass row (p = p0 * xi) or, dense,
+// the [D, D] mass_chol^T (p = xi p0), the momentum and the direction word
+// are drawn here and dirs is not read.  valid [C] int32, or null for all
+// rows; key [2] int64 (the two 32-bit words of the launch); unif [K,
+// n_unif, C] explicit uniforms (a test hook), or null to draw them here.
+// row0..row2 [D] the physics' data rows (null where it has fewer), mat its
+// [D, D] matrix (null where it has none), s0, s1 its scalars; minv [D], or
+// [D, D] dense.  Outputs: q [K, C, D] (q[K - 1] the final carry); logp,
+// energy, log_sum_alpha [K, C]; term, term_left, term_right, depth, steps
+// [K, C] int32; grad [C, D] of the final carry.  D must be in [P's least
+// D, 256], md in [1, 30], K >= 1.
+#define TREE_LAUNCH_PARAMS                                                  \
+  const float *q0, const float *p0, const float *eps, const int32_t *dirs, \
+      const int32_t *valid, const int64_t *key, const float *unif,          \
+      const float *row0, const float *row1, const float *row2,              \
+      const float *mat, float s0, float s1, const float *minv,              \
+      float *q_out, float *logp_out, float *grad_out, float *energy_out,    \
+      float *lsa_out, int32_t *term, int32_t *tl, int32_t *tr,              \
+      int32_t *depth, int32_t *steps, int64_t C, int D, int md,             \
+      int n_sweep, int refresh, float min_delta, void *stream
+#define TREE_LAUNCH_ARGS                                                    \
+  q0, p0, eps, dirs, valid, key, unif, row0, row1, row2, mat, s0, s1, minv, \
+      q_out, logp_out, grad_out, energy_out, lsa_out, term, tl, tr, depth,  \
+      steps, C, D, md, n_sweep, refresh, min_delta, stream
+
+template <template <int> class P, bool kDense>
+int launch_physics(TREE_LAUNCH_PARAMS) {
   cudaError_t prior = cudaGetLastError();
   if (prior != cudaSuccess) return (int)prior;
   if (C == 0) return 0;
   if (C < 0 || D < P<1>::kMinDim || md < 1 || md > 30 || n_sweep < 1 ||
-      C > 0xffffffffLL)
+      C > 0xffffffffLL || !p0)
     return (int)cudaErrorInvalidValue;
   if ((refresh || !unif) && !key) return (int)cudaErrorInvalidValue;
   if (!refresh && !dirs) return (int)cudaErrorInvalidValue;
   const Args a{q0,      p0,       eps,        dirs,    valid,
-               key,     unif,     {{row0, row1, row2}, {s0, s1}},
+               key,     unif,     {{row0, row1, row2}, {s0, s1}, mat, D},
                minv,    q_out,    logp_out,   grad_out, energy_out,
                lsa_out, term,     tl,         tr,      depth,
                steps,   C,        D,          md,      n_sweep,
                refresh, min_delta};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D <= 32) return (int)launch<P<1>>(a, s);
-  if (D <= 64) return (int)launch<P<2>>(a, s);
-  if (D <= 128) return (int)launch<P<4>>(a, s);
-  if (D <= 256) return (int)launch<P<8>>(a, s);
+  if (D <= 32) return (int)launch<P<1>, kDense>(a, s);
+  if (D <= 64) return (int)launch<P<2>, kDense>(a, s);
+  if (D <= 128) return (int)launch<P<4>, kDense>(a, s);
+  if (D <= 256) return (int)launch<P<8>, kDense>(a, s);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace tree
+
+// A physics source's two extern "C" launchers: tree_<name>_launch with a
+// diagonal Minv [D] and tree_<name>_dense_launch with a dense Minv [D, D],
+// each tree::launch_physics<PHYS> with TREE_LAUNCH_PARAMS.
+#define TREE_LAUNCHERS(name, PHYS)                                  \
+  extern "C" int tree_##name##_launch(TREE_LAUNCH_PARAMS) {         \
+    return tree::launch_physics<PHYS, false>(TREE_LAUNCH_ARGS);     \
+  }                                                                 \
+  extern "C" int tree_##name##_dense_launch(TREE_LAUNCH_PARAMS) {   \
+    return tree::launch_physics<PHYS, true>(TREE_LAUNCH_ARGS);      \
+  }

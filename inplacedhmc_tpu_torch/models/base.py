@@ -23,6 +23,8 @@ class Model:
 
     * ``"logistic"``: ``x``, ``y``, ``inv_var`` (the fused potential);
     * ``"diag_gaussian"``: ``precision [D]`` (the Gaussian kernels);
+    * ``"dense_gaussian"``: ``precision [D, D]``, symmetric (the
+      whole-tree kernel's ``dense_gaussian`` physics);
     * ``"tile_logp"``: ``physics``, the name of a hand-written value and
       gradient in ``ops/tile_physics.py`` (``"eight_schools"``,
       ``"funnel"``; each has a device function for the whole-tree kernel);

@@ -7,15 +7,17 @@ inside its kernel with ``jax.vjp`` (``tree_pallas.py:899-912``).  CUDA C++
 has no autodiff, so each physics here is written out by hand, value and
 gradient together, in the order of the device function of the same name
 (``csrc/tree_gaussian.cu``, ``csrc/tree_eight_schools.cu``,
-``csrc/tree_funnel.cu``): the same elementwise operations, each rounded on
-its own; only the row sums are taken in another order there (a per-lane sum
-and a warp butterfly).  These are the plain versions that the whole-tree
+``csrc/tree_funnel.cu``, ``csrc/tree_dense_gaussian.cu``): the same
+elementwise operations, each rounded on its own; only the row sums and the
+matrix products are taken in another order there (a per-lane sum and a warp
+butterfly; a warp mat-vec).  These are the plain versions that the whole-tree
 transition's CPU path (``ops/tree.py``) calls at the start of a transition,
 at every leaf and for the final gradient.
 
 A physics takes ``q [C, D]`` and ``data``, a dict of its rows (``[D]``
-tensors in ``q``'s dtype and on its device, zero past the model's lanes) and
-scalars (Python floats), and returns ``(logp [C], grad [C, D])``.  The port's
+tensors in ``q``'s dtype and on its device, zero past the model's lanes),
+its matrix if it has one (``[D, D]``, likewise) and its scalars (Python
+floats), and returns ``(logp [C], grad [C, D])``.  The port's
 kernels take no padded lanes, so JAX's masking of ``q`` before the physics
 and of the gradient after it has nothing to mask here; on the card, lanes
 past D read zero rows and get a zero gradient.
@@ -41,7 +43,7 @@ past D read zero rows and get a zero gradient.
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, NamedTuple, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -92,13 +94,20 @@ def funnel(q: torch.Tensor, data: dict):
     return logp, grad
 
 
+def dense_gaussian(q: torch.Tensor, data: dict):
+    g = -(q @ data["prec"])
+    return 0.5 * _rowsum(g * q), g
+
+
 class Spec(NamedTuple):
     """A physics: its plain value and gradient, and the names of its data
-    rows and scalars in the order its kernel's launcher takes them."""
+    rows, scalars and ``[D, D]`` matrix (or ``None``) in the order its
+    kernel's launcher takes them."""
 
     value_and_grad: Callable
     rows: Tuple[str, ...]
     scalars: Tuple[str, ...] = ()
+    matrix: Optional[str] = None
 
 
 #: every physics with a device function, by name
@@ -106,12 +115,14 @@ PHYSICS: Dict[str, Spec] = {
     "gaussian": Spec(gaussian, ("lam",)),
     "eight_schools": Spec(eight_schools, ("y", "sig", "obs_mask")),
     "funnel": Spec(funnel, ("x_mask",), ("k", "inv_s2")),
+    "dense_gaussian": Spec(dense_gaussian, (), matrix="prec"),
 }
 
 
 class Bound(NamedTuple):
     """A physics bound to its data: ``bound(q) -> (logp, grad)``.  The rows
-    must already be in ``q``'s dtype and on its device (:func:`bind`)."""
+    and the matrix must already be in ``q``'s dtype and on its device
+    (:func:`bind`)."""
 
     name: str
     data: dict
@@ -125,19 +136,25 @@ class Bound(NamedTuple):
     def scalars(self):
         return [float(self.data[n]) for n in PHYSICS[self.name].scalars]
 
+    def matrix(self):
+        name = PHYSICS[self.name].matrix
+        return None if name is None else self.data[name]
+
 
 def bind(name: str, data: dict, device=None, dtype=None) -> Bound:
-    """``name``'s physics on ``data`` (its rows and scalars), the rows cast
-    to ``dtype`` on ``device`` and made contiguous (``None``: as given).
-    Raises on an unknown physics or a missing entry."""
+    """``name``'s physics on ``data`` (its rows, scalars and matrix), the
+    rows and the matrix cast to ``dtype`` on ``device`` and made contiguous
+    (``None``: as given).  Raises on an unknown physics or a missing
+    entry."""
     if name not in PHYSICS:
         raise ValueError(f"no tile physics {name!r} (have {sorted(PHYSICS)})")
     spec = PHYSICS[name]
-    missing = set(spec.rows + spec.scalars) - set(data)
+    tensors = spec.rows + ((spec.matrix,) if spec.matrix else ())
+    missing = set(tensors + spec.scalars) - set(data)
     if missing:
         raise ValueError(f"physics {name!r} needs {sorted(missing)}")
     cast = {n: torch.as_tensor(data[n], device=device,
                                dtype=dtype).contiguous()
-            for n in spec.rows}
+            for n in tensors}
     cast.update({n: float(data[n]) for n in spec.scalars})
     return Bound(name, cast)

@@ -1,14 +1,17 @@
-"""The whole NUTS transition in one kernel, for a diagonal metric and a tile
-physics.
+"""The whole NUTS transition in one kernel, for a diagonal or dense metric
+and a tile physics.
 
 The port's counterpart of ``inplacedhmc_tpu/ops/tree_pallas.py``
-(``_make_kernel`` with ``dense=False``, ``_build_transition_padded``,
-``make_tree_transition``, ``make_gaussian_tree_transition``).  The physics
-is the model's log density and gradient, written by hand
+(``_make_kernel``, ``_build_transition_padded``, ``make_tree_transition``,
+``make_gaussian_tree_transition``, ``make_dense_gaussian_tree_transition``).
+The physics is the model's log density and gradient, written by hand
 (``ops/tile_physics.py``: the Gaussian of ``diag_gaussian`` models, eight
-schools, the funnel) where JAX differentiates the model's ``tile_logp`` in
-its kernel.  With a diagonal ``M^-1`` the transition is the lockstep tree's
-(``nuts/tree.py``), field for field: the momentum-refresh
+schools, the funnel, the dense Gaussian of ``mvn``) where JAX differentiates
+the model's ``tile_logp`` in its kernel.  ``M^-1`` is a ``[D]`` diagonal or
+a ``[D, D]`` dense matrix; with a dense one every ``p# = M^-1 p`` is a
+product and the momentum refresh is ``xi @ mass_chol^T``
+(``core/metric.py::sample_momentum``).  The transition is the lockstep
+tree's (``nuts/tree.py``), field for field: the momentum-refresh
 energy, the doubling loop, the leapfrog leaves, the generalized U-turn checks
 on the checkpoint stack, the progressive and biased proposals, divergence at
 ``delta < min_delta``, the acceptance sum ``sum exp(min(delta, 0))`` and the
@@ -28,15 +31,15 @@ interpret mode stay as test hooks: momentum ``[K, C, D]``, direction words
 ``[K, C]``, uniforms ``[K, 2^md - 1 + md, C]``.
 
 On a CUDA tensor :func:`tree_sweep` launches the hand-written kernel of its
-physics (``csrc/tree_<physics>.cu`` over ``csrc/tree_kernel.cuh``, one warp
-per chain); on a CPU tensor it runs :func:`tree_sweep_plain`, the lockstep
-form over all chains in plain torch, drawing the same Philox numbers.  There
-is no other path: a CUDA tensor launches the kernel or raises.  The
-``gaussian_*`` functions are these with the Gaussian physics of precision
-``lam``.
+physics and metric form (``csrc/tree_<physics>.cu`` over
+``csrc/tree_kernel.cuh``, one warp per chain; one launcher per metric form);
+on a CPU tensor it runs :func:`tree_sweep_plain`, the lockstep form over all
+chains in plain torch, drawing the same Philox numbers.  There is no other
+path: a CUDA tensor launches the kernel or raises.  The ``gaussian_*``
+functions are these with the Gaussian physics of precision ``lam``.
 
-Not ported yet: the dense-metric branch, logistic and stochastic-volatility
-physics, bf16 checkpoint stacks and D above 256.
+Not ported yet: logistic and stochastic-volatility physics, bf16 checkpoint
+stacks and D above 256.
 """
 
 from __future__ import annotations
@@ -46,7 +49,8 @@ from typing import NamedTuple
 
 import torch
 
-from ..core.metric import DiagMetric, diag_metric, sample_momentum
+from ..core.metric import (DenseMetric, DiagMetric, dense_metric, diag_metric,
+                           matvec, sample_momentum)
 from ..core.state import EvalPoint, Termination, TreeStats
 from ..utils import philox
 from ..utils.bits import checkpoint_slot, direction_bit, trailing_ones
@@ -55,14 +59,19 @@ from .common import check_tensor
 from .cuda_build import CudaKernel
 
 _P = ctypes.c_void_p
-#: the whole-tree kernel of each physics, ``csrc/tree_<physics>.cu``; its
-#: ``launches`` counts its launches
+_TREE_ARGS = ([_P] * 11 + [ctypes.c_float] * 2 + [_P] * 11
+              + [ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                 ctypes.c_int, ctypes.c_float, _P])
+#: the whole-tree kernel of each physics with a diagonal metric,
+#: ``csrc/tree_<physics>.cu``; its ``launches`` counts its launches
 TREE_KERNELS = {
-    name: CudaKernel(
-        f"tree_{name}.cu", f"tree_{name}_launch",
-        [_P] * 10 + [ctypes.c_float] * 2 + [_P] * 11
-        + [ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-           ctypes.c_int, ctypes.c_float, _P])
+    name: CudaKernel(f"tree_{name}.cu", f"tree_{name}_launch", _TREE_ARGS)
+    for name in tile_physics.PHYSICS}
+#: the same with a dense ``[D, D]`` metric: the second launcher of each
+#: source
+TREE_DENSE_KERNELS = {
+    name: CudaKernel(f"tree_{name}.cu", f"tree_{name}_dense_launch",
+                     _TREE_ARGS)
     for name in tile_physics.PHYSICS}
 TREE_GAUSSIAN = TREE_KERNELS["gaussian"]
 #: the Gaussian source's second launcher: it writes what the kernel's generator
@@ -130,6 +139,21 @@ def _gaussian(lam) -> tile_physics.Bound:
     return tile_physics.Bound("gaussian", {"lam": lam})
 
 
+def psharp(minv: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """``p# = M^-1 p`` for the kernel's raw ``minv``, a diagonal ``[D]`` or a
+    dense ``[D, D]``: ``core/metric.py::psharp`` without the ``Metric``."""
+    return minv * p if minv.ndim == 1 else matvec(minv, p)
+
+
+def refresh_momentum(scale: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
+    """The momentum from standard normals ``xi`` and the kernel's momentum
+    scale: ``scale * xi`` for the ``[D]`` sqrt-mass row, ``mass_chol xi``
+    for the dense metric's ``scale = mass_chol^T`` (``[D, D]``, the rows
+    the kernel reads): ``core/metric.py::sample_momentum`` without the
+    ``Metric``."""
+    return scale * xi if scale.ndim == 1 else matvec(scale.T, xi)
+
+
 def tree_transition_plain(q0, p0, eps, dirs, unif, phys, minv,
                           max_depth: int, min_delta: float,
                           valid=None) -> TreeOut:
@@ -141,9 +165,10 @@ def tree_transition_plain(q0, p0, eps, dirs, unif, phys, minv,
     slots returning their rows ``[len(slots), C]`` (the generator's draws,
     made only for the depths a tree reaches); ``phys`` the physics,
     ``phys(q) -> (logp, grad)`` (a :class:`~.tile_physics.Bound`), called
-    at the start, at every leaf and on the proposal; ``minv [D]``; ``valid
-    [C]`` (default all): rows with 0 start inactive and keep the records of
-    an empty tree."""
+    at the start, at every leaf and on the proposal; ``minv`` the diagonal
+    ``[D]`` or the dense ``[D, D]`` ``M^-1`` (:func:`psharp`; the kinetic
+    energy is ``0.5 sum(p * p#)``); ``valid [C]`` (default all): rows with 0
+    start inactive and keep the records of an empty tree."""
     _check_max_depth(max_depth)
     rows = unif if callable(unif) else (lambda slots: unif[slots])
     c, dim = q0.shape
@@ -160,9 +185,9 @@ def tree_transition_plain(q0, p0, eps, dirs, unif, phys, minv,
         return torch.where(m[:, None] if a.ndim == 2 else m, a, b)
 
     logp0, g0 = phys(q0)
-    pi0 = logp0 - 0.5 * rowsum(p0 * minv * p0)
+    ps_l = ps_r = psharp(minv, p0)
+    pi0 = logp0 - 0.5 * rowsum(p0 * ps_l)
     left = right = (q0, p0, g0)
-    ps_l = ps_r = minv * p0
     rho = p0
     prop_q, prop_delta, prop_logp = q0, torch.zeros((c,), **col), logp0
     sub_q, sub_delta, sub_logp = q0, torch.zeros((c,), **col), logp0
@@ -194,6 +219,7 @@ def tree_transition_plain(q0, p0, eps, dirs, unif, phys, minv,
         half = (0.5 * eps_signed)[:, None]
         i_base = torch.where(isf, i_right, i_left)
         cur_q, cur_p, cur_g = (where(isf, r, l) for r, l in zip(right, left))
+        cur_ps = where(isf, ps_r, ps_l)
         s_cum = torch.zeros((c, dim), **col)
         omega_sub = torch.full((c,), -torch.inf, **col)
         alive = active
@@ -205,11 +231,11 @@ def tree_transition_plain(q0, p0, eps, dirs, unif, phys, minv,
                 break
             mask = alive
             p_mid = cur_p + half * cur_g
-            q_new = cur_q + eps_signed[:, None] * (minv * p_mid)
+            q_new = cur_q + eps_signed[:, None] * psharp(minv, p_mid)
             logp_new, g_new = phys(q_new)
             p_new = p_mid + half * g_new
-            ps_new = minv * p_new
-            kin_new = 0.5 * rowsum(p_new * minv * p_new)
+            ps_new = psharp(minv, p_new)
+            kin_new = 0.5 * rowsum(p_new * ps_new)
             joint = logp_new - torch.where(torch.isfinite(kin_new), kin_new,
                                            torch.inf)
             joint = torch.where(torch.isfinite(joint), joint, -torch.inf)
@@ -254,9 +280,10 @@ def tree_transition_plain(q0, p0, eps, dirs, unif, phys, minv,
             sub_logp = torch.where(take, logp_new, sub_logp)
             omega_sub = torch.where(upd, omega_new, omega_sub)
 
-            cur_q, cur_p, cur_g = (where(mask, a, b) for a, b in
-                                   ((q_new, cur_q), (p_new, cur_p),
-                                    (g_new, cur_g)))
+            cur_q, cur_p, cur_g, cur_ps = (
+                where(mask, a, b) for a, b in
+                ((q_new, cur_q), (p_new, cur_p), (g_new, cur_g),
+                 (ps_new, cur_ps)))
             dd = mask & divergent
             dtn = mask & turning
             die_l = torch.where(dd, i_new, torch.where(
@@ -275,14 +302,15 @@ def tree_transition_plain(q0, p0, eps, dirs, unif, phys, minv,
         prop_delta = torch.where(take2, sub_delta, prop_delta)
         prop_logp = torch.where(take2, sub_logp, prop_logp)
         omega = torch.where(ok, torch.logaddexp(omega, omega_sub), omega)
-        ps_end = minv * cur_p
         grow_r = ok & isf
         grow_l = ok & ~isf
         cur = (cur_q, cur_p, cur_g)
         right = tuple(where(grow_r, a, b) for a, b in zip(cur, right))
         left = tuple(where(grow_l, a, b) for a, b in zip(cur, left))
-        ps_r = where(grow_r, ps_end, ps_r)
-        ps_l = where(grow_l, ps_end, ps_l)
+        # the new end's p#: a subtree that merges ended on a finite leaf,
+        # whose ps_new is M^-1 cur_p
+        ps_r = where(grow_r, cur_ps, ps_r)
+        ps_l = where(grow_l, cur_ps, ps_l)
         i_end = i_base + (1 << d) * signi
         i_right = torch.where(grow_r, i_end, i_right)
         i_left = torch.where(grow_l, i_end, i_left)
@@ -312,16 +340,17 @@ def gaussian_tree_transition_plain(q0, p0, eps, dirs, unif, lam, minv,
                                  minv, *args, **kw)
 
 
-def _draws_at(s: int, rows, dim: int, dt, momentum, dirs, unif, key,
+def _draws_at(s: int, rows, dim: int, dt, p_stack, dirs, unif, key,
               sqrt_mass):
     """Transition ``s``'s momentum, direction words and uniforms: from the
-    explicit stacks where given, else from the generator (the momentum as
-    ``sqrt_mass * xi``)."""
-    if momentum is None:
-        p0 = sqrt_mass * philox.normals(key, rows, s, dim, dt)
+    explicit stacks where given, else from the generator (the momentum from
+    ``sqrt_mass`` and the normals, :func:`refresh_momentum`)."""
+    if p_stack is None:
+        p0 = refresh_momentum(sqrt_mass,
+                              philox.normals(key, rows, s, dim, dt))
         d_s = philox.direction_words(key, rows, s)
     else:
-        p0, d_s = momentum[s], dirs[s]
+        p0, d_s = p_stack[s], dirs[s]
     if unif is not None:
         return p0, d_s, unif[s]
     return p0, d_s, (lambda slots: philox.uniforms(key, rows, s, slots, dt))
@@ -333,7 +362,9 @@ def tree_sweep_plain(q0, eps, phys, minv, max_depth: int, min_delta: float,
     """Plain torch version of one launch: ``n_sweep`` transitions from
     ``q0 [C, D]``, each starting from the last one's proposal.  Either
     ``momentum [K, C, D]`` and ``dirs [K, C]`` are given, or they are drawn
-    from ``key`` (``refresh_inside``: the momentum is ``sqrt_mass * xi``);
+    from ``key`` (``refresh_inside``: the momentum is ``sqrt_mass * xi``, or
+    ``xi @ sqrt_mass`` where ``sqrt_mass`` is a dense metric's ``[D, D]``
+    ``mass_chol^T``);
     ``unif [K, 2^md - 1 + md, C]`` is given or drawn from ``key``.  Returns
     the fields of every transition with a leading ``K`` axis, and the final
     proposal's gradient."""
@@ -392,10 +423,10 @@ def _check_draws(momentum, dirs, sqrt_mass, unif, key) -> bool:
 def _launch(q0, eps, phys, minv, max_depth: int, min_delta: float, k: int,
             lead: tuple, momentum, dirs, unif, key, sqrt_mass, valid, out,
             refresh: bool) -> TreeOut:
-    """Check what the physics' kernel (``csrc/tree_<physics>.cu``) reads
-    through raw pointers and launch it on the current stream.  ``lead`` is
-    ``(k,)`` for arrays with a sweep axis, ``()`` for one transition without
-    one."""
+    """Check what the physics' kernel (``csrc/tree_<physics>.cu``, its
+    diagonal or dense launcher by ``minv``'s shape) reads through raw
+    pointers and launch it on the current stream.  ``lead`` is ``(k,)`` for
+    arrays with a sweep axis, ``()`` for one transition without one."""
     if q0.device.type != "cuda":
         raise ValueError(f"tree kernel: unsupported device {q0.device}")
     if q0.ndim != 2:
@@ -404,14 +435,18 @@ def _launch(q0, eps, phys, minv, max_depth: int, min_delta: float, k: int,
     if not 1 <= d <= MAX_DIM:
         raise ValueError(f"tree kernel: D={d} outside [1, {MAX_DIM}]")
     dev = q0.device
-    rows = phys.rows()
+    rows, mat = phys.rows(), phys.matrix()
+    dense = minv.ndim == 2
+    metric_shape = (d, d) if dense else (d,)
     checks = [("q0", q0, (c, d), torch.float32),
               ("eps", eps, (c,), torch.float32),
-              ("minv", minv, (d,), torch.float32)]
+              ("minv", minv, metric_shape, torch.float32)]
     checks += [(n, t, (d,), torch.float32) for n, t in
                zip(tile_physics.PHYSICS[phys.name].rows, rows)]
+    if mat is not None:
+        checks.append(("matrix", mat, (d, d), torch.float32))
     if refresh:
-        checks.append(("sqrt_mass", sqrt_mass, (d,), torch.float32))
+        checks.append(("sqrt_mass", sqrt_mass, metric_shape, torch.float32))
     else:
         checks += [("momentum", momentum, lead + (c, d), torch.float32),
                    ("dirs", dirs, lead + (c,), torch.int32)]
@@ -438,12 +473,13 @@ def _launch(q0, eps, phys, minv, max_depth: int, min_delta: float, k: int,
 
     row_ptrs = [t.data_ptr() for t in rows] + [None] * (3 - len(rows))
     scalars = phys.scalars() + [0.0] * (2 - len(phys.scalars()))
+    kernel = (TREE_DENSE_KERNELS if dense else TREE_KERNELS)[phys.name]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        TREE_KERNELS[phys.name].launch(
+        kernel.launch(
             q0.data_ptr(), ptr(sqrt_mass if refresh else momentum),
             eps.data_ptr(), ptr(dirs), ptr(valid), ptr(key), ptr(unif),
-            *row_ptrs, *scalars, minv.data_ptr(),
+            *row_ptrs, ptr(mat), *scalars, minv.data_ptr(),
             *(t.data_ptr() for t in out),
             c, d, max_depth, k, int(refresh), float(min_delta), stream)
     return out
@@ -459,9 +495,11 @@ def tree_sweep(q0: torch.Tensor, eps: torch.Tensor, phys,
     ``phys`` (a :class:`~.tile_physics.Bound`).  CPU tensors take the plain
     version (:func:`tree_sweep_plain`); CUDA tensors launch the physics'
     kernel on the current stream or raise.  On the card everything is
-    float32 and contiguous: ``eps [C]``, the physics' rows and ``minv [D]``;
-    ``momentum [K, C, D]`` and ``dirs [K, C]`` int32, or neither
-    and ``sqrt_mass [D]`` (``refresh_inside``); ``unif [K, 2^md - 1 + md,
+    float32 and contiguous: ``eps [C]``, the physics' rows ``[D]`` and
+    matrix ``[D, D]``, ``minv`` ``[D]`` (diagonal) or ``[D, D]`` (dense);
+    ``momentum [K, C, D]`` and ``dirs [K, C]`` int32, or neither and
+    ``sqrt_mass`` (``refresh_inside``: the ``[D]`` sqrt-mass row, or the
+    dense metric's ``[D, D]`` ``mass_chol^T``); ``unif [K, 2^md - 1 + md,
     C]`` or none; ``key [2]`` int64 where anything is drawn; ``valid [C]``
     int32 or none (every row valid).  ``out``: a :class:`TreeOut` of
     buffers to write into (a sampling loop's, allocated once); the returned
@@ -493,12 +531,13 @@ def tree_transition(q0: torch.Tensor, p0, eps: torch.Tensor, dirs, unif,
                     sqrt_mass=None) -> TreeOut:
     """One transition for every chain, with no sweep axis: with the given
     momentum ``p0 [C, D]`` and direction words ``dirs [C]`` (int32 on the
-    card), or with ``p0 = dirs = None`` and ``sqrt_mass [D]`` both drawn
-    from ``key`` (``refresh_inside``); with the uniforms ``unif [2^md - 1 +
-    md, C]`` or, with ``unif=None``, those the generator draws from
-    ``key``; under the physics ``phys``.  CPU tensors take the plain
-    version; CUDA tensors launch the physics' kernel (float32 and
-    contiguous, ``D <= 256``) or raise."""
+    card), or with ``p0 = dirs = None`` and the momentum's scale
+    ``sqrt_mass`` (``[D]``, or ``[D, D]`` with a dense ``minv``: see
+    :func:`tree_sweep`) both drawn from ``key`` (``refresh_inside``); with
+    the uniforms ``unif [2^md - 1 + md, C]`` or, with ``unif=None``, those
+    the generator draws from ``key``; under the physics ``phys``.  CPU
+    tensors take the plain version; CUDA tensors launch the physics' kernel
+    (float32 and contiguous, ``D <= 256``) or raise."""
     refresh = _check_draws(p0, dirs, sqrt_mass, unif, key)
     _check_max_depth(max_depth)
     if q0.device.type == "cpu":
@@ -580,9 +619,11 @@ def make_tree_transition(physics: str, data: dict, dim: int, metric_inv, *,
                          block_c: int = 512, refresh_inside: bool = False,
                          padded_io: bool = False, n_sweep: int = 1):
     """The whole-tree transition for the tile physics named ``physics``
-    (``ops/tile_physics.py``) on ``data`` (its rows ``[dim]`` and scalars)
-    with the diagonal ``metric_inv`` (a ``[dim]`` tensor or a
-    :class:`DiagMetric`), as the JAX package's ``make_tree_transition``
+    (``ops/tile_physics.py``) on ``data`` (its rows ``[dim]``, matrix
+    ``[dim, dim]`` and scalars) with the metric ``metric_inv``: a diagonal
+    ``[dim]`` tensor or :class:`DiagMetric`, or a dense ``[dim, dim]``
+    tensor or :class:`DenseMetric` (its ``M^-1``; the momentum is drawn
+    through ``mass_chol``), as the JAX package's ``make_tree_transition``
     builds it for a model's ``tile_logp``.
 
     Returns ``transition(gen, z, eps, *, directions=None, momentum=None,
@@ -619,11 +660,17 @@ def make_tree_transition(physics: str, data: dict, dim: int, metric_inv, *,
         raise ValueError("padded_io requires refresh_inside")
     if block_c % 8 != 0:
         raise ValueError(f"block_c must be a multiple of 8, got {block_c}")
-    metric = metric_inv if isinstance(metric_inv, DiagMetric) \
-        else diag_metric(torch.as_tensor(metric_inv))
-    if metric.inv.shape != (dim,):
+    if isinstance(metric_inv, (DiagMetric, DenseMetric)):
+        metric = metric_inv
+    else:
+        inv = torch.as_tensor(metric_inv)
+        metric = dense_metric(inv) if inv.ndim == 2 else diag_metric(inv)
+    dense = isinstance(metric, DenseMetric)
+    if metric.inv.shape != ((dim, dim) if dense else (dim,)):
         raise ValueError(f"metric of shape {tuple(metric.inv.shape)} for a "
                          f"{dim}-dimensional model")
+    # the momentum's scale: the sqrt-mass row, or mass_chol^T (p = xi @ it)
+    scale = metric.mass_chol.transpose(-1, -2) if dense else metric.sqrt_mass
     consts_cache = {}
 
     def consts(dev, dt):
@@ -633,7 +680,7 @@ def make_tree_transition(physics: str, data: dict, dim: int, metric_inv, *,
             consts_cache[(dev, dt)] = (tile_physics.bind(physics, data, dev,
                                                          dt),) + tuple(
                 torch.as_tensor(t, device=dev).to(dt).contiguous()
-                for t in (metric.inv, metric.sqrt_mass))
+                for t in (metric.inv, scale))
         return consts_cache[(dev, dt)]
 
     def transition(gen: torch.Generator, z: EvalPoint, eps, *,
@@ -719,4 +766,17 @@ def make_gaussian_tree_transition(precision, metric_inv, **kw):
     ``make_gaussian_tree_transition`` builds it."""
     precision = torch.as_tensor(precision)
     return make_tree_transition("gaussian", {"lam": precision},
+                                precision.shape[0], metric_inv, **kw)
+
+
+def make_dense_gaussian_tree_transition(precision, metric_inv, **kw):
+    """:func:`make_tree_transition` for ``grad = -(q P)`` targets with a
+    symmetric ``[D, D]`` precision ``P`` (the ``dense_gaussian`` physics of
+    ``mvn`` models), as the JAX package's
+    ``make_dense_gaussian_tree_transition`` builds it, under a diagonal or
+    a dense metric.  JAX pads ``P`` with an identity block on its dead
+    lanes; the port pads no lanes (the kernel masks lanes past D), so there
+    is nothing to pad."""
+    precision = torch.as_tensor(precision)
+    return make_tree_transition("dense_gaussian", {"prec": precision},
                                 precision.shape[0], metric_inv, **kw)

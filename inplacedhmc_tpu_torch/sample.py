@@ -7,10 +7,11 @@ The port's counterpart of ``inplacedhmc_tpu/sample.py``:
   logistic potential for ``structure["kind"] == "logistic"``; for
   ``"diag_gaussian"`` the whole-tree kernel where it takes the problem and
   the lockstep tree with the fused Gaussian leapfrog elsewhere; for
-  ``"tile_logp"`` models whose physics has a device function (eight
-  schools, the funnel) the whole-tree kernel where it takes the problem and
-  autograd on the lockstep tree elsewhere; autograd of ``model.logp``
-  otherwise.
+  ``"dense_gaussian"`` (``mvn``) and ``"tile_logp"`` models whose physics
+  has a device function (eight schools, the funnel) the whole-tree kernel
+  where it takes the problem and autograd on the lockstep tree elsewhere;
+  autograd of ``model.logp`` otherwise.  The whole-tree kernel takes one
+  shared float32 metric, diagonal or dense.
 * :func:`mcmc_with_warmup` runs the windowed warmup, then sampling.
 * :func:`sample` is the pooled-adaptation entry point.
 
@@ -31,9 +32,10 @@ checkpoints, sketches and streamed moments, chunked tuning and blocked
 sampling, ``post_step`` hooks, work-sorted scheduling, the options
 ``use_kernels`` and ``fused_opts``, the ``ckpt_bf16`` tree option, and
 ``tree_opts`` on models whose whole-tree kernel is not ported (logistic,
-dense Gaussian, tile physics without a device function).  The whole-tree
-kernel is ported for ``diag_gaussian`` models and the ``"eight_schools"``
-and ``"funnel"`` tile physics.
+tile physics without a device function).  The whole-tree kernel is ported,
+with a diagonal and a dense metric, for ``diag_gaussian`` and
+``dense_gaussian`` models and the ``"eight_schools"`` and ``"funnel"`` tile
+physics.
 """
 
 from __future__ import annotations
@@ -49,7 +51,7 @@ from .config import (DualAveraging, FindLocalOptimum, InitialStepsizeSearch,
                      NUTS, StepsizeCollapseError, TuningNUTS,
                      default_warmup_stages)
 from .core.hamiltonian import batched_logdensity_and_grad
-from .core.metric import DiagMetric, Metric
+from .core.metric import DenseMetric, DiagMetric, Metric
 from .core.state import Termination, TreeStats, WarmupState
 from .models.base import Model
 from .ops.leapfrog import make_fused_gaussian_leapfrog
@@ -64,7 +66,6 @@ TREE_OPTS = ("block_c", "ckpt_bf16", "refresh_inside", "padded_io", "n_sweep")
 #: not ported yet (for ``"tile_logp"``: physics without a device function),
 #: with their ROADMAP item
 _TREE_NOT_PORTED = {"logistic": "queue 2 item 5",
-                    "dense_gaussian": "queue 2 item 3",
                     "tile_logp": "queue 2 item 6"}
 
 
@@ -148,21 +149,32 @@ def _check_eps_sane(log_eps, where: str, stats: Optional[TreeStats] = None):
 
 def _tree_physics(st: Optional[dict]):
     """``(physics, data)`` of the model's whole-tree kernel: the Gaussian
-    for ``"diag_gaussian"``, the named physics for a ``"tile_logp"`` model
-    whose physics has a device function (its rows and scalars in one
-    dict); ``None`` for every other model."""
+    for ``"diag_gaussian"``, the dense Gaussian for ``"dense_gaussian"``,
+    the named physics for a ``"tile_logp"`` model whose physics has a device
+    function (its rows and scalars in one dict); ``None`` for every other
+    model."""
     kind = None if st is None else st.get("kind")
     if kind == "diag_gaussian":
         return "gaussian", {"lam": st["precision"]}
+    if kind == "dense_gaussian":
+        return "dense_gaussian", {"prec": st["precision"]}
     if kind == "tile_logp" and st.get("physics") in PHYSICS:
         return st["physics"], {**st["data"], **st.get("scalars", {})}
     return None
 
 
 def _f32_diag(metric: Metric) -> bool:
-    """One shared float32 diagonal metric: what the Gaussian kernels take."""
+    """One shared float32 diagonal metric: what the fused leapfrog takes."""
     return (isinstance(metric, DiagMetric) and metric.inv.ndim == 1
             and metric.inv.dtype == torch.float32)
+
+
+def _f32_shared(metric: Metric) -> bool:
+    """One shared float32 metric, diagonal ``[D]`` or dense ``[D, D]``: what
+    the whole-tree kernel takes (JAX ``sample.py:364-370``)."""
+    return _f32_diag(metric) or (isinstance(metric, DenseMetric)
+                                 and metric.inv.ndim == 2
+                                 and metric.inv.dtype == torch.float32)
 
 
 class NUTSKernel:
@@ -174,16 +186,19 @@ class NUTSKernel:
 
     * ``structure["kind"] == "logistic"``: the fused potential
       (``ops/logistic.py``) on the lockstep tree;
-    * ``"diag_gaussian"``: with a shared float32 diagonal metric, the
-      whole-tree transition (``ops/tree.py``, Gaussian physics) when there
-      are at least ``TREE_MIN_CHAINS`` chains and the kernel takes the
-      dimension (``ops.tree.takes``), else the lockstep tree with the fused
-      Gaussian leapfrog (``ops/leapfrog.py``) as its ``step_fn``;
-    * ``"tile_logp"`` whose ``physics`` has a device function
-      (``ops/tile_physics.py``): with a shared float32 diagonal metric, the
-      whole-tree transition with that physics from
-      ``TREE_MIN_CHAINS_BY_PHYSICS[physics]`` chains where the kernel takes
-      the dimension, else autograd of ``model.logp`` on the lockstep tree;
+    * ``"diag_gaussian"``: with a shared float32 metric (diagonal or
+      dense), the whole-tree transition (``ops/tree.py``, Gaussian physics)
+      when there are at least ``TREE_MIN_CHAINS`` chains and the kernel
+      takes the dimension (``ops.tree.takes``); else, with a shared float32
+      diagonal metric, the lockstep tree with the fused Gaussian leapfrog
+      (``ops/leapfrog.py``) as its ``step_fn``, and autograd on the lockstep
+      tree otherwise;
+    * ``"dense_gaussian"`` (``mvn``), and ``"tile_logp"`` whose ``physics``
+      has a device function (``ops/tile_physics.py``): with a shared
+      float32 metric, diagonal or dense, the whole-tree transition with that
+      physics from ``TREE_MIN_CHAINS_BY_PHYSICS[physics]`` chains where the
+      kernel takes the dimension, else autograd of ``model.logp`` on the
+      lockstep tree;
     * any other model: autograd of ``model.logp``.
 
     The factories are called once per tuning window and for the sampling
@@ -200,7 +215,8 @@ class NUTSKernel:
     TREE_MIN_CHAINS = 1
     #: the same for each tile physics, from its own crossover against
     #: autograd on the lockstep tree (``chip_smoke.py``, PERF.md)
-    TREE_MIN_CHAINS_BY_PHYSICS = {"eight_schools": 1, "funnel": 1}
+    TREE_MIN_CHAINS_BY_PHYSICS = {"eight_schools": 1, "funnel": 1,
+                                  "dense_gaussian": 1}
 
     def __init__(self, model: Model, algorithm: NUTS = NUTS(),
                  pooled: bool = True, tree_opts: Optional[dict] = None):
@@ -230,7 +246,7 @@ class NUTSKernel:
                 topts["refresh_inside"] = True
 
             def transition_factory(metric, n_chains):
-                if not (_f32_diag(metric)
+                if not (_f32_shared(metric)
                         and n_chains >= self.tree_min_chains(physics)
                         and tree_takes(model.dim)):
                     return None

@@ -2,9 +2,10 @@
 (``csrc/logistic_vg.cu``), K3 (``csrc/leapfrog_gaussian.cu``) and K5
 (``csrc/tree_gaussian.cu``: its three drawing forms, its sweeps and its
 generator; ``csrc/tree_eight_schools.cu`` and ``csrc/tree_funnel.cu``, its
-tile physics) against their plain torch versions, the flagship
-``sample(tree_opts=...)`` path through K5, and ``sample()`` on eight
-schools and the funnel through their kernels.
+tile physics; K5-dense, each source's dense-metric launcher, and
+``csrc/tree_dense_gaussian.cu``) against their plain torch versions, the
+flagship ``sample(tree_opts=...)`` path through K5, and ``sample()`` on
+eight schools, the funnel and an ``mvn`` through their kernels.
 
 They carry the ``cuda`` marker and skip, inside the test, where there is no
 card.  This file imports neither JAX nor the JAX package, so on a machine
@@ -576,3 +577,184 @@ def test_cuda_tile_sample_goes_through_its_kernel(name):
     assert not any(counts.values()), counts
     assert bool(torch.isfinite(res.draws).all())
 
+
+
+def _dense(seed, c, d, physics, metric):
+    """Inputs of K5-dense: positions, the physics' data (the Gaussian's
+    precision row, or a dense Wishart precision), and the metric, a dense
+    ``M^-1`` of eigenvalues in about [0.5, 2.5] or a diagonal row."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    kw = dict(generator=g, device="cuda")
+    q = 0.5 * torch.randn((c, d), **kw)
+    if physics == "gaussian":
+        data = {"lam": 0.5 + torch.rand((d,), **kw)}
+    else:
+        x = torch.randn((d, 2 * d), **kw)
+        p = x @ x.T / (2 * d)
+        data = {"prec": (0.5 * (p + p.T)).contiguous()}
+    b = torch.randn((d, d), **kw) / d ** 0.5
+    minv = 0.5 * torch.eye(d, device="cuda") + 0.5 * (b @ b.T)
+    minv = (0.5 * (minv + minv.T)).contiguous()
+    if metric == "diag":
+        minv = torch.diagonal(minv).contiguous()
+    return q, tp.bind(physics, data, "cuda", torch.float32), minv
+
+
+def _scale(minv):
+    """The momentum's scale: the sqrt-mass row, or ``mass_chol^T``."""
+    from inplacedhmc_tpu_torch.core.metric import dense_metric
+    if minv.ndim == 1:
+        return 1.0 / torch.sqrt(minv)
+    return dense_metric(minv).mass_chol.T.contiguous()
+
+
+def _compare_any_field(got, want, c, allowed):
+    """At most ``allowed`` chains differ in an integer field or in a float
+    field beyond 1e-4 relative: the dense products (the metric's and the
+    dense Gaussian's P q) add their D terms in another order than torch's
+    matmul, so a proposal's log-uniform test or a U-turn statistic within
+    rounding of its threshold can decide the other way."""
+    bad = torch.zeros(c, dtype=torch.bool, device="cuda")
+    for f in INT_OUT:
+        bad |= (getattr(got, f).reshape(c) != getattr(want, f))
+    for f in ("q", "logp", "energy", "log_sum_alpha"):
+        g = getattr(got, f).reshape(c, -1)
+        w = getattr(want, f).reshape(c, -1)
+        same = (g == w) | ((g - w).abs() <= 1e-4 * (1 + w.abs()))
+        bad |= ~same.all(dim=1)
+    assert int(bad.sum()) <= allowed, int(bad.sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("physics,metric", [
+    ("gaussian", "dense"), ("dense_gaussian", "diag"),
+    ("dense_gaussian", "dense")])
+@pytest.mark.parametrize("c,d", [(37, 7), (45, 65), (21, 200)])
+@pytest.mark.parametrize("eps", [0.25, "unstable"])
+@pytest.mark.parametrize("form", ["prng", "refresh"])
+def test_cuda_dense_tree_matches_plain_version(physics, metric, c, d, eps,
+                                               form):
+    """K5-dense against its plain version fed the kernel's own draws: the
+    Gaussian physics under a dense metric, and the dense Gaussian's physics
+    under a diagonal and under a dense metric, on ragged C and on D within
+    each compile-time bound, at a mixed step size and at four times the
+    leapfrog's stability limit 2 / sqrt(lambda_max(M^-1 P)), where chains
+    diverge (max_depth 6), the uniforms drawn in the kernel and, with
+    ``refresh``, the momentum too (``xi mass_chol^T`` for a dense metric):
+    at most one chain in twenty differs (``_compare_any_field``)."""
+    _needs_card()
+    md = 6
+    q, phys, minv = _dense(6, c, d, physics, metric)
+    if eps == "unstable":
+        prec = phys.matrix() if phys.matrix() is not None \
+            else torch.diag(phys.data["lam"])
+        m = minv if minv.ndim == 2 else torch.diag(minv)
+        lam_max = float(torch.linalg.eigvals(
+            (m @ prec).double()).real.max())
+        eps = 4 * 2.0 / lam_max ** 0.5
+    e = torch.full((c,), eps, device="cuda")
+    key = _key(c + d)
+    xi, dirs, unif = tree.philox_draws(key, c, d, md)
+    scale = _scale(minv)
+    kern = (tree.TREE_DENSE_KERNELS if metric == "dense"
+            else tree.TREE_KERNELS)[physics]
+    before = kern.launches
+    if form == "prng":
+        p0 = tree.refresh_momentum(scale, torch.randn(
+            (c, d), generator=torch.Generator(device="cuda").manual_seed(7),
+            device="cuda")).contiguous()
+        got = tree.tree_transition(q, p0, e, dirs[0], None, phys, minv, md,
+                                   -1000.0, key=key)
+    else:
+        p0 = tree.refresh_momentum(scale, xi[0])
+        got = tree.tree_transition(q, None, e, None, None, phys, minv, md,
+                                   -1000.0, key=key, sqrt_mass=scale)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    want = tree.tree_transition_plain(q, p0, e, dirs[0], unif[0], phys, minv,
+                                      md, -1000.0)
+    _compare_any_field(got, want, c, c // 20)
+    if eps > 0.25:
+        assert bool((want.term == 1).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("physics", ["gaussian", "dense_gaussian"])
+def test_cuda_dense_sweep_bit_identical_to_single_launches(physics):
+    """Under a dense metric, one launch of 5 transitions drawing everything
+    equals 5 one-transition launches fed what its generator draws, the
+    momentum ``xi mass_chol^T`` taken in the kernel's order (over i in
+    order, each product and sum rounded on its own), bit for bit."""
+    _needs_card()
+    c, d, md, k = 40, 70, 6, 5
+    q, phys, minv = _dense(8, c, d, physics, "dense")
+    scale = _scale(minv)
+    e = torch.full((c,), 0.3, device="cuda")
+    key = _key(9)
+    swept = tree.tree_sweep(q, e, phys, minv, md, -1000.0, k, key=key,
+                            sqrt_mass=scale)
+    xi, dirs, unif = tree.philox_draws(key, c, d, md, k)
+    for s in range(k):
+        p = torch.zeros_like(xi[s])
+        for i in range(d):
+            p = p + xi[s][:, i:i + 1] * scale[i]
+        one = tree.tree_sweep(q, e, phys, minv, md, -1000.0, momentum=p[None],
+                              dirs=dirs[s:s + 1], unif=unif[s:s + 1])
+        for f in tree.TreeOut._fields:
+            if f != "grad":
+                assert torch.equal(getattr(swept, f)[s], getattr(one, f)[0]), \
+                    (f, s)
+        q = one.q[0]
+    assert torch.equal(swept.grad, one.grad)
+
+
+@pytest.mark.cuda
+def test_cuda_dense_wrapper_refuses_what_the_kernel_does_not_take():
+    """A dense metric with a sqrt-mass row, a float64 or wrongly shaped
+    ``M^-1`` or precision raise before anything is launched."""
+    _needs_card()
+    c, d, md = 16, 9, 4
+    q, phys, minv = _dense(10, c, d, "dense_gaussian", "dense")
+    e = torch.full((c,), 0.3, device="cuda")
+    key = _key(11)
+    kern = tree.TREE_DENSE_KERNELS["dense_gaussian"]
+    before = kern.launches
+    with pytest.raises(ValueError):
+        tree.tree_transition(q, None, e, None, None, phys, minv, md, -1000.0,
+                             key=key, sqrt_mass=torch.ones(d, device="cuda"))
+    with pytest.raises(ValueError):
+        tree.tree_transition(q, None, e, None, None, phys, minv.double(), md,
+                             -1000.0, key=key, sqrt_mass=_scale(minv))
+    bad = tp.Bound("dense_gaussian",
+                   {"prec": phys.data["prec"][:, :d - 1].contiguous()})
+    with pytest.raises(ValueError):
+        tree.tree_transition(q, None, e, None, None, bad, minv, md, -1000.0,
+                             key=key, sqrt_mass=_scale(minv))
+    assert kern.launches == before
+
+
+@pytest.mark.cuda
+def test_cuda_mvn_sample_goes_through_dense_k5():
+    """``sample()`` on a 30-D ``mvn`` at 64 chains with dense windows: K5
+    with the dense Gaussian's physics, its diagonal launcher until the first
+    dense window closes and its dense one after, no other kernel; finite
+    draws."""
+    _needs_card()
+    from inplacedhmc_tpu_torch import default_warmup_stages, sample
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((30, 45))
+    m = models.mvn(np.linalg.inv(x @ x.T))
+    stages = default_warmup_stages(init_steps=40, middle_steps=25,
+                                   doubling_stages=2, terminating_steps=25,
+                                   metric="dense")
+    kernels = [*tree.TREE_KERNELS.values(), *tree.TREE_DENSE_KERNELS.values(),
+               lf.LEAPFROG_GAUSSIAN, LOGISTIC_VG]
+    for k in kernels:
+        k.launches = 0
+    res = sample(2, m, 100, 64, warmup_stages=stages, device="cuda")
+    torch.cuda.synchronize()
+    counts = {k.symbol: k.launches for k in kernels}
+    assert counts.pop("tree_dense_gaussian_launch") == 40 + 25, counts
+    assert counts.pop("tree_dense_gaussian_dense_launch") == 50 + 25 + 100
+    assert not any(counts.values()), counts
+    assert bool(torch.isfinite(res.draws).all())

@@ -263,18 +263,22 @@ def test_tree_plain_matches_port_lockstep_tree(eps):
 
 
 def test_routes_follow_metric_and_chain_count(monkeypatch):
-    """The whole-tree transition for a float32 shared diagonal metric at
-    ``TREE_MIN_CHAINS`` chains or more; the fused leapfrog for any float32
-    shared diagonal metric; neither for another metric."""
+    """The whole-tree transition for a float32 shared metric, diagonal or
+    dense, at ``TREE_MIN_CHAINS`` chains or more; the fused leapfrog for any
+    float32 shared diagonal metric and no other; neither for another
+    metric."""
     kern = NUTSKernel(std_normal(3, device="cpu"))
     f32 = tdiag(torch.ones(3))
+    dense32 = tdense(torch.eye(3))
     monkeypatch.setattr(NUTSKernel, "TREE_MIN_CHAINS", 64)
-    assert kern.transition_factory(f32, 64) is not None
-    assert kern.transition_factory(f32, 63) is None
+    for met in (f32, dense32):
+        assert kern.transition_factory(met, 64) is not None
+        assert kern.transition_factory(met, 63) is None
     assert kern.step_factory(f32) is not None
+    assert kern.step_factory(dense32) is None
     for other in (tdiag(torch.ones(3, dtype=torch.float64)),
                   tdiag(torch.ones((64, 3))),
-                  tdense(torch.eye(3))):
+                  tdense(torch.eye(3, dtype=torch.float64))):
         assert kern.transition_factory(other, 64) is None
         assert kern.step_factory(other) is None
     logistic = NUTSKernel(

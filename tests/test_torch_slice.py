@@ -111,15 +111,17 @@ def test_entry_points_default_to_cuda():
 
     from inplacedhmc_tpu_torch.adapt.warmup import init_warmup_state
     from inplacedhmc_tpu_torch.convert import (model_from_numpy,
+                                               mvn_model_from_numpy,
                                                tile_model_from_numpy,
                                                warmup_state_from_numpy)
     from inplacedhmc_tpu_torch.core.metric import identity_metric
-    from inplacedhmc_tpu_torch.models import eight_schools, funnel, funnel_nc
+    from inplacedhmc_tpu_torch.models import (eight_schools, funnel,
+                                              funnel_nc, mvn)
     from inplacedhmc_tpu_torch.sample import NUTSKernel
     for fn in (mcmc_with_warmup, synthetic_data, logistic_regression,
                model_from_numpy, warmup_state_from_numpy, identity_metric,
                init_warmup_state, NUTSKernel.run, eight_schools, funnel,
-               funnel_nc, tile_model_from_numpy):
+               funnel_nc, tile_model_from_numpy, mvn, mvn_model_from_numpy):
         assert inspect.signature(fn).parameters["device"].default == "cuda", \
             fn.__name__
 

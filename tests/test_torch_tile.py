@@ -462,7 +462,8 @@ def test_build_hash_covers_included_headers(tmp_path, monkeypatch):
         == ["tree_funnel.cu", "tree_kernel.cuh"]
     header.write_bytes(header.read_bytes() + b"\n// changed\n")
     after = [k.library_path() for k in kernels]
-    assert [a != b for a, b in zip(after, before)] == [True] * 3 + [False]
+    assert [a != b for a, b in zip(after, before)] == \
+        [True] * len(tree.TREE_KERNELS) + [False]
     funnel_cu = src / "tree_funnel.cu"
     funnel_cu.write_bytes(funnel_cu.read_bytes() + b"\n")
     again = [k.library_path() for k in kernels]
