@@ -32,10 +32,18 @@ Phases, each printed with its wall time:
    (``mvn_target``) at 1,024 and 64 chains under a diagonal and under a
    dense metric, at three step sizes each, in the three forms, eight
    schools and the funnel under a dense metric; a dense sweep of 16
-   against 16 launches;
+   against 16 launches; K5-logistic (``csrc/tree_logistic.cu``) at 8192 x
+   10,000 x 50 from draws of the Laplace approximation, under its
+   covariance as a dense M^-1 and under the diagonal of it, at three step
+   sizes, in the three forms, with a sweep of 16 against 16 launches, and
+   the per-leaf library composition of the physics timed for reference;
 3. ``sample()`` on BASELINE config 3 (logistic regression, 10,000 x 50 data
    from a seed, 8192 chains, dense metric, a short warmup schedule, 128
-   draws) through K1;
+   draws) through K1; then the same through K5-logistic
+   (``use_pallas="tree"``), no K1 launch, and with the flagship
+   ``tree_opts`` from its tuned state; the crossover of K5-logistic
+   against the lockstep tree with K1 at 1, 64, 1,024 and 8192 chains at
+   that state (recorded: the default route stays the lockstep tree);
 4. ``sample()`` on BASELINE config 1 (the 100-D standard normal) at 10,240
    chains, default 900-transition warmup, 256 draws: the whole-tree route,
    K5 once per transition;
@@ -61,7 +69,7 @@ Phases, each printed with its wall time:
    (2014) with a Wishart precision of 300 degrees of freedom (``mvn``) at
    1,024 chains, dense windows, 1,000 draws: K5 with the dense Gaussian's
    physics, diagonal until the first dense window closes and dense after;
-   the same with the flagship ``tree_opts`` and 1,024 draws;
+   then 1,024 draws with the flagship ``tree_opts`` from its tuned state;
 11. ``sample()`` on the 100-D standard normal at 10,240 chains with dense
    windows, 256 draws: the Gaussian K5 under a dense metric;
 12. the crossover between the routes: one transition through each, at 1 to
@@ -158,7 +166,14 @@ TREE_SFU_PER_LEAF = 4
 # the negation and the log density's terms, 3 per lane, beside its product
 # P q (counted by tree_bound).
 PHYSICS_COST = {"gaussian": (0, 0, 0), "eight_schools": (14, 25, 4),
-                "funnel": (3, 12, 1), "dense_gaussian": (3, 0, 0)}
+                "funnel": (3, 12, 1), "dense_gaussian": (3, 0, 0),
+                "logistic": (3, 6, 0)}
+# logistic regression per observation and evaluation, beyond the products'
+# 4 D flops (tree_bound): |eta| and its negation, ll's four, the sigmoid's
+# two and its select, the residual's two, w ll and its sum: 12 flops; exp
+# and log1p: 2 special functions.  Per chain the prior's 3 per lane
+# (|q|^2, -inv_var q and its sum) and the two sums' 6.
+LOGISTIC_OBS_FLOPS, LOGISTIC_OBS_SFU = 12, 2
 # K5's generator: the normals may differ from torch's by the rounding of
 # logf, cosf (1-2 ulp each) scaled by sqrt(-2 log u1) <= 5.8; 16 ulp of
 # max(1, |x|) bounds that.  Direction words and uniforms are integer work
@@ -178,6 +193,13 @@ DENSE_G_DRAWS = 256               # the 100-D normal with dense windows
 # _make_kernel, and the dense Gaussian's _dense_gaussian_tile_vg
 DENSE_REPLACES = {"gaussian": "179", "eight_schools": "179", "funnel": "179",
                   "dense_gaussian": "1118"}
+# K5-logistic (BASELINE config 3 through the whole tree, use_pallas="tree"):
+# the TPU code it replaces in both metric forms is the logistic physics'
+# chunked tile_vg; JAX's default block_n pads 10,000 observations to 10,240
+LOGISTIC_REPLACES = "1242"
+LOGISTIC_BLOCK_N = 2048
+INV_VAR = 0.01                    # the prior of logistic_regression()
+LOGISTIC_CROSSOVER_CHAINS = (1, 64, 1024, C)
 FLAGSHIP_K = 16                   # n_sweep of the flagship sample()
 SWEEP_KS = (1, 4, 16, 64)         # the n_sweep values the bench times
 BENCH_EPS, BENCH_TRANSITIONS, PROBE_EPS = 0.25, 64, 0.005  # bench.py's
@@ -427,7 +449,8 @@ def check_leapfrog_kernel(card: str) -> dict:
 
 
 def tree_bound(c: int, d: int, out, form: str = "array",
-               physics: str = "gaussian", dense: bool = False) -> tuple:
+               physics: str = "gaussian", dense: bool = False,
+               n_obs: int = 0) -> tuple:
     """K5's bound for one launch on these inputs, over the steps this data
     needs.  Operations: about 25 D flops per leapfrog leaf (the update 8,
     the two row sums 5, the guards 4, the momentum sum 1, the expected
@@ -450,7 +473,11 @@ def tree_bound(c: int, d: int, out, form: str = "array",
     leaf twice and at every start once, the start's kinetic energy; a merge
     takes the new end's p# from its last leaf; the refresh's momentum once
     per transition; the dense Gaussian's P q at every evaluation) adds
-    2 D^2 flops, and each matrix its D^2 floats read once."""
+    2 D^2 flops, and each matrix its D^2 floats read once.  A physics
+    over ``n_obs`` observations (logistic regression) adds per evaluation
+    4 D flops per observation for its two products, ``LOGISTIC_OBS_FLOPS``
+    and ``LOGISTIC_OBS_SFU`` more per observation, and its observation
+    matrix and two rows read once."""
     from inplacedhmc_tpu_torch.ops.tile_physics import PHYSICS
     k = out.q.shape[0] if out.q.ndim == 3 else 1
     steps = float(out.steps.sum())
@@ -459,18 +486,20 @@ def tree_bound(c: int, d: int, out, form: str = "array",
     lane_flops, chain_flops, phys_sfu = PHYSICS_COST[physics]
     evals = steps + k * c + c
     lanes = {"gaussian": 0, "eight_schools": d - 2, "funnel": d - 1,
-             "dense_gaussian": d}[physics]
+             "dense_gaussian": d, "logistic": d}[physics]
     flops = 25.0 * d * steps + (lane_flops * lanes + chain_flops) * evals
+    flops += (4.0 * d + LOGISTIC_OBS_FLOPS) * n_obs * evals
     phys_mat = PHYSICS[physics].matrix is not None
     products = phys_mat * evals
     if dense:
         products += 2 * steps + k * c + (k * c if form == "refresh" else 0)
     flops += 2.0 * d * d * products
-    sfu = TREE_SFU_PER_LEAF * steps + 3 * merges + phys_sfu * evals
+    sfu = TREE_SFU_PER_LEAF * steps + 3 * merges + phys_sfu * evals \
+        + LOGISTIC_OBS_SFU * n_obs * evals
     n_rows = len(PHYSICS[physics].rows) + (0 if dense else 1)
     n_mats = phys_mat + dense * (1 + (form == "refresh"))
     nbytes = 4.0 * (c * d + 2 * c + n_rows * d + n_mats * d * d) \
-        + 4.0 * (k * c * d + 8 * k * c + c * d)
+        + 4.0 * (k * c * d + 8 * k * c + c * d) + 4.0 * n_obs * (d + 2)
     if form == "refresh":
         flops += PHILOX_OPS * (draws + k * c * (d + 1)) \
             + BOX_MULLER_FLOPS * k * c * d
@@ -485,20 +514,67 @@ def tree_bound(c: int, d: int, out, form: str = "array",
     return (*bound(flops, nbytes, sfu), steps)
 
 
-def compare_tree(got, want, label: str, matrix=None, grad_q=None,
-                 replay=None) -> float:
+def _gamma(n: int) -> float:
+    """gamma_n = n u / (1 - n u), u = 2^-24: an f32 sum of n terms is within
+    gamma_n of the sum of its terms' magnitudes (Higham, Accuracy and
+    Stability of Numerical Algorithms, section 3.1)."""
+    nu = n * 2.0 ** -24
+    return nu / (1 - nu)
+
+
+def grad_bound(phys):
+    """``compare_tree``'s bound on the difference of two gradients that are
+    long sums whose terms cancel, ``bound(q_got, q_want) -> [C, D]``
+    (float64), or ``None`` for a physics without one (its gradient is held
+    to TREE_RTOL alone).  The dense Gaussian, ``grad = -(q P)``: the
+    proposals' difference carried through P and each f32 product within
+    gamma_D of its terms, ``|dq| |P| + 2 gamma_D |q| |P|``.  Logistic
+    regression, ``grad = -inv_var q + sum_n r_n x_n``, with ``A = |X|^T |X|
+    / 4 + inv_var I`` (the sigmoid's slope is at most 1/4): ``|dq| A`` (the
+    proposals' difference), ``2 gamma_D |q| A`` (each side's eta, carried
+    through the sigmoid), ``2 (gamma_N + 6 u) sum_n |x_n|`` (each side's
+    backward sum of N terms, and a few roundings of each residual, which is
+    at most 1)."""
+    import torch
+    if phys.name == "dense_gaussian":
+        a = phys.matrix().abs().double()
+        g = _gamma(a.shape[0])
+        return lambda qg, qw: ((qg - qw).abs().double() @ a
+                               + 2 * g * (qw.abs().double() @ a))
+    if phys.name == "logistic":
+        xa = phys.obs_matrix().abs().double()
+        d = xa.shape[1]
+        a = 0.25 * (xa.T @ xa) + phys.data["inv_var"] * torch.eye(
+            d, dtype=torch.float64, device=xa.device)
+        g_d = _gamma(d)
+        col = 2 * (_gamma(int(phys.data["w"].sum())) + 6 * 2.0 ** -24) \
+            * xa.sum(0)
+        return lambda qg, qw: ((qg - qw).abs().double() @ a
+                               + 2 * g_d * (qw.abs().double() @ a) + col)
+    return None
+
+
+def _n_obs(phys) -> int:
+    """The observations of a physics with an observation matrix (the sum of
+    its weights: the padding weighs 0), else 0."""
+    return 0 if phys.obs_matrix() is None else int(phys.data["w"].sum())
+
+
+def compare_tree(got, want, label: str, bound=None, grad_q=None,
+                 replay=None, lsa_bound: bool = False) -> float:
     """K5 against its plain version: the chains whose integer fields differ,
     or whose float fields differ beyond TREE_RTOL, may be at most
     TREE_MISMATCH_FRACTION of all, not counting the verified ties below;
     returns the largest absolute difference over the other chains.  With
-    ``matrix``, the physics' ``[D, D]`` P of
-    ``grad = -(q P)`` (the dense Gaussian), the gradient is a D-term product
-    whose components cancel: a component also agrees within the bound of
-    the two products' difference, ``|dq| |P| + 2 gamma_D |q| |P|`` (the
-    proposals' difference carried through P, and each f32 product within
-    gamma_D = D u / (1 - D u), u = 2^-24, of the sum of its terms'
-    magnitudes: Higham, Accuracy and Stability of Numerical Algorithms,
-    section 3.1).  ``grad_q``: the kernel's and the plain version's
+    ``bound`` (``grad_bound``: a gradient that is a long sum whose
+    components cancel), a gradient component also agrees within
+    ``bound(q_got, q_want)``.  ``lsa_bound``, for a log density that is a
+    sum over N observations (logistic regression): its rounding difference
+    e (the largest energy difference of the chains that agree so far) can
+    exceed TREE_RTOL of a log_sum_alpha of order 1, so log_sum_alpha also
+    agrees within 4 e (each exp(min(delta, 0)) has a delta that is a
+    difference of two joint densities, the argument below).  ``grad_q``:
+    the kernel's and the plain version's
     positions of the gradients, where those are not ``got.q`` and
     ``want.q`` (a sweep's final gradient beside its first transition).
 
@@ -524,16 +600,19 @@ def compare_tree(got, want, label: str, matrix=None, grad_q=None,
     def agree(g, w):
         return (g == w) | ((g - w).abs() <= TREE_RTOL * (1 + w.abs()))
 
+    def agree_lsa(g, w, e):
+        same = agree(g, w)
+        return same | ((g - w).abs() <= 4 * e) if lsa_bound else same
+
     diffs, n_field = {}, {}
     for f in ("q", "logp", "grad", "energy", "log_sum_alpha"):
         g, w = getattr(got, f), getattr(want, f)
         same = agree(g, w)
-        if f == "grad" and matrix is not None:
-            a = matrix.abs().double()
-            n = matrix.shape[0] * 2.0 ** -24
-            lim = (q_got - q_want).abs().double() @ a \
-                + 2 * n / (1 - n) * (q_want.abs().double() @ a)
-            same |= (g - w).abs().double() <= lim
+        if f == "grad" and bound is not None:
+            same |= (g - w).abs().double() <= bound(q_got, q_want)
+        if f == "log_sum_alpha":
+            e_now = diffs["energy"][~bad]
+            same = agree_lsa(g, w, e_now.max() if len(e_now) else 0.0)
         if same.ndim == 2:
             same = same.all(dim=1)
         n_field[f] = int((~same).sum())
@@ -554,7 +633,9 @@ def compare_tree(got, want, label: str, matrix=None, grad_q=None,
             for f in ints:
                 tie &= getattr(got, f)[rows] == getattr(r, f)
             for f in ("q", "logp", "energy", "log_sum_alpha"):
-                same = agree(getattr(got, f)[rows], getattr(r, f))
+                g, w = getattr(got, f)[rows], getattr(r, f)
+                same = agree_lsa(g, w, err["energy"]) \
+                    if f == "log_sum_alpha" else agree(g, w)
                 tie &= same.all(dim=1) if same.ndim == 2 else same
             for i in torch.nonzero(tie).flatten().tolist():
                 notes.append(f"chain {int(rows[i])} at {sign * shift:+.3g} "
@@ -944,11 +1025,12 @@ def kernel_order_product(xi, s):
 
 def dense_case(card: str, label: str, physics: str, data: dict, q0, minv,
                eps_list, forms=("array", "prng", "refresh"),
-               seed: int = 0) -> dict:
+               seed: int = 0, iters: int = 10) -> dict:
     """K5 with ``physics`` and the metric ``minv`` (``[D]`` diagonal or
     ``[D, D]`` dense) against its plain version fed the kernel's own draws,
     at each step size and in each form (``tree_form``), by
-    ``compare_tree``'s rule; each timed beside its bound.  Returns
+    ``compare_tree``'s rule; each timed beside its bound (``iters``
+    launches, 3 where the trees average above depth 7).  Returns
     ``{(eps, form): (ms, plain_ms, bound_ms, bound_by, max_abs_err)}``."""
     import torch
 
@@ -985,14 +1067,15 @@ def dense_case(card: str, label: str, physics: str, data: dict, q0, minv,
                                    f"{kern.symbol}")
             want = plain()
             tag = f"{label}, eps {eps:.4g}, {form}"
-            err = compare_tree(got, want, tag, phys.matrix(), replay=plain)
+            err = compare_tree(got, want, tag, grad_bound(phys),
+                               replay=plain, lsa_bound=_n_obs(phys) > 0)
             if not bool(torch.isfinite(got.q).all()):
                 raise RuntimeError(f"K5 ({tag}) returned a non-finite state")
             deep = float(want.depth.double().mean()) > 7
-            ms = cuda_time_ms(launch, 3 if deep else 10, 1)
+            ms = cuda_time_ms(launch, 3 if deep else iters, 1)
             plain_ms = wall_ms(plain, iters=1, warmup=0)
             bound_ms, bound_by, steps = tree_bound(c, d, want, form, physics,
-                                                   dense)
+                                                   dense, _n_obs(phys))
             # a launch lasts as long as its longest chain, whose [D, D]
             # products (tree_bound's count) run one after another
             i = int(want.steps.argmax())
@@ -1100,46 +1183,43 @@ def check_dense_tree_kernel(card: str) -> dict:
     return entry
 
 
-def check_dense_sweep(card: str) -> None:
-    """K5-dense, ``dense_gaussian`` on the 250-D target at 1,024 chains
-    under the dense metric Sigma, eps 0.3, 1 row in 1,000 padded: one launch
-    of ``SWEEP_CHECK_K`` transitions drawing everything itself against that
-    many one-transition launches fed what its generator draws (the momentum
-    ``xi mass_chol^T`` in the kernel's order of operations,
+def sweep_case(card: str, label: str, phys, q0, minv, eps: float,
+               seed: int) -> None:
+    """K5 with the physics ``phys`` under ``minv`` (``[D]`` or ``[D, D]``),
+    eps ``eps``, 1 row in 1,000 padded: one launch of ``SWEEP_CHECK_K``
+    transitions drawing everything itself against that many one-transition
+    launches fed what its generator draws (under a dense metric the
+    momentum ``xi mass_chol^T`` in the kernel's order of operations,
     ``kernel_order_product``): every field equal bit for bit.  Timed beside
     the single launches and the bound."""
     import torch
 
     from inplacedhmc_tpu_torch.core.metric import dense_metric
-    from inplacedhmc_tpu_torch.ops.tree import (TREE_DENSE_KERNELS, TreeOut,
+    from inplacedhmc_tpu_torch.ops.tree import (TREE_DENSE_KERNELS,
+                                                TREE_KERNELS, TreeOut,
                                                 philox_draws, tree_sweep)
 
-    model, sigma = mvn_target()
-    c, d, md, k = MVN_CHAINS, MVN_DIM, MAX_DEPTH, SWEEP_CHECK_K
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
-    q0 = (torch.randn((c, d), generator=gen, dtype=torch.float64,
-                      device="cuda") @ torch.linalg.cholesky(sigma).T) \
-        .float().contiguous()
-    minv = sigma.float()
-    minv = (0.5 * (minv + minv.T)).contiguous()
-    scale = dense_metric(minv).mass_chol.T.contiguous()
-    phys = _physics("dense_gaussian", {"prec": model.structure["precision"]})
-    e = torch.full((c,), 0.3, device="cuda")
+    c, d = q0.shape
+    md, k = MAX_DEPTH, SWEEP_CHECK_K
+    dense = minv.ndim == 2
+    scale = dense_metric(minv).mass_chol.T.contiguous() if dense \
+        else 1.0 / torch.sqrt(minv)
+    e = torch.full((c,), eps, device="cuda")
     valid = (torch.arange(c, device="cuda") % 1000 != 999).to(torch.int32)
-    key = _key(SEED + 23)
-    kern = TREE_DENSE_KERNELS["dense_gaussian"]
+    key = _key(seed)
+    kern = (TREE_DENSE_KERNELS if dense else TREE_KERNELS)[phys.name]
     before = kern.launches
     swept = tree_sweep(q0, e, phys, minv, md, -1000.0, k, key=key,
                        sqrt_mass=scale, valid=valid)
     torch.cuda.synchronize()
     if kern.launches != before + 1:
-        raise RuntimeError("the dense sweep was not one K5 launch")
+        raise RuntimeError(f"the sweep ({label}) was not one K5 launch")
     xi, dirs, unif = philox_draws(key, c, d, md, k)
     q = q0
     differ = []
     for s in range(k):
-        one = tree_sweep(q, e, phys, minv, md, -1000.0,
-                         momentum=kernel_order_product(xi[s], scale)[None],
+        p = kernel_order_product(xi[s], scale) if dense else scale * xi[s]
+        one = tree_sweep(q, e, phys, minv, md, -1000.0, momentum=p[None],
                          dirs=dirs[s:s + 1], unif=unif[s:s + 1], valid=valid)
         differ += [f"{f}[{s}]" for f in TreeOut._fields if f != "grad"
                    and not torch.equal(getattr(swept, f)[s],
@@ -1148,25 +1228,125 @@ def check_dense_sweep(card: str) -> None:
     if not torch.equal(swept.grad, one.grad):
         differ.append("grad")
     steps = float(swept.steps.sum())
-    print(f"[sweep] dense_gaussian, dense metric, {c} x {d}: {k} transitions "
-          f"in one launch against {k} launches: fields that differ "
-          f"{differ or 'none'}; depth mean "
-          f"{swept.depth.double().mean().item():.3f}, {steps:.0f} steps")
+    print(f"[sweep] {label}, {c} x {d}: {k} transitions in one launch "
+          f"against {k} launches: fields that differ {differ or 'none'}; "
+          f"depth mean {swept.depth.double().mean().item():.3f}, "
+          f"{steps:.0f} steps")
     if differ:
-        raise RuntimeError("a K5-dense sweep differs from its single launches")
+        raise RuntimeError(f"a K5 sweep ({label}) differs from its single "
+                           f"launches")
     ms = cuda_time_ms(lambda: tree_sweep(
         q0, e, phys, minv, md, -1000.0, k, key=key, sqrt_mass=scale,
         valid=valid, out=swept), iters=3, warmup=1)
-    keys = [_key(SEED + 30 + s) for s in range(k)]
+    keys = [_key(seed + 1 + s) for s in range(k)]
     one_ms = cuda_time_ms(lambda: [tree_sweep(
         q0, e, phys, minv, md, -1000.0, key=kk, sqrt_mass=scale, valid=valid,
         out=one) for kk in keys], iters=3, warmup=1)
-    bound_ms, bound_by, _ = tree_bound(c, d, swept, "refresh",
-                                       "dense_gaussian", True)
-    print(f"[sweep] dense_gaussian, dense metric on {card}: one launch of {k} "
-          f"{ms:.4f} ms ({ms / k:.4f} ms per transition), {k} launches of "
-          f"one {one_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}); "
+    bound_ms, bound_by, _ = tree_bound(c, d, swept, "refresh", phys.name,
+                                       dense, _n_obs(phys))
+    print(f"[sweep] {label} on {card}: one launch of {k} {ms:.4f} ms "
+          f"({ms / k:.4f} ms per transition), {k} launches of one "
+          f"{one_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}); "
           f"{steps / ms * 1e3:.4g} steps/s")
+
+
+def check_dense_sweep(card: str) -> None:
+    """K5-dense, ``dense_gaussian`` on the 250-D target at 1,024 chains
+    under the dense metric Sigma, eps 0.3: ``sweep_case``."""
+    import torch
+
+    model, sigma = mvn_target()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    q0 = (torch.randn((MVN_CHAINS, MVN_DIM), generator=gen,
+                      dtype=torch.float64, device="cuda")
+          @ torch.linalg.cholesky(sigma).T).float().contiguous()
+    minv = sigma.float()
+    sweep_case(card, "dense_gaussian, dense metric",
+               _physics("dense_gaussian",
+                        {"prec": model.structure["precision"]}),
+               q0, (0.5 * (minv + minv.T)).contiguous(), 0.3, SEED + 23)
+
+
+@functools.lru_cache(maxsize=None)
+def logistic_problem():
+    """BASELINE config 3's data (``synthetic_data(SEED)``, 10,000 x 50, as
+    ``run_sample`` makes them), the physics' data (``logistic_data``,
+    ``block_n`` ``LOGISTIC_BLOCK_N``), and the Laplace approximation's
+    covariance at the coefficients that made the data, ``(X^T S X +
+    inv_var I)^-1`` with ``S = s (1 - s)`` (float64): the metric and the
+    start of the kernel checks."""
+    import torch
+
+    from inplacedhmc_tpu_torch.models import synthetic_data
+    from inplacedhmc_tpu_torch.ops.tile_physics import logistic_data
+
+    x, y, beta = synthetic_data(SEED, N, D, device="cuda")
+    x64 = x.double()
+    s = torch.sigmoid(x64 @ beta.double())
+    h = x64.T @ (x64 * (s * (1 - s))[:, None]) \
+        + INV_VAR * torch.eye(D, dtype=torch.float64, device="cuda")
+    cov = torch.linalg.inv(h)
+    cov = 0.5 * (cov + cov.T)
+    data = logistic_data(x, y, INV_VAR, block_n=LOGISTIC_BLOCK_N)
+    return x, y, beta, h, cov, data
+
+
+def check_logistic_tree_kernel(card: str) -> dict:
+    """K5-logistic (``csrc/tree_logistic.cu``) against its plain version at
+    full width, 8192 chains x 10,000 x 50 (``logistic_problem``), from
+    draws of the Laplace approximation, max_depth 10: under the dense
+    metric M^-1 = its covariance and under the diagonal of it, at 0.5, 1.5
+    (divergences) and 0.1 (deep trees) of the stability limit 2 /
+    sqrt(lambda_max(M^-1 H)), in the three forms (``dense_case``:
+    ``compare_tree`` with the logistic gradient's bound, ``grad_bound``, and
+    verified ties); then a sweep of 16 against 16 launches under the dense
+    metric at half the limit (``sweep_case``).  Prints the per-leaf library
+    composition of the physics (cuBLAS products and BCE-with-logits on the
+    same padded data) for reference: no library call computes the whole
+    tree.  Returns the kernels-line entry of the diagonal launcher (the
+    sample()'s first windows run it), at half the limit, drawing its
+    uniforms."""
+    import torch
+
+    t = time.perf_counter()
+    x, y, beta, h, cov, data = logistic_problem()
+    phys = _physics("logistic", data)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 40)
+    q0 = (beta.double() + torch.randn((C, D), generator=gen,
+                                      dtype=torch.float64, device="cuda")
+          @ torch.linalg.cholesky(cov).T).float().contiguous()
+    lib_ms = cuda_time_ms(lambda: _library_logistic(
+        q0, phys.data["x"], phys.data["y"], phys.data["w"], INV_VAR))
+    print(f"[k5-logistic] {C} x {N} x {D} (padded to "
+          f"{phys.data['x'].shape[0]} observations): the per-leaf library "
+          f"composition of the physics (cuBLAS + BCE-with-logits, all "
+          f"chains) {lib_ms:.4f} ms on {card}")
+    entry = None
+    for metric in ("dense", "diag"):
+        minv = cov if metric == "dense" else torch.diag(torch.diag(cov))
+        chol = torch.linalg.cholesky(minv)
+        limit = 2.0 / torch.linalg.eigvalsh(chol.T @ h @ chol).max() \
+            .item() ** 0.5
+        m32 = (minv if metric == "dense" else torch.diag(cov)).float() \
+            .contiguous()
+        eps = (0.5 * limit, 1.5 * limit, 0.1 * limit)
+        times = dense_case(card, f"logistic, {metric} metric, {C} x {D}",
+                           "logistic", data, q0, m32, eps,
+                           seed=5 + (metric == "diag"), iters=3)
+        if metric == "dense":
+            sweep_case(card, "logistic, dense metric", phys, q0, m32,
+                       0.5 * limit, SEED + 41)
+        else:
+            ms, plain_ms, bound_ms, bound_by, err = times[(eps[0], "prng")]
+            entry = {"name": "tree_logistic", "route": "cuda",
+                     "source": "inplacedhmc_tpu_torch/csrc/tree_logistic.cu",
+                     "replaces": "inplacedhmc_tpu/ops/tree_pallas.py:"
+                                 + LOGISTIC_REPLACES,
+                     "launches": None, "max_abs_err": err, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": None}
+    print(f"[k5-logistic] checks {time.perf_counter() - t:.2f} s")
+    return entry
 
 
 def tree_at_state(card: str, res, form: str = "prng", k: int = 1,
@@ -1178,10 +1358,11 @@ def tree_at_state(card: str, res, form: str = "prng", k: int = 1,
     from the host, the uniforms drawn in the kernel) or ``refresh`` with
     ``k`` transitions per launch (the flagship's sampling loop).  Held
     against the plain version fed the kernel's own draws; for ``refresh``
-    the first of the ``k`` transitions is compared, and the plain version is
-    timed over all ``k``.  ``physics`` and its ``data`` are the model's (by
-    default the standard normal's); ``name`` the entry's in the kernels
-    line."""
+    the first of the ``k`` transitions is compared, the gradient of the
+    last proposal against the plain physics at that proposal, and the plain
+    version is timed over all ``k``.  ``physics`` and its ``data`` are the
+    model's (by default the standard normal's); ``name`` the entry's in the
+    kernels line."""
     import torch
 
     from inplacedhmc_tpu_torch.core.metric import DenseMetric, sample_momentum
@@ -1225,12 +1406,17 @@ def tree_at_state(card: str, res, form: str = "prng", k: int = 1,
 
         got, want = tree_sweep(q0, e, phys, minv, md, -1000.0, k, key=key,
                                **kw), plain()
-        grad_q = (got.q[-1], want.q[-1])
-        got, want = _first(got), _first(want)
+        # the sweep's gradient is that of its last proposal: held against
+        # the plain physics at the kernel's own last proposal (a tie in any
+        # of the k transitions parts the two sides' last proposals)
+        q_last = got.q[-1]
+        got, want = _first(got), _first(want)._replace(grad=phys(q_last)[1])
+        grad_q = (q_last, q_last)
     abs_err = compare_tree(got, want, f"{physics}, {c} chains, tuned eps "
                            f"{float(e[0]):.4g}, {form}, n_sweep {k}",
-                           phys.matrix(), grad_q,
-                           plain if form == "prng" else first)
+                           grad_bound(phys), grad_q,
+                           plain if form == "prng" else first,
+                           lsa_bound=_n_obs(phys) > 0)
     # timed on a start and output buffers made beforehand: nothing but the
     # kernel is queued in the timed loop
     out = tree_sweep(q0, e, phys, minv, md, -1000.0, k, key=key, **kw)
@@ -1240,7 +1426,8 @@ def tree_at_state(card: str, res, form: str = "prng", k: int = 1,
         q0, e, phys, minv, md, -1000.0, k, key=key, out=out, **kw),
         *((5, 1) if dense else (20, 3)))
     plain_ms = wall_ms(plain, *((1, 0) if dense else (2, 1)))
-    bound_ms, bound_by, steps = tree_bound(c, d, out, form, physics, dense)
+    bound_ms, bound_by, steps = tree_bound(c, d, out, form, physics, dense,
+                                           _n_obs(phys))
     metric = "dense" if dense else "diagonal"
     print(f"[k5] {physics}, {c} chains at the tuned state ({metric} "
           f"metric), {form}, n_sweep "
@@ -1256,7 +1443,8 @@ def tree_at_state(card: str, res, form: str = "prng", k: int = 1,
             "source": f"inplacedhmc_tpu_torch/csrc/"
                       f"{TREE_KERNELS[physics].source}",
             "replaces": "inplacedhmc_tpu/ops/tree_pallas.py:"
-                        + (DENSE_REPLACES[physics] if dense else "92"),
+                        + (LOGISTIC_REPLACES if physics == "logistic"
+                           else DENSE_REPLACES[physics] if dense else "92"),
             "launches": None, "max_abs_err": abs_err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None}
@@ -1280,20 +1468,65 @@ class StageTimer:
         self.stages.append((self._name, time.perf_counter() - self._t0))
 
 
-def run_sample(card: str, kernels) -> dict:
-    """``sample()`` at full width through K1, with the posterior checked."""
+def logistic_stages():
+    """The short dense warmup schedule of the logistic ``sample()`` runs:
+    50, then 50 and 100 with dense metric estimates, then 50."""
+    from inplacedhmc_tpu_torch import default_warmup_stages
+    return default_warmup_stages(init_steps=50, middle_steps=50,
+                                 doubling_stages=2, terminating_steps=50,
+                                 metric="dense")
+
+
+def logistic_gates(tag: str, card: str, res, beta, sample_s: float) -> None:
+    """The logistic ``sample()`` gates: finite draws of ``[N_DRAWS, C, D]``,
+    split R-hat < 1.05, mean acceptance in [0.6, 0.95], corr(posterior
+    mean, beta_true) > 0.95; prints them with the sampling loop's steps/s
+    and ESS/s."""
     import torch
 
-    from inplacedhmc_tpu_torch import default_warmup_stages, sample
     from inplacedhmc_tpu_torch import diagnostics as diag
+
+    stats, draws = res.stats, res.draws
+    if tuple(draws.shape) != (N_DRAWS, C, D) \
+            or not bool(torch.isfinite(draws).all()):
+        raise RuntimeError(f"{tag} draws are not finite or not [n_draws, C, "
+                           f"D]")
+    rhat = diag.split_rhat(draws.double()).max().item()
+    ess = diag.ess_bulk(draws.double(), cap=False)
+    accept = stats.acceptance_rate.double().mean().item()
+    post_mean = draws.double().mean(dim=(0, 1))
+    corr = torch.corrcoef(torch.stack([post_mean, beta.double()]))[0, 1].item()
+    chain_steps = int(stats.steps.sum())
+    print(f"{tag} eps {torch.exp(res.warmup_state.log_eps).item():.5g}, "
+          f"split R-hat max {rhat:.4f}, acceptance mean {accept:.4f}, "
+          f"corr(posterior mean, beta_true) {corr:.5f}")
+    print(f"{tag} {card}: {chain_steps / sample_s:.4g} leapfrog steps/s "
+          f"(chain steps while sampling / sampling wall), "
+          f"ess_bulk min {ess.min().item():.4g} -> "
+          f"{ess.min().item() / sample_s:.4g} ESS/s")
+    print(diag.summarize_tree_statistics(stats))
+    if not rhat < 1.05:
+        raise RuntimeError(f"{tag} split R-hat {rhat} >= 1.05")
+    if not 0.6 <= accept <= 0.95:
+        raise RuntimeError(f"{tag} mean acceptance {accept} outside "
+                           f"[0.6, 0.95]")
+    if not corr > 0.95:
+        raise RuntimeError(f"{tag} posterior mean vs beta_true corr {corr} "
+                           f"<= 0.95")
+
+
+def run_sample(card: str, kernels) -> dict:
+    """``sample()`` at full width through K1, with the posterior checked
+    (``logistic_gates``); no other kernel launched."""
+    import torch
+
+    from inplacedhmc_tpu_torch import sample
     from inplacedhmc_tpu_torch.models import (logistic_regression,
                                               synthetic_data)
 
     x, y, beta = synthetic_data(SEED, N, D, device="cuda")
     model = logistic_regression(x, y, device="cuda")
-    stages = default_warmup_stages(init_steps=50, middle_steps=50,
-                                   doubling_stages=2, terminating_steps=50,
-                                   metric="dense")
+    stages = logistic_stages()
     timer = StageTimer()
     for k in kernels:
         k.launches = 0
@@ -1322,44 +1555,79 @@ def run_sample(card: str, kernels) -> dict:
     if any(others.values()):
         raise RuntimeError(f"the logistic path launched another kernel: "
                            f"{others}")
-
-    draws = res.draws
-    if tuple(draws.shape) != (N_DRAWS, C, D) \
-            or not bool(torch.isfinite(draws).all()):
-        raise RuntimeError("draws are not finite or not [n_draws, C, D]")
-    rhat = diag.split_rhat(draws.double()).max().item()
-    ess = diag.ess_bulk(draws.double(), cap=False)
-    accept = stats.acceptance_rate.double().mean().item()
-    post_mean = draws.double().mean(dim=(0, 1))
-    corr = torch.corrcoef(torch.stack([post_mean, beta.double()]))[0, 1].item()
-    chain_steps = int(stats.steps.sum())
-    print(f"[sample] eps {torch.exp(res.warmup_state.log_eps).item():.5g}, "
-          f"split R-hat max {rhat:.4f}, acceptance mean {accept:.4f}, "
-          f"corr(posterior mean, beta_true) {corr:.5f}")
-    print(f"[sample] {card}: {chain_steps / sample_s:.4g} leapfrog steps/s "
-          f"(chain steps while sampling / sampling wall), "
-          f"ess_bulk min {ess.min().item():.4g} -> "
-          f"{ess.min().item() / sample_s:.4g} ESS/s")
-    print(diag.summarize_tree_statistics(stats))
-    if not rhat < 1.05:
-        raise RuntimeError(f"split R-hat {rhat} >= 1.05")
-    if not 0.6 <= accept <= 0.95:
-        raise RuntimeError(f"mean acceptance {accept} outside [0.6, 0.95]")
-    if not corr > 0.95:
-        raise RuntimeError(f"posterior mean vs beta_true corr {corr} <= 0.95")
+    logistic_gates("[sample]", card, res, beta, sample_s)
     return launches
 
 
-def tree_launches(physics: str, stages, n_sampling: int) -> dict:
+def run_logistic_tree_sample(card: str, kernels):
+    """``sample()`` on BASELINE config 3 through K5-logistic
+    (``use_pallas="tree"``): the data, seed, dense warmup schedule and 128
+    draws of ``run_sample``; K5's logistic launchers once per transition
+    (``tree_launches``: the diagonal one until the first dense window
+    closes) and nothing else, K1 not once; the gates of ``run_sample``.
+    Then the flagship ``tree_opts`` (``n_sweep`` ``FLAGSHIP_K``) from that
+    run's tuned state with no warmup: ``N_DRAWS / FLAGSHIP_K`` launches of
+    the dense launcher, the same gates.  Returns both results, their launch
+    counts and their sampling walls."""
+    import torch
+
+    from inplacedhmc_tpu_torch import sample
+    from inplacedhmc_tpu_torch.models import (logistic_regression,
+                                              synthetic_data)
+
+    x, y, beta = synthetic_data(SEED, N, D, device="cuda")
+    model = logistic_regression(x, y, device="cuda")
+    out = []
+    for flagship in (False, True):
+        if flagship:
+            ws = out[0][0].warmup_state
+            stages, topts = (), {"refresh_inside": True, "padded_io": True,
+                                 "n_sweep": FLAGSHIP_K}
+            start = dict(q=ws.z.q, metric=ws.metric,
+                         eps=float(torch.exp(ws.log_eps)))
+            mine = tree_launches("logistic", stages, N_DRAWS // FLAGSHIP_K,
+                                 form="dense")
+        else:
+            stages, topts, start = logistic_stages(), None, {}
+            mine = tree_launches("logistic", stages, N_DRAWS)
+        tag = "[logistic tree" + (f", n_sweep {FLAGSHIP_K}, from the tuned "
+                                  f"state]" if flagship else "]")
+        timer = StageTimer()
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        res = sample(SEED + flagship, model, N_DRAWS, C,
+                     warmup_stages=stages, reporter=timer, device="cuda",
+                     use_pallas="tree", tree_opts=topts, **start)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts(kernels)
+        for name, sec in timer.stages:
+            print(f"{tag} {name}: {sec:.2f} s on {card}")
+        print(f"{tag} total {wall:.2f} s on {card}; launches "
+              f"{ {k: v for k, v in launches.items() if v} }, expected "
+              f"{mine}")
+        if any(launches[k] != v for k, v in mine.items()) or any(
+                v for k, v in launches.items() if k not in mine):
+            raise RuntimeError(f"{tag} the logistic whole-tree path did not "
+                               f"go through K5-logistic alone: {launches}")
+        sample_s = timer.stages[-1][1]
+        logistic_gates(tag, card, res, beta, sample_s)
+        out.append((res, launches, sample_s))
+    return out
+
+
+def tree_launches(physics: str, stages, n_sampling: int,
+                  form: str = "diag") -> dict:
     """What ``sample()`` launches of each K5 launcher of ``physics``: one
-    per tuning transition under the window's metric (the identity diagonal
-    until a window that estimates one has closed, then that window's form)
-    and ``n_sampling`` under the last one."""
+    per tuning transition under the window's metric (the starting metric's
+    ``form``, by default the identity diagonal, until a window that
+    estimates one has closed, then that window's form) and ``n_sampling``
+    under the last one."""
     from inplacedhmc_tpu_torch import TuningNUTS
     from inplacedhmc_tpu_torch.ops.tree import (TREE_DENSE_KERNELS,
                                                 TREE_KERNELS)
     n = {"diag": 0, "dense": 0}
-    form = "diag"
     for stage in stages:
         if isinstance(stage, TuningNUTS):
             n[form] += stage.n
@@ -1372,7 +1640,7 @@ def tree_launches(physics: str, stages, n_sampling: int) -> dict:
 def run_gaussian_sample(card: str, kernels, dim: int, n_chains: int,
                         n_draws: int, route: str, tree_opts=None, *,
                         model=None, metric: str = "diag", var=None,
-                        physics: str = "gaussian"):
+                        physics: str = "gaussian", state=None):
     """``sample()`` on a Gaussian, by default the ``dim``-D standard normal,
     with the default warmup whose windows estimate a ``metric`` ("diag" or
     "dense"), through ``route`` ("tree": K5 once per transition, under the
@@ -1384,11 +1652,13 @@ def run_gaussian_sample(card: str, kernels, dim: int, n_chains: int,
     mean and variance within five Monte Carlo standard errors of 0 and of
     its variance ``var`` (default 1; from the draws' own ESS, of q and of
     q^2).  ``model`` (another Gaussian, ``physics`` its whole-tree physics)
-    replaces the standard normal."""
+    replaces the standard normal.  With ``state`` (a ``WarmupState``, of a
+    run on the same model) there is no warmup: the sampling loop starts
+    from its positions, metric and eps."""
     import torch
 
-    from inplacedhmc_tpu_torch import (NUTSKernel, default_warmup_stages,
-                                       sample)
+    from inplacedhmc_tpu_torch import (DenseMetric, NUTSKernel,
+                                       default_warmup_stages, sample)
     from inplacedhmc_tpu_torch import diagnostics as diag
     from inplacedhmc_tpu_torch.models import std_normal
 
@@ -1396,16 +1666,24 @@ def run_gaussian_sample(card: str, kernels, dim: int, n_chains: int,
         model = std_normal(dim, device="cuda")
     dim = model.dim
     stages = default_warmup_stages(metric=metric)
+    start, form = {}, "diag"
+    if state is not None:
+        stages = ()
+        start = dict(q=state.z.q, metric=state.metric,
+                     eps=float(torch.exp(state.log_eps)))
+        form = "dense" if isinstance(state.metric, DenseMetric) else "diag"
     timer = StageTimer()
     for k in kernels:
         k.launches = 0
     t0 = time.perf_counter()
     res = sample(SEED, model, n_draws, n_chains, warmup_stages=stages,
-                 reporter=timer, device="cuda", tree_opts=tree_opts)
+                 reporter=timer, device="cuda", tree_opts=tree_opts, **start)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = launch_counts(kernels)
-    tag = f"[{route} {model.name} {n_chains} x {dim}, {metric} windows" \
+    tag = f"[{route} {model.name} {n_chains} x {dim}, " \
+        + ("from a tuned state" if state is not None
+           else f"{metric} windows") \
         + (f", n_sweep {tree_opts['n_sweep']}]" if tree_opts else "]")
     for name, sec in timer.stages:
         print(f"{tag} {name}: {sec:.2f} s on {card}")
@@ -1416,7 +1694,7 @@ def run_gaussian_sample(card: str, kernels, dim: int, n_chains: int,
     stats, wstats = res.stats, res.warmup_stats
     if route == "tree":
         mine = tree_launches(physics, stages, n_draws // (
-            tree_opts["n_sweep"] if tree_opts else 1))
+            tree_opts["n_sweep"] if tree_opts else 1), form)
         print(f"{tag} K5 launches expected {mine}")
         ok = all(launches[k] == v for k, v in mine.items())
     else:
@@ -1642,7 +1920,8 @@ def bench_flagship(card: str) -> int:
 
 
 def crossover(card: str, physics: str = "gaussian", state=None,
-              model=None, start=None) -> None:
+              model=None, start=None, chains=CROSSOVER_CHAINS,
+              check: bool = True) -> dict:
     """Wall time of one transition at each of ``CROSSOVER_CHAINS``, through
     the whole-tree kernel and through the route ``NUTSKernel`` takes below
     its threshold, from q0 normal at the fixed eps ``CROSSOVER_EPS`` and
@@ -1651,9 +1930,12 @@ def crossover(card: str, physics: str = "gaussian", state=None,
     ``start(c, gen)``: the 100-D standard normal against the lockstep tree
     with K3 (with a dense metric: autograd on the lockstep tree), eight
     schools (mu about its posterior), the funnel and the dense Gaussian
-    against autograd of ``logp`` on the lockstep tree.  Fails unless the
-    whole tree was the faster exactly at the counts from the threshold
-    (``NUTSKernel.TREE_MIN_CHAINS``, ``TREE_MIN_CHAINS_BY_PHYSICS``) up."""
+    against autograd of ``logp`` on the lockstep tree, logistic regression
+    (K5-logistic, which only ``use_pallas="tree"`` takes) against the
+    default route's lockstep tree with K1.  With ``check``, fails unless
+    the whole tree was the faster exactly at the counts from the threshold
+    (``NUTSKernel.TREE_MIN_CHAINS``, ``TREE_MIN_CHAINS_BY_PHYSICS``) up;
+    returns the faster route by chain count."""
     import torch
 
     from inplacedhmc_tpu_torch import DenseMetric, NUTSKernel, identity_metric
@@ -1666,7 +1948,7 @@ def crossover(card: str, physics: str = "gaussian", state=None,
     if model is None:
         model = std_normal(G_DIM, device="cuda") if physics == "gaussian" \
             else tile_model(physics)
-    _, data = _tree_physics(model.structure)
+    _, data = _tree_physics(model.structure, "tree")
     kern = NUTSKernel(model)
     if state is None:
         metric = identity_metric(model.dim, device="cuda")
@@ -1676,7 +1958,8 @@ def crossover(card: str, physics: str = "gaussian", state=None,
     trans = make_tree_transition(physics, data, model.dim, metric,
                                  max_depth=MAX_DEPTH)
     step_fn = kern.step_factory(metric) if kern.step_factory else None
-    other = "lockstep + K3" if step_fn else "autograd on the lockstep tree"
+    other = "lockstep + K3" if step_fn else "lockstep + K1" \
+        if physics == "logistic" else "autograd on the lockstep tree"
     form = "dense" if isinstance(metric, DenseMetric) else "diagonal"
 
     def lockstep(gen, z):
@@ -1684,7 +1967,7 @@ def crossover(card: str, physics: str = "gaussian", state=None,
                                max_depth=MAX_DEPTH, step_fn=step_fn)
 
     faster = {}
-    for c in CROSSOVER_CHAINS:
+    for c in chains:
         gen = torch.Generator(device="cuda").manual_seed(SEED + c)
         q0 = start(c, gen) if start is not None \
             else torch.randn((c, G_DIM), generator=gen, device="cuda") \
@@ -1698,12 +1981,17 @@ def crossover(card: str, physics: str = "gaussian", state=None,
               f"chains, eps {eps:.4g} on {card}: whole tree (K5) {k5:.3f} "
               f"ms, {other} {slow:.3f} ms per transition "
               f"({slow / k5:.1f}x); deepest tree {depth}")
+    if not check:
+        print(f"[crossover] {physics} ({form} metric): faster route by chain "
+              f"count: {faster} (recorded; the default route stays)")
+        return faster
     tmc = kern.tree_min_chains(physics)
     print(f"[crossover] {physics} ({form} metric): threshold {tmc} chains; "
           f"faster route by chain count: {faster}")
     if not all((v == "K5") == (c >= tmc) for c, v in faster.items()):
         raise RuntimeError(f"the whole-tree threshold of {physics} ({tmc} "
                            f"chains) contradicts the timings: {faster}")
+    return faster
 
 
 def main() -> int:
@@ -1713,6 +2001,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     import inplacedhmc_tpu_torch  # noqa: F401  (fails outside a checkout)
+    from inplacedhmc_tpu_torch.models import logistic_regression
 
     card = card_line()
     print(f"[card] {card}; torch {torch.__version__}, "
@@ -1733,6 +2022,7 @@ def main() -> int:
     check_sweep(card, "eight_schools")
     k5d_diag = check_dense_tree_kernel(card)
     check_dense_sweep(card)
+    k5l_diag = check_logistic_tree_kernel(card)
     print(f"[phase] kernel checks {time.perf_counter() - t:.2f} s")
     t = time.perf_counter()
     launches = run_sample(card, kernels)
@@ -1740,6 +2030,33 @@ def main() -> int:
     print(f"[sample] K1 device time about {k1['launches']} x {k1['ms']:.4f} "
           f"ms = {k1['launches'] * k1['ms'] / 1e3:.2f} s of sample()'s wall")
     print(f"[phase] logistic sample {time.perf_counter() - t:.2f} s")
+    # BASELINE config 3 through K5-logistic (use_pallas="tree"), then its
+    # flagship options from the tuned state, and the crossover against the
+    # default route (lockstep + K1) at that state
+    t = time.perf_counter()
+    (res, launches, sample_s), (res_f, launches_f, _) = \
+        run_logistic_tree_sample(card, kernels)
+    x, y, _, _, _, ldata = logistic_problem()
+    k5l_diag["launches"] = launches["tree_logistic_launch"]
+    k5l = tree_at_state(card, res, physics="logistic", data=ldata,
+                        name="tree_logistic_dense")
+    k5l["launches"] = launches["tree_logistic_dense_launch"]
+    print(f"[logistic tree] K5-logistic device time {N_DRAWS} x "
+          f"{k5l['ms']:.4f} ms = {N_DRAWS * k5l['ms'] / 1e3:.3f} s of the "
+          f"{sample_s:.3f} s sampling wall")
+    k5ls = tree_at_state(card, res_f, "refresh", FLAGSHIP_K,
+                         physics="logistic", data=ldata,
+                         name="tree_logistic_dense_sweep")
+    k5ls["launches"] = launches_f["tree_logistic_dense_launch"]
+    ws = res.warmup_state
+    del res, res_f
+    crossover(card, "logistic", ws,
+              logistic_regression(x, y, device="cuda"),
+              lambda c, gen: ws.z.q[:c].contiguous(),
+              LOGISTIC_CROSSOVER_CHAINS, check=False)
+    del ws
+    print(f"[phase] logistic whole-tree sample {time.perf_counter() - t:.2f} "
+          f"s")
     t = time.perf_counter()
     res, launches, sample_s = run_gaussian_sample(
         card, kernels, G_DIM, G_CHAINS, G_DRAWS, "tree")
@@ -1816,9 +2133,12 @@ def main() -> int:
     del res
     print(f"[phase] mvn sample {time.perf_counter() - t:.2f} s")
     t = time.perf_counter()
+    # from the first run's tuned state: its tuning windows run the
+    # n_sweep = 1 launcher that the first run covers already
     res, launches, sample_s = run_gaussian_sample(
         card, kernels, 0, MVN_CHAINS, MVN_SWEEP_DRAWS, "tree", topts,
-        model=model, metric="dense", var=var, physics="dense_gaussian")
+        model=model, metric="dense", var=var, physics="dense_gaussian",
+        state=mvn_state)
     entry = tree_at_state(card, res, "refresh", FLAGSHIP_K,
                           physics="dense_gaussian", data=mvn_data,
                           name="tree_dense_gaussian_dense_sweep")
@@ -1847,7 +2167,8 @@ def main() -> int:
     crossover(card, "gaussian", gauss_state)
     print(f"[phase] crossover {time.perf_counter() - t:.2f} s")
     print(f"[phase] total {time.perf_counter() - t_start:.2f} s")
-    print(json.dumps({"kernels": [k1, k3, k5, k5s, *tiles, *dense]}))
+    print(json.dumps({"kernels": [k1, k3, k5, k5s, *tiles, *dense, k5l_diag,
+                                  k5l, k5ls]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,10 +7,12 @@ the CPU.  CUDA kernels written by hand for Hopper, built by ``nvcc`` on
 first use, carry the main paths: the fused logistic-regression potential
 (``csrc/logistic_vg.cu``), the whole NUTS transition with a diagonal or
 dense metric for each tile physics (``csrc/tree_kernel.cuh`` with the
-Gaussian's, eight schools', the funnel's and the dense Gaussian's value and
-gradient: ``csrc/tree_gaussian.cu``, ``csrc/tree_eight_schools.cu``,
-``csrc/tree_funnel.cu``, ``csrc/tree_dense_gaussian.cu``) and the fused
-Gaussian leapfrog step (``csrc/leapfrog_gaussian.cu``).
+Gaussian's, eight schools', the funnel's, the dense Gaussian's and logistic
+regression's value and gradient: ``csrc/tree_gaussian.cu``,
+``csrc/tree_eight_schools.cu``, ``csrc/tree_funnel.cu``,
+``csrc/tree_dense_gaussian.cu``, ``csrc/tree_logistic.cu``, the last
+reached by ``use_pallas="tree"``) and the fused Gaussian leapfrog step
+(``csrc/leapfrog_gaussian.cu``).
 """
 
 from .config import (DualAveraging, FindLocalOptimum, FixedStepsize,

@@ -29,7 +29,10 @@ from .ops import tile_physics
 
 def model_from_numpy(x, y, inv_var: float, device="cuda") -> Model:
     """The port's logistic-regression model from the arrays of a JAX
-    ``structure`` (``x [N, D]``, ``y [N]``, ``inv_var``)."""
+    ``structure`` (``x [N, D]``, ``y [N]``, ``inv_var``).  They are all the
+    whole-tree route needs: under ``use_pallas="tree"`` the physics pads
+    them itself (``ops/tile_physics.py::logistic_data``), as JAX's
+    ``make_logistic_tree_transition`` does."""
     return logistic_regression(np.asarray(x), np.asarray(y),
                                prior_scale=float(inv_var) ** -0.5,
                                device=device)

@@ -3,12 +3,14 @@
 // one chain per warp, K sequential transitions per launch, with the random
 // numbers drawn inside the kernel.  Included by one source per physics
 // (tree_gaussian.cu, tree_eight_schools.cu, tree_funnel.cu,
-// tree_dense_gaussian.cu), each of which defines its physics and its two
-// extern "C" launchers with TREE_LAUNCHERS (diagonal and dense Minv).
+// tree_dense_gaussian.cu, tree_logistic.cu), each of which defines its
+// physics and its two extern "C" launchers with TREE_LAUNCHERS (diagonal
+// and dense Minv).
 //
 // Replaces the TPU kernel inplacedhmc_tpu/ops/tree_pallas.py::_make_kernel
 // (launched by _build_transition_padded, built by make_tree_transition,
-// make_gaussian_tree_transition and make_dense_gaussian_tree_transition)
+// make_gaussian_tree_transition, make_dense_gaussian_tree_transition and
+// make_logistic_tree_transition)
 // in both its metric forms (dense = False and the dense branch,
 // tree_pallas.py:179-221, with the dense refresh of :522-530), with the
 // physics that make_tree_transition differentiates in the kernel (jax.vjp of
@@ -247,13 +249,17 @@ __device__ __forceinline__ void matvec(const float* __restrict__ m, int D,
   copy(out, acc);
 }
 
-// A physics' data: up to three [D] rows, two scalars and a [D, D] matrix,
-// in the order of ops/tile_physics.py's Spec (rows, scalars, matrix), and
-// the dimension
+// A physics' data: up to three [D] rows, two scalars, a [D, D] matrix, an
+// [n_obs, D] observation matrix (row-major: observation-major) and two
+// [n_obs] observation rows, in the order of ops/tile_physics.py's Spec
+// (rows, scalars, matrix, observation matrix and rows), and the dimension
 struct PhysicsData {
   const float* row[3];
   float scalar[2];
   const float* mat;
+  const float* obs_mat;
+  const float* obs_row[2];
+  int64_t n_obs;
   int D;
 };
 
@@ -640,7 +646,9 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
 // rows; key [2] int64 (the two 32-bit words of the launch); unif [K,
 // n_unif, C] explicit uniforms (a test hook), or null to draw them here.
 // row0..row2 [D] the physics' data rows (null where it has fewer), mat its
-// [D, D] matrix (null where it has none), s0, s1 its scalars; minv [D], or
+// [D, D] matrix (null where it has none), obs_mat its [n_obs, D]
+// observation matrix and obs_row0, obs_row1 its [n_obs] observation rows
+// (null and n_obs 0 where it has none), s0, s1 its scalars; minv [D], or
 // [D, D] dense.  Outputs: q [K, C, D] (q[K - 1] the final carry); logp,
 // energy, log_sum_alpha [K, C]; term, term_left, term_right, depth, steps
 // [K, C] int32; grad [C, D] of the final carry.  D must be in [P's least
@@ -649,15 +657,18 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   const float *q0, const float *p0, const float *eps, const int32_t *dirs, \
       const int32_t *valid, const int64_t *key, const float *unif,          \
       const float *row0, const float *row1, const float *row2,              \
-      const float *mat, float s0, float s1, const float *minv,              \
+      const float *mat, const float *obs_mat, const float *obs_row0,        \
+      const float *obs_row1, int64_t n_obs, float s0, float s1,             \
+      const float *minv,                                                    \
       float *q_out, float *logp_out, float *grad_out, float *energy_out,    \
       float *lsa_out, int32_t *term, int32_t *tl, int32_t *tr,              \
       int32_t *depth, int32_t *steps, int64_t C, int D, int md,             \
       int n_sweep, int refresh, float min_delta, void *stream
 #define TREE_LAUNCH_ARGS                                                    \
-  q0, p0, eps, dirs, valid, key, unif, row0, row1, row2, mat, s0, s1, minv, \
-      q_out, logp_out, grad_out, energy_out, lsa_out, term, tl, tr, depth,  \
-      steps, C, D, md, n_sweep, refresh, min_delta, stream
+  q0, p0, eps, dirs, valid, key, unif, row0, row1, row2, mat, obs_mat,     \
+      obs_row0, obs_row1, n_obs, s0, s1, minv, q_out, logp_out, grad_out,   \
+      energy_out, lsa_out, term, tl, tr, depth, steps, C, D, md, n_sweep,   \
+      refresh, min_delta, stream
 
 template <template <int> class P, bool kDense>
 int launch_physics(TREE_LAUNCH_PARAMS) {
@@ -665,16 +676,17 @@ int launch_physics(TREE_LAUNCH_PARAMS) {
   if (prior != cudaSuccess) return (int)prior;
   if (C == 0) return 0;
   if (C < 0 || D < P<1>::kMinDim || md < 1 || md > 30 || n_sweep < 1 ||
-      C > 0xffffffffLL || !p0)
+      C > 0xffffffffLL || !p0 || n_obs < 0)
     return (int)cudaErrorInvalidValue;
   if ((refresh || !unif) && !key) return (int)cudaErrorInvalidValue;
   if (!refresh && !dirs) return (int)cudaErrorInvalidValue;
+  const PhysicsData pd{{row0, row1, row2}, {s0, s1}, mat, obs_mat,
+                       {obs_row0, obs_row1}, n_obs, D};
   const Args a{q0,      p0,       eps,        dirs,    valid,
-               key,     unif,     {{row0, row1, row2}, {s0, s1}, mat, D},
-               minv,    q_out,    logp_out,   grad_out, energy_out,
-               lsa_out, term,     tl,         tr,      depth,
-               steps,   C,        D,          md,      n_sweep,
-               refresh, min_delta};
+               key,     unif,     pd,         minv,    q_out,
+               logp_out, grad_out, energy_out, lsa_out, term,
+               tl,      tr,       depth,      steps,   C,
+               D,       md,       n_sweep,    refresh, min_delta};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D <= 32) return (int)launch<P<1>, kDense>(a, s);
   if (D <= 64) return (int)launch<P<2>, kDense>(a, s);

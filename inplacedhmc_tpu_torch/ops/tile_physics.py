@@ -7,17 +7,19 @@ inside its kernel with ``jax.vjp`` (``tree_pallas.py:899-912``).  CUDA C++
 has no autodiff, so each physics here is written out by hand, value and
 gradient together, in the order of the device function of the same name
 (``csrc/tree_gaussian.cu``, ``csrc/tree_eight_schools.cu``,
-``csrc/tree_funnel.cu``, ``csrc/tree_dense_gaussian.cu``): the same
-elementwise operations, each rounded on its own; only the row sums and the
-matrix products are taken in another order there (a per-lane sum and a warp
-butterfly; a warp mat-vec).  These are the plain versions that the whole-tree
+``csrc/tree_funnel.cu``, ``csrc/tree_dense_gaussian.cu``,
+``csrc/tree_logistic.cu``): the same elementwise operations, each rounded
+on its own; only the row sums and the matrix products are taken in another
+order there (a per-lane sum and a warp butterfly; a warp mat-vec; for
+logistic regression a reduce-scatter over eight observations at a
+time).  These are the plain versions that the whole-tree
 transition's CPU path (``ops/tree.py``) calls at the start of a transition,
 at every leaf and for the final gradient.
 
-A physics takes ``q [C, D]`` and ``data``, a dict of its rows (``[D]``
-tensors in ``q``'s dtype and on its device, zero past the model's lanes),
-its matrix if it has one (``[D, D]``, likewise) and its scalars (Python
-floats), and returns ``(logp [C], grad [C, D])``.  The port's
+A physics takes ``q [C, D]`` and ``data``, a dict of its tensors (in
+``q``'s dtype and on its device, zero past the model's lanes; shapes
+below), its scalars and settings (Python numbers), and returns
+``(logp [C], grad [C, D])``.  The port's
 kernels take no padded lanes, so JAX's masking of ``q`` before the physics
 and of the gradient after it has nothing to mask here; on the card, lanes
 past D read zero rows and get a zero gradient.
@@ -38,6 +40,31 @@ past D read zero rows and get a zero gradient.
   -0.5 (inv_s2 v^2 + S e + k v)``, ``d/dv = 0.5 S e - inv_s2 v - 0.5 k``,
   ``d/dx_i = -e x_i``.  A non-finite ``e`` is left to the leaf's
   sanitisation, as in JAX.
+* ``"dense_gaussian"`` (``mvn`` models, ``tree_pallas.py:1118``): matrix
+  ``prec`` (the symmetric precision P); ``grad = -(q P)``, ``logp = 0.5 sum
+  grad q``.
+* ``"logistic"`` (BASELINE config 3, JAX's ``make_logistic_tree_transition``
+  with its chunked ``tile_vg``, ``tree_pallas.py:1242-1275``; its ``vjp``
+  form computes the same function): the observation matrix ``x [npad, D]``
+  (obs-major, zero rows past the N observations), the observation rows
+  ``y`` and ``w [npad]`` (the labels, and the weights: 1 on the real
+  observations, 0 on the padding), the scalars ``inv_var`` (the prior
+  precision) and ``grad_bf16`` (1.0 or 0.0) and the setting ``block_n``
+  (``npad`` is a multiple of it; the plain version sums chunk by chunk over
+  it, as JAX's ``tile_vg`` does).  Per chunk: ``eta = q x^T``, one ``t =
+  exp(-|eta|)`` shared by ``ll = y eta - (max(eta, 0) + log1p(t))`` and the
+  sigmoid ``where(eta >= 0, 1 / (1 + t), t / (1 + t))``, ``resid = (y -
+  sig) w``; ``logp = -0.5 inv_var |q|^2 + sum w ll``, ``grad = -inv_var q
+  + resid x``.  Under ``grad_bf16`` ``resid`` and ``x`` are rounded to
+  bfloat16 before the backward product (exact in float32) and the sum stays
+  in ``q``'s dtype; the log density is never rounded.  Observations with
+  ``w = 0`` contribute exactly nothing.  :func:`logistic_data` builds the
+  data.
+
+Data shapes (:class:`Spec`): ``rows`` are ``[D]``, ``matrix`` ``[D, D]``,
+``obs_matrix`` ``[npad, D]`` and ``obs_rows`` ``[npad]`` (``npad`` the
+padded observation count), ``scalars`` Python floats that the kernel
+receives, ``settings`` Python ints that only the plain version reads.
 """
 
 from __future__ import annotations
@@ -99,15 +126,80 @@ def dense_gaussian(q: torch.Tensor, data: dict):
     return 0.5 * _rowsum(g * q), g
 
 
+def logistic(q: torch.Tensor, data: dict):
+    x, y, w = data["x"], data["y"], data["w"]
+    pk, bn = data["inv_var"], data["block_n"]
+    bf16 = data["grad_bf16"] != 0
+    logp = -0.5 * pk * _rowsum(q * q)
+    grad = -pk * q
+    for j in range(0, x.shape[0], bn):
+        xs, ys, ws = x[j:j + bn], y[j:j + bn], w[j:j + bn]
+        eta = q @ xs.transpose(0, 1)
+        t = torch.exp(-torch.abs(eta))
+        ll = ys * eta - (torch.clamp(eta, min=0.0) + torch.log1p(t))
+        logp = logp + _rowsum(ll * ws)
+        inv1pt = 1.0 / (1.0 + t)
+        sig = torch.where(eta >= 0.0, inv1pt, t * inv1pt)
+        resid = (ys - sig) * ws
+        if bf16:
+            resid = resid.to(torch.bfloat16).to(q.dtype)
+            xs = xs.to(torch.bfloat16).to(q.dtype)
+        grad = grad + resid @ xs
+    return logp, grad
+
+
+#: the physics modes of JAX's ``make_logistic_tree_transition``: both run
+#: the one hand-written physics, which computes their common function
+LOGISTIC_MODES = ("chunked", "vjp")
+
+
+def logistic_data(x, y, inv_var: float, *, physics_mode: str = "chunked",
+                  grad_bf16: bool = False, block_n: int = 2048) -> dict:
+    """The ``"logistic"`` physics' data from a model's ``x [N, D]``, ``y
+    [N]`` and ``inv_var``, laid out as ``tree_pallas.py:1281-1285`` lays
+    out its ``xobs``/``yw``: ``x`` with zero rows up to ``npad =
+    round_up(N, block_n)``, ``y`` and the weights ``w`` (1 on the N
+    observations, 0 on the padding) padded alike, on ``x``'s device in its
+    dtype.  ``physics_mode`` ``"chunked"`` and ``"vjp"`` compute the same
+    function and give the same data.  ``block_n`` must be positive."""
+    if physics_mode not in LOGISTIC_MODES:
+        raise ValueError(f"unknown physics_mode {physics_mode!r} "
+                         f"(have {LOGISTIC_MODES})")
+    block_n = int(block_n)
+    if block_n < 1:
+        raise ValueError(f"block_n must be positive, got {block_n}")
+    x = torch.as_tensor(x)
+    n, d = x.shape
+    npad = -(-n // block_n) * block_n
+    kw = dict(dtype=x.dtype, device=x.device)
+    xo = torch.zeros((npad, d), **kw)
+    xo[:n] = x
+    yo = torch.zeros((npad,), **kw)
+    yo[:n] = torch.as_tensor(y, **kw)
+    wo = torch.zeros((npad,), **kw)
+    wo[:n] = 1.0
+    return {"x": xo, "y": yo, "w": wo, "inv_var": float(inv_var),
+            "grad_bf16": 1.0 if grad_bf16 else 0.0, "block_n": block_n}
+
+
 class Spec(NamedTuple):
     """A physics: its plain value and gradient, and the names of its data
-    rows, scalars and ``[D, D]`` matrix (or ``None``) in the order its
-    kernel's launcher takes them."""
+    in the order its kernel's launcher takes them: ``[D]`` rows, scalars,
+    the ``[D, D]`` matrix (or ``None``), the ``[npad, D]`` observation
+    matrix (or ``None``) and ``[npad]`` observation rows; ``settings`` are
+    read by the plain version only."""
 
     value_and_grad: Callable
     rows: Tuple[str, ...]
     scalars: Tuple[str, ...] = ()
     matrix: Optional[str] = None
+    obs_matrix: Optional[str] = None
+    obs_rows: Tuple[str, ...] = ()
+    settings: Tuple[str, ...] = ()
+
+    def tensors(self) -> Tuple[str, ...]:
+        return self.rows + tuple(n for n in (self.matrix, self.obs_matrix)
+                                 if n) + self.obs_rows
 
 
 #: every physics with a device function, by name
@@ -116,6 +208,9 @@ PHYSICS: Dict[str, Spec] = {
     "eight_schools": Spec(eight_schools, ("y", "sig", "obs_mask")),
     "funnel": Spec(funnel, ("x_mask",), ("k", "inv_s2")),
     "dense_gaussian": Spec(dense_gaussian, (), matrix="prec"),
+    "logistic": Spec(logistic, (), ("inv_var", "grad_bf16"),
+                     obs_matrix="x", obs_rows=("y", "w"),
+                     settings=("block_n",)),
 }
 
 
@@ -140,21 +235,29 @@ class Bound(NamedTuple):
         name = PHYSICS[self.name].matrix
         return None if name is None else self.data[name]
 
+    def obs_matrix(self):
+        name = PHYSICS[self.name].obs_matrix
+        return None if name is None else self.data[name]
+
+    def obs_rows(self):
+        return [self.data[n] for n in PHYSICS[self.name].obs_rows]
+
 
 def bind(name: str, data: dict, device=None, dtype=None) -> Bound:
-    """``name``'s physics on ``data`` (its rows, scalars and matrix), the
-    rows and the matrix cast to ``dtype`` on ``device`` and made contiguous
+    """``name``'s physics on ``data`` (its tensors, scalars and settings),
+    the tensors cast to ``dtype`` on ``device`` and made contiguous
     (``None``: as given).  Raises on an unknown physics or a missing
     entry."""
     if name not in PHYSICS:
         raise ValueError(f"no tile physics {name!r} (have {sorted(PHYSICS)})")
     spec = PHYSICS[name]
-    tensors = spec.rows + ((spec.matrix,) if spec.matrix else ())
-    missing = set(tensors + spec.scalars) - set(data)
+    tensors = spec.tensors()
+    missing = set(tensors + spec.scalars + spec.settings) - set(data)
     if missing:
         raise ValueError(f"physics {name!r} needs {sorted(missing)}")
     cast = {n: torch.as_tensor(data[n], device=device,
                                dtype=dtype).contiguous()
             for n in tensors}
     cast.update({n: float(data[n]) for n in spec.scalars})
+    cast.update({n: int(data[n]) for n in spec.settings})
     return Bound(name, cast)

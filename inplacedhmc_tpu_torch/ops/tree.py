@@ -3,13 +3,16 @@ and a tile physics.
 
 The port's counterpart of ``inplacedhmc_tpu/ops/tree_pallas.py``
 (``_make_kernel``, ``_build_transition_padded``, ``make_tree_transition``,
-``make_gaussian_tree_transition``, ``make_dense_gaussian_tree_transition``).
-The physics is the model's log density and gradient, written by hand
-(``ops/tile_physics.py``: the Gaussian of ``diag_gaussian`` models, eight
-schools, the funnel, the dense Gaussian of ``mvn``) where JAX differentiates
-the model's ``tile_logp`` in its kernel.  ``M^-1`` is a ``[D]`` diagonal or
-a ``[D, D]`` dense matrix; with a dense one every ``p# = M^-1 p`` is a
-product and the momentum refresh is ``xi @ mass_chol^T``
+``make_gaussian_tree_transition``, ``make_dense_gaussian_tree_transition``,
+``make_logistic_tree_transition``).  The physics is the model's log density
+and gradient, written by hand (``ops/tile_physics.py``: the Gaussian of
+``diag_gaussian`` models, eight schools, the funnel, the dense Gaussian of
+``mvn``, logistic regression over an ``[npad, D]`` observation matrix)
+where JAX differentiates the model's ``tile_logp`` in its kernel or
+hand-fuses it (logistic regression's chunked ``tile_vg``).  ``M^-1`` is a
+``[D]`` diagonal or a ``[D, D]`` dense matrix; with a dense one every
+``p# = M^-1 p`` is a product and the momentum refresh is
+``xi @ mass_chol^T``
 (``core/metric.py::sample_momentum``).  The transition is the lockstep
 tree's (``nuts/tree.py``), field for field: the momentum-refresh
 energy, the doubling loop, the leapfrog leaves, the generalized U-turn checks
@@ -38,8 +41,8 @@ chains in plain torch, drawing the same Philox numbers.  There is no other
 path: a CUDA tensor launches the kernel or raises.  The ``gaussian_*``
 functions are these with the Gaussian physics of precision ``lam``.
 
-Not ported yet: logistic and stochastic-volatility physics, bf16 checkpoint
-stacks and D above 256.
+Not ported yet: the stochastic-volatility physics, bf16 checkpoint stacks
+and D above 256.
 """
 
 from __future__ import annotations
@@ -59,7 +62,8 @@ from .common import check_tensor
 from .cuda_build import CudaKernel
 
 _P = ctypes.c_void_p
-_TREE_ARGS = ([_P] * 11 + [ctypes.c_float] * 2 + [_P] * 11
+_TREE_ARGS = ([_P] * 14 + [ctypes.c_int64] + [ctypes.c_float] * 2
+              + [_P] * 11
               + [ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                  ctypes.c_int, ctypes.c_float, _P])
 #: the whole-tree kernel of each physics with a diagonal metric,
@@ -83,6 +87,8 @@ PHILOX_DRAWS = CudaKernel(
 
 #: largest dimension the kernel's register tiles take (32 lanes x 8)
 MAX_DIM = 256
+#: the chain tile of JAX's ``make_logistic_tree_transition`` (its default)
+LOGISTIC_BLOCK_C = 128
 
 
 class TreeOut(NamedTuple):
@@ -435,16 +441,22 @@ def _launch(q0, eps, phys, minv, max_depth: int, min_delta: float, k: int,
     if not 1 <= d <= MAX_DIM:
         raise ValueError(f"tree kernel: D={d} outside [1, {MAX_DIM}]")
     dev = q0.device
+    spec = tile_physics.PHYSICS[phys.name]
     rows, mat = phys.rows(), phys.matrix()
+    obs_mat, obs_rows = phys.obs_matrix(), phys.obs_rows()
+    n_obs = 0 if obs_mat is None else obs_mat.shape[0]
     dense = minv.ndim == 2
     metric_shape = (d, d) if dense else (d,)
     checks = [("q0", q0, (c, d), torch.float32),
               ("eps", eps, (c,), torch.float32),
               ("minv", minv, metric_shape, torch.float32)]
-    checks += [(n, t, (d,), torch.float32) for n, t in
-               zip(tile_physics.PHYSICS[phys.name].rows, rows)]
+    checks += [(n, t, (d,), torch.float32) for n, t in zip(spec.rows, rows)]
     if mat is not None:
         checks.append(("matrix", mat, (d, d), torch.float32))
+    if obs_mat is not None:
+        checks.append((spec.obs_matrix, obs_mat, (n_obs, d), torch.float32))
+    checks += [(n, t, (n_obs,), torch.float32)
+               for n, t in zip(spec.obs_rows, obs_rows)]
     if refresh:
         checks.append(("sqrt_mass", sqrt_mass, metric_shape, torch.float32))
     else:
@@ -472,6 +484,8 @@ def _launch(q0, eps, phys, minv, max_depth: int, min_delta: float, k: int,
         return None if t is None else t.data_ptr()
 
     row_ptrs = [t.data_ptr() for t in rows] + [None] * (3 - len(rows))
+    obs_ptrs = [t.data_ptr() for t in obs_rows] \
+        + [None] * (2 - len(obs_rows))
     scalars = phys.scalars() + [0.0] * (2 - len(phys.scalars()))
     kernel = (TREE_DENSE_KERNELS if dense else TREE_KERNELS)[phys.name]
     with torch.cuda.device(dev):
@@ -479,7 +493,8 @@ def _launch(q0, eps, phys, minv, max_depth: int, min_delta: float, k: int,
         kernel.launch(
             q0.data_ptr(), ptr(sqrt_mass if refresh else momentum),
             eps.data_ptr(), ptr(dirs), ptr(valid), ptr(key), ptr(unif),
-            *row_ptrs, ptr(mat), *scalars, minv.data_ptr(),
+            *row_ptrs, ptr(mat), ptr(obs_mat), *obs_ptrs, n_obs, *scalars,
+            minv.data_ptr(),
             *(t.data_ptr() for t in out),
             c, d, max_depth, k, int(refresh), float(min_delta), stream)
     return out
@@ -620,7 +635,8 @@ def make_tree_transition(physics: str, data: dict, dim: int, metric_inv, *,
                          padded_io: bool = False, n_sweep: int = 1):
     """The whole-tree transition for the tile physics named ``physics``
     (``ops/tile_physics.py``) on ``data`` (its rows ``[dim]``, matrix
-    ``[dim, dim]`` and scalars) with the metric ``metric_inv``: a diagonal
+    ``[dim, dim]``, observation matrix ``[npad, dim]`` and rows ``[npad]``,
+    scalars and settings) with the metric ``metric_inv``: a diagonal
     ``[dim]`` tensor or :class:`DiagMetric`, or a dense ``[dim, dim]``
     tensor or :class:`DenseMetric` (its ``M^-1``; the momentum is drawn
     through ``mass_chol``), as the JAX package's ``make_tree_transition``
@@ -780,3 +796,28 @@ def make_dense_gaussian_tree_transition(precision, metric_inv, **kw):
     precision = torch.as_tensor(precision)
     return make_tree_transition("dense_gaussian", {"prec": precision},
                                 precision.shape[0], metric_inv, **kw)
+
+
+def make_logistic_tree_transition(x, y, inv_var: float, metric_inv, *,
+                                  block_c: int = LOGISTIC_BLOCK_C,
+                                  physics_mode: str = "chunked",
+                                  grad_bf16: bool = False,
+                                  block_n: int = 2048, **kw):
+    """:func:`make_tree_transition` for Bayesian logistic regression over
+    ``x [N, D]``, labels ``y [N]`` and the prior precision ``inv_var`` (the
+    ``logistic`` physics, ``csrc/tree_logistic.cu``), as the JAX package's
+    ``make_logistic_tree_transition`` builds it, under a diagonal or a
+    dense metric.  ``physics_mode`` ``"chunked"`` and ``"vjp"`` both run
+    the one hand-written physics: JAX's two forms compute the same function
+    (the hand-fused value and gradient, and autodiff of the log density).
+    ``grad_bf16`` rounds the backward product's inputs to bfloat16, on the
+    card and in the plain version; ``block_n`` pads the observations to a
+    multiple of it (``ops/tile_physics.py::logistic_data``) and sets the
+    plain version's chunk; the kernel walks eight observations per step
+    whatever it is."""
+    x = torch.as_tensor(x)
+    data = tile_physics.logistic_data(x, y, inv_var,
+                                      physics_mode=physics_mode,
+                                      grad_bf16=grad_bf16, block_n=block_n)
+    return make_tree_transition("logistic", data, x.shape[1], metric_inv,
+                                block_c=block_c, **kw)

@@ -3,14 +3,19 @@
 The port's counterpart of ``inplacedhmc_tpu/sample.py``:
 
 * :class:`NUTSKernel` holds one (model, algorithm, adaptation) configuration
-  and picks the kernels as the JAX package's "auto" policy does: the fused
-  logistic potential for ``structure["kind"] == "logistic"``; for
-  ``"diag_gaussian"`` the whole-tree kernel where it takes the problem and
-  the lockstep tree with the fused Gaussian leapfrog elsewhere; for
-  ``"dense_gaussian"`` (``mvn``) and ``"tile_logp"`` models whose physics
-  has a device function (eight schools, the funnel) the whole-tree kernel
-  where it takes the problem and autograd on the lockstep tree elsewhere;
-  autograd of ``model.logp`` otherwise.  The whole-tree kernel takes one
+  and picks the kernels by ``use_pallas``, with the JAX package's meanings
+  (``inplacedhmc_tpu/sample.py:258-268, 297-316``).  ``"auto"`` (the
+  default) is JAX's "auto" policy: the fused logistic potential for
+  ``structure["kind"] == "logistic"``; for ``"diag_gaussian"`` the
+  whole-tree kernel where it takes the problem and the lockstep tree with
+  the fused Gaussian leapfrog elsewhere; for ``"dense_gaussian"`` (``mvn``)
+  and ``"tile_logp"`` models whose physics has a device function (eight
+  schools, the funnel) the whole-tree kernel where it takes the problem and
+  autograd on the lockstep tree elsewhere; autograd of ``model.logp``
+  otherwise.  ``"tree"`` forces the whole-tree kernel wherever the metric
+  qualifies, from one chain, and adds logistic regression to its kinds;
+  ``"on"`` runs the fused potential and leapfrog and no whole tree;
+  ``"off"`` autograd on the lockstep tree.  The whole-tree kernel takes one
   shared float32 metric, diagonal or dense.
 * :func:`mcmc_with_warmup` runs the windowed warmup, then sampling.
 * :func:`sample` is the pooled-adaptation entry point.
@@ -25,17 +30,22 @@ package: ``refresh_inside`` (the kernel draws the momentum and the
 directions), ``padded_io`` (the sampling loop runs the kernel's persistent
 padded state; implies ``refresh_inside``), ``n_sweep`` (transitions per
 launch while sampling) and ``block_c`` (the chain tile the state is padded
-to).
+to); for logistic regression also ``physics_mode`` (``"chunked"`` or
+``"vjp"``: both run the one hand-written physics, which computes the
+function of both), ``grad_bf16`` and ``block_n``
+(``ops/tree.py::make_logistic_tree_transition``).  A route that runs no
+whole tree ignores them, as in JAX.
 
 Not ported yet, and refused with ``NotImplementedError``: meshes,
 checkpoints, sketches and streamed moments, chunked tuning and blocked
 sampling, ``post_step`` hooks, work-sorted scheduling, the options
-``use_kernels`` and ``fused_opts``, the ``ckpt_bf16`` tree option, and
-``tree_opts`` on models whose whole-tree kernel is not ported (logistic,
-tile physics without a device function).  The whole-tree kernel is ported,
-with a diagonal and a dense metric, for ``diag_gaussian`` and
-``dense_gaussian`` models and the ``"eight_schools"`` and ``"funnel"`` tile
-physics.
+``use_kernels`` and ``fused_opts``, ``use_pallas="interpret"`` (JAX's
+Pallas interpreter: on a CPU tensor the port runs its plain versions
+already), the ``ckpt_bf16`` tree option, the whole tree above D = 256, and
+``tree_opts`` on tile physics without a device function.  The whole-tree
+kernel is ported, with a diagonal and a dense metric, for
+``diag_gaussian``, ``dense_gaussian`` and ``logistic`` models and the
+``"eight_schools"`` and ``"funnel"`` tile physics.
 """
 
 from __future__ import annotations
@@ -56,17 +66,27 @@ from .core.state import Termination, TreeStats, WarmupState
 from .models.base import Model
 from .ops.leapfrog import make_fused_gaussian_leapfrog
 from .ops.logistic import make_logistic_potential
-from .ops.tile_physics import PHYSICS
+from .ops.tile_physics import PHYSICS, logistic_data
+from .ops.tree import LOGISTIC_BLOCK_C
+from .ops.tree import MAX_DIM as TREE_MAX_DIM
 from .ops.tree import make_tree_transition
 from .ops.tree import takes as tree_takes
 
 #: ``tree_opts`` keys of the whole-tree kernel (``inplacedhmc_tpu/sample.py``)
 TREE_OPTS = ("block_c", "ckpt_bf16", "refresh_inside", "padded_io", "n_sweep")
+#: the ``tree_opts`` of the logistic physics alone (JAX's ``_by_kind``)
+LOGISTIC_TREE_OPTS = ("physics_mode", "grad_bf16", "block_n")
+#: the model kinds each ``use_pallas`` sends to the whole tree (JAX's
+#: ``auto_kinds`` and ``tree_kinds``, ``inplacedhmc_tpu/sample.py:308-316``)
+TREE_KINDS = {"auto": ("diag_gaussian", "dense_gaussian", "tile_logp"),
+              "tree": ("diag_gaussian", "dense_gaussian", "tile_logp",
+                       "logistic")}
+#: the values of ``use_pallas``
+USE_PALLAS = ("auto", "on", "tree", "off", "interpret")
 #: model kinds with a whole-tree kernel in the JAX package that the port has
-#: not ported yet (for ``"tile_logp"``: physics without a device function),
+#: not ported yet (``"tile_logp"``: physics without a device function),
 #: with their ROADMAP item
-_TREE_NOT_PORTED = {"logistic": "queue 2 item 5",
-                    "tile_logp": "queue 2 item 6"}
+_TREE_NOT_PORTED = {"tile_logp": "queue 2 item 6"}
 
 
 class MCMCResult(NamedTuple):
@@ -147,13 +167,21 @@ def _check_eps_sane(log_eps, where: str, stats: Optional[TreeStats] = None):
         f"{EPS_SANE_MAX:g}]){detail}")
 
 
-def _tree_physics(st: Optional[dict]):
-    """``(physics, data)`` of the model's whole-tree kernel: the Gaussian
-    for ``"diag_gaussian"``, the dense Gaussian for ``"dense_gaussian"``,
-    the named physics for a ``"tile_logp"`` model whose physics has a device
-    function (its rows and scalars in one dict); ``None`` for every other
-    model."""
+def _tree_physics(st: Optional[dict], use_pallas: str = "auto",
+                  logistic_opts: Optional[dict] = None):
+    """``(physics, data)`` of the model's whole-tree kernel on the route
+    ``use_pallas`` takes: the Gaussian for ``"diag_gaussian"``, the dense
+    Gaussian for ``"dense_gaussian"``, the named physics for a
+    ``"tile_logp"`` model whose physics has a device function (its rows and
+    scalars in one dict), and under ``"tree"`` logistic regression's
+    physics on the padded data (``logistic_opts``: its ``tree_opts``);
+    ``None`` for every other model and route."""
     kind = None if st is None else st.get("kind")
+    if kind not in TREE_KINDS.get(use_pallas, ()):
+        return None
+    if kind == "logistic":
+        return "logistic", logistic_data(st["x"], st["y"], st["inv_var"],
+                                         **(logistic_opts or {}))
     if kind == "diag_gaussian":
         return "gaussian", {"lam": st["precision"]}
     if kind == "dense_gaussian":
@@ -180,9 +208,10 @@ def _f32_shared(metric: Metric) -> bool:
 class NUTSKernel:
     """Sampling for one (model, algorithm, adaptation) configuration.
 
-    The kernels follow the JAX package's "auto" policy
-    (``inplacedhmc_tpu/sample.py``); each wrapper runs its CUDA kernel on the
-    card and its plain version on the CPU:
+    The kernels follow ``use_pallas`` as in the JAX package
+    (``inplacedhmc_tpu/sample.py:258-268``); each wrapper runs its CUDA
+    kernel on the card and its plain version on the CPU.  ``"auto"`` (the
+    default) is JAX's "auto" policy:
 
     * ``structure["kind"] == "logistic"``: the fused potential
       (``ops/logistic.py``) on the lockstep tree;
@@ -200,6 +229,17 @@ class NUTSKernel:
       kernel takes the dimension, else autograd of ``model.logp`` on the
       lockstep tree;
     * any other model: autograd of ``model.logp``.
+
+    ``"tree"`` forces the whole-tree transition wherever the metric
+    qualifies (a shared float32 metric), from one chain, for those kinds
+    and for ``"logistic"`` (the ``logistic`` physics,
+    ``csrc/tree_logistic.cu``), with autograd of ``model.logp`` as the
+    potential of the warmup's other stages, as in JAX; its D bound (256)
+    raises ``NotImplementedError`` above it.  ``"on"``: the fused logistic
+    potential and the fused Gaussian leapfrog, no whole tree.  ``"off"``:
+    autograd on the lockstep tree.  ``"interpret"`` (JAX's Pallas
+    interpreter) raises ``NotImplementedError``: on a CPU tensor every
+    wrapper runs its plain version already.
 
     The factories are called once per tuning window and for the sampling
     loop, with that stage's metric.  ``tree_opts`` configure the whole-tree
@@ -219,21 +259,40 @@ class NUTSKernel:
                                   "dense_gaussian": 1}
 
     def __init__(self, model: Model, algorithm: NUTS = NUTS(),
-                 pooled: bool = True, tree_opts: Optional[dict] = None):
+                 pooled: bool = True, tree_opts: Optional[dict] = None,
+                 use_pallas: str = "auto"):
+        if use_pallas == "interpret":
+            raise NotImplementedError(
+                "use_pallas='interpret' runs the JAX package's Pallas "
+                "interpreter; inplacedhmc_tpu_torch has none: on a CPU "
+                "tensor every kernel wrapper already runs its plain version "
+                "(pass device='cpu')")
+        if use_pallas not in USE_PALLAS:
+            raise ValueError(f"unknown use_pallas {use_pallas!r} "
+                             f"(have {USE_PALLAS})")
         self.model = model
         self.algorithm = algorithm
         self.pooled = pooled
+        self.use_pallas = use_pallas
         self.step_factory = None
         self.transition_factory = None
         st = model.structure
         kind = None if st is None else st.get("kind")
-        if kind == "logistic":
+        fused = use_pallas in ("auto", "on")
+        if kind == "logistic" and fused:
             self.potential = make_logistic_potential(st["x"], st["y"],
                                                      st["inv_var"])
         else:
             self.potential = batched_logdensity_and_grad(model.logp)
-        tree = _tree_physics(st)
-        topts = _tree_options(st, tree is not None, tree_opts)
+        topts = _tree_options(st, use_pallas, tree_opts)
+        tree = _tree_physics(st, use_pallas, {
+            k: topts.pop(k) for k in LOGISTIC_TREE_OPTS if k in topts})
+        forced = use_pallas == "tree"
+        if forced and tree is not None and not tree_takes(model.dim):
+            raise NotImplementedError(
+                f"use_pallas='tree': the whole-tree kernel takes D <= "
+                f"{TREE_MAX_DIM}, this model has D = {model.dim} (D above "
+                f"it is not ported yet: ROADMAP queue 2 item 1 (f))")
         if tree is not None:
             physics, data = tree
             # padded/sweep options drive the sampling loop only (tuning
@@ -244,10 +303,13 @@ class NUTSKernel:
                 raise ValueError("n_sweep > 1 requires padded_io")
             if padded:
                 topts["refresh_inside"] = True
+            if physics == "logistic":
+                topts.setdefault("block_c", LOGISTIC_BLOCK_C)
 
             def transition_factory(metric, n_chains):
                 if not (_f32_shared(metric)
-                        and n_chains >= self.tree_min_chains(physics)
+                        and (forced
+                             or n_chains >= self.tree_min_chains(physics))
                         and tree_takes(model.dim)):
                     return None
 
@@ -269,7 +331,7 @@ class NUTSKernel:
                 return trans
 
             self.transition_factory = transition_factory
-        if kind == "diag_gaussian":
+        if kind == "diag_gaussian" and fused:
             prec = st["precision"]
 
             def step_factory(metric):
@@ -376,31 +438,29 @@ _NOT_PORTED = ("draw_block", "tuning_chunk", "warmup_checkpoint_path",
                "schedule", "use_kernels")
 
 
-def _tree_options(st: Optional[dict], has_kernel: bool,
+def _tree_options(st: Optional[dict], use_pallas: str,
                   tree_opts: Optional[dict]) -> dict:
-    """Check ``tree_opts`` as the JAX package does: unknown keys raise
-    ``ValueError``; what the port has not ported raises
-    ``NotImplementedError``.  Models without a whole-tree kernel in either
-    package ignore them, as in JAX."""
+    """Check ``tree_opts`` as the JAX package does on the routes that run
+    the whole tree (``TREE_KINDS``): unknown keys raise ``ValueError``
+    (``physics_mode``, ``grad_bf16`` and ``block_n`` are logistic
+    regression's alone, as JAX's ``_by_kind``); what the port has not
+    ported raises ``NotImplementedError``.  A route without a whole tree
+    ignores them, as in JAX."""
     topts = dict(tree_opts or {})
-    if not topts:
-        return topts
     kind = None if st is None else st.get("kind")
-    if not has_kernel:
-        if kind in _TREE_NOT_PORTED:
-            what = f"{kind!r} models" + (
-                f" with physics {st.get('physics')!r}"
-                if kind == "tile_logp" else "")
-            raise NotImplementedError(
-                f"tree_opts: the whole-tree kernel for {what} is not ported "
-                f"to inplacedhmc_tpu_torch yet (ROADMAP "
-                f"{_TREE_NOT_PORTED[kind]})")
+    if not topts or kind not in TREE_KINDS.get(use_pallas, ()):
         return {}
-    unknown = set(topts) - set(TREE_OPTS)
+    if kind in _TREE_NOT_PORTED and st.get("physics") not in PHYSICS:
+        raise NotImplementedError(
+            f"tree_opts: the whole-tree kernel for {kind!r} models with "
+            f"physics {st.get('physics')!r} is not ported to "
+            f"inplacedhmc_tpu_torch yet (ROADMAP {_TREE_NOT_PORTED[kind]})")
+    allowed = TREE_OPTS + (LOGISTIC_TREE_OPTS if kind == "logistic" else ())
+    unknown = set(topts) - set(allowed)
     if unknown:
         raise ValueError(
             f"tree_opts {sorted(unknown)} not supported for model kind "
-            f"{kind!r} (allowed: {sorted(TREE_OPTS)})")
+            f"{kind!r} (allowed: {sorted(allowed)})")
     if topts.pop("ckpt_bf16", False):
         raise NotImplementedError(
             "tree_opts ckpt_bf16 (bf16 checkpoint stacks) is not ported to "
@@ -431,19 +491,22 @@ def mcmc_with_warmup(seed: Union[int, torch.Generator], model: Model,
                      thin: int = 1,
                      keep_dims: Optional[Sequence[int]] = None,
                      tree_opts: Optional[dict] = None,
+                     use_pallas: str = "auto",
                      **not_ported) -> MCMCResult:
     """NUTS with the default windowed warmup on ``device``.  ``delta`` is the
     dual-averaging target acceptance rate; ``pooled`` defaults to
     ``n_chains > 1``; ``seed`` is an int or a ``torch.Generator`` on
-    ``device``; ``thin``, ``keep_dims`` and ``tree_opts`` as in the JAX
-    package (see the module docstring)."""
+    ``device``; ``thin``, ``keep_dims``, ``tree_opts`` and ``use_pallas``
+    as in the JAX package (see the module docstring and
+    :class:`NUTSKernel`)."""
     _refuse(not_ported)
     if pooled is None:
         pooled = n_chains > 1
     if warmup_stages is None:
         warmup_stages = default_warmup_stages(
             stepsize_adaptation=DualAveraging(delta=delta))
-    kern = NUTSKernel(model, algorithm, pooled, tree_opts=tree_opts)
+    kern = NUTSKernel(model, algorithm, pooled, tree_opts=tree_opts,
+                      use_pallas=use_pallas)
     return kern.run(make_generator(seed, device), n_draws, n_chains,
                     warmup_stages=warmup_stages, q=q, metric=metric, eps=eps,
                     dtype=dtype, device=device, reporter=reporter, thin=thin,

@@ -3,9 +3,11 @@
 (``csrc/tree_gaussian.cu``: its three drawing forms, its sweeps and its
 generator; ``csrc/tree_eight_schools.cu`` and ``csrc/tree_funnel.cu``, its
 tile physics; K5-dense, each source's dense-metric launcher, and
-``csrc/tree_dense_gaussian.cu``) against their plain torch versions, the
+``csrc/tree_dense_gaussian.cu``; K5-logistic, ``csrc/tree_logistic.cu``,
+with and without ``grad_bf16``) against their plain torch versions, the
 flagship ``sample(tree_opts=...)`` path through K5, and ``sample()`` on
-eight schools, the funnel and an ``mvn`` through their kernels.
+eight schools, the funnel, an ``mvn`` and a logistic regression
+(``use_pallas="tree"``) through their kernels.
 
 They carry the ``cuda`` marker and skip, inside the test, where there is no
 card.  This file imports neither JAX nor the JAX package, so on a machine
@@ -758,3 +760,194 @@ def test_cuda_mvn_sample_goes_through_dense_k5():
     assert counts.pop("tree_dense_gaussian_dense_launch") == 50 + 25 + 100
     assert not any(counts.values()), counts
     assert bool(torch.isfinite(res.draws).all())
+
+
+def _logistic_tree(seed, c, d, metric, n=1000, block_n=333, grad_bf16=False):
+    """Inputs of K5-logistic: a logistic regression of ``n`` observations
+    (``block_n`` 333 pads 1,000 to 1,332 rows, so the kernel's last step of
+    eight observations is ragged), positions from the Laplace
+    approximation at the coefficients, the metric its covariance (dense) or
+    the diagonal of it, and the leapfrog's stability limit 2 /
+    sqrt(lambda_max(M^-1 H))."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, d))
+    beta = rng.normal(size=d) * 2.0 / np.sqrt(d)
+    s = 1.0 / (1.0 + np.exp(-x @ beta))
+    y = (rng.uniform(size=n) < s).astype(np.float32)
+    h = (x.T * (s * (1 - s))) @ x + INV_VAR * np.eye(d)
+    cov = np.linalg.inv(h)
+    cov = 0.5 * (cov + cov.T)
+    m = cov if metric == "dense" else np.diag(np.diag(cov))
+    chol = np.linalg.cholesky(m)
+    limit = 2.0 / np.linalg.eigvalsh(chol.T @ h @ chol).max() ** 0.5
+    q = beta + rng.normal(size=(c, d)) @ np.linalg.cholesky(cov).T
+    data = tp.logistic_data(torch.as_tensor(x, dtype=torch.float32,
+                                            device="cuda"),
+                            torch.as_tensor(y, device="cuda"), INV_VAR,
+                            grad_bf16=grad_bf16, block_n=block_n)
+    minv = torch.as_tensor(cov if metric == "dense" else np.diag(cov),
+                           dtype=torch.float32, device="cuda").contiguous()
+    return (torch.as_tensor(q, dtype=torch.float32, device="cuda"),
+            tp.bind("logistic", data), minv, limit)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["diag", "dense"])
+@pytest.mark.parametrize("c,d", [(37, 7), (45, 50), (21, 65)])
+@pytest.mark.parametrize("eps", [0.5, 4.0])
+@pytest.mark.parametrize("form", ["prng", "refresh"])
+def test_cuda_logistic_tree_matches_plain_version(metric, c, d, eps, form):
+    """K5-logistic (``csrc/tree_logistic.cu``) against its plain version fed
+    the kernel's own draws, at D = 7, 50 and 65 (one, two and four
+    registers a lane), 1,000 observations padded to 1,332, under a
+    diagonal and a dense metric, at half the step size's stability limit
+    and at four times it (chains diverge), the uniforms drawn in the kernel
+    and, with ``refresh``, the momentum too: at most one chain in twenty
+    differs (``_compare_any_field``: the sums of 1,000 terms are taken in
+    another order)."""
+    _needs_card()
+    md = 6
+    q, phys, minv, limit = _logistic_tree(20 + d, c, d, metric)
+    e = torch.full((c,), eps * limit, device="cuda")
+    key = _key(c + d + 1)
+    xi, dirs, unif = tree.philox_draws(key, c, d, md)
+    scale = _scale(minv)
+    kern = (tree.TREE_DENSE_KERNELS if metric == "dense"
+            else tree.TREE_KERNELS)["logistic"]
+    before = kern.launches
+    if form == "prng":
+        p0 = tree.refresh_momentum(scale, torch.randn(
+            (c, d), generator=torch.Generator(device="cuda").manual_seed(3),
+            device="cuda")).contiguous()
+        got = tree.tree_transition(q, p0, e, dirs[0], None, phys, minv, md,
+                                   -1000.0, key=key)
+    else:
+        p0 = tree.refresh_momentum(scale, xi[0])
+        got = tree.tree_transition(q, None, e, None, None, phys, minv, md,
+                                   -1000.0, key=key, sqrt_mass=scale)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    want = tree.tree_transition_plain(q, p0, e, dirs[0], unif[0], phys, minv,
+                                      md, -1000.0)
+    _compare_any_field(got, want, c, c // 20)
+    assert bool(torch.isfinite(got.q).all() and torch.isfinite(got.grad).all())
+    if eps > 1:
+        assert bool((want.term == 1).any())
+    else:
+        assert float(want.depth.double().mean()) >= 1.5
+
+
+@pytest.mark.cuda
+def test_cuda_logistic_grad_bf16():
+    """Under ``grad_bf16`` the kernel rounds the residual and x to bfloat16
+    before the backward product, as the plain version does: the gradient
+    of a transition's proposal agrees with the plain physics' on that
+    proposal within the bfloat16 rounding of one residual, 2^-8 max |x|,
+    beside f32 sums of 1,000 terms, and differs from the float32
+    gradient.  The transition agrees with the plain version fed its draws
+    in all but a fifth of the chains: a residual within the two sides'
+    f32 rounding of a bfloat16 tie (about 1e-7 / 2^-8, 3e-5 of them) rounds
+    to either side and moves a gradient component by up to 2^-8 |x|; with
+    1,000 residuals at each of about 15 leaves a third of the chains meet
+    one, and in some of those the trajectories part by more than 1e-4 (4
+    of these 45 chains on an H100)."""
+    _needs_card()
+    c, d, md = 45, 50, 6
+    q, phys, minv, limit = _logistic_tree(31, c, d, "dense", grad_bf16=True)
+    e = torch.full((c,), 0.5 * limit, device="cuda")
+    key = _key(32)
+    xi, dirs, unif = tree.philox_draws(key, c, d, md)
+    scale = _scale(minv)
+    got = tree.tree_transition(q, None, e, None, None, phys, minv, md,
+                               -1000.0, key=key, sqrt_mass=scale)
+    want = tree.tree_transition_plain(q, tree.refresh_momentum(scale, xi[0]),
+                                      e, dirs[0], unif[0], phys, minv, md,
+                                      -1000.0)
+    _compare_any_field(got, want, c, c // 5)
+    _, g_plain = phys(got.q)
+    xmax = float(phys.data["x"].abs().max())
+    assert bool(((got.grad - g_plain).abs()
+                 <= 2.0 ** -8 * xmax + 1e-4 * (1 + g_plain.abs())).all())
+    f32 = tp.bind("logistic", {**phys.data, "grad_bf16": 0.0})
+    assert not torch.allclose(f32(got.q)[1], got.grad, rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_logistic_overflow_diverges():
+    """A step size of 1e36, far past the stability limit, throws the first
+    leaf's eta and momentum past float32's range (the log density or the
+    kinetic energy is non-finite): every chain diverges there and keeps its
+    start, with a finite log density and gradient; no NaN reaches a
+    draw."""
+    _needs_card()
+    c, d, md = 33, 9, 5
+    q, phys, minv, limit = _logistic_tree(41, c, d, "diag")
+    e = torch.full((c,), 1e36, device="cuda")
+    got = tree.tree_transition(q, None, e, None, None, phys, minv, md,
+                               -1000.0, key=_key(42),
+                               sqrt_mass=_scale(minv))
+    assert bool((got.term == 1).all() and (got.steps == 1).all())
+    assert torch.equal(got.q, q)
+    assert bool(torch.isfinite(got.logp).all()
+                and torch.isfinite(got.grad).all())
+
+
+@pytest.mark.cuda
+def test_cuda_logistic_sweep_bit_identical_to_single_launches():
+    """K5-logistic under a dense metric: one launch of 5 transitions
+    drawing everything equals 5 one-transition launches fed what its
+    generator draws (the momentum ``xi mass_chol^T`` in the kernel's order
+    of operations), bit for bit."""
+    _needs_card()
+    c, d, md, k = 40, 50, 6, 5
+    q, phys, minv, limit = _logistic_tree(51, c, d, "dense")
+    scale = _scale(minv)
+    e = torch.full((c,), 0.5 * limit, device="cuda")
+    key = _key(52)
+    swept = tree.tree_sweep(q, e, phys, minv, md, -1000.0, k, key=key,
+                            sqrt_mass=scale)
+    xi, dirs, unif = tree.philox_draws(key, c, d, md, k)
+    for s in range(k):
+        p = torch.zeros_like(xi[s])
+        for i in range(d):
+            p = p + xi[s][:, i:i + 1] * scale[i]
+        one = tree.tree_sweep(q, e, phys, minv, md, -1000.0, momentum=p[None],
+                              dirs=dirs[s:s + 1], unif=unif[s:s + 1])
+        for f in tree.TreeOut._fields:
+            if f != "grad":
+                assert torch.equal(getattr(swept, f)[s], getattr(one, f)[0]), \
+                    (f, s)
+        q = one.q[0]
+    assert torch.equal(swept.grad, one.grad)
+
+
+@pytest.mark.cuda
+def test_cuda_logistic_sample_goes_through_k5():
+    """``sample(..., use_pallas="tree")`` on a logistic regression of 2,000
+    x 10 at 64 chains with dense windows: K5-logistic's diagonal launcher
+    until the first dense window closes and its dense one after, no other
+    kernel (K1 not once); finite draws.  Without ``use_pallas`` the same
+    model runs K1 and no K5."""
+    _needs_card()
+    from inplacedhmc_tpu_torch import default_warmup_stages, sample
+    x, y, _ = models.synthetic_data(5, 2000, 10, device="cuda")
+    m = models.logistic_regression(x, y, device="cuda")
+    stages = default_warmup_stages(init_steps=40, middle_steps=25,
+                                   doubling_stages=2, terminating_steps=25,
+                                   metric="dense")
+    kernels = [*tree.TREE_KERNELS.values(), *tree.TREE_DENSE_KERNELS.values(),
+               lf.LEAPFROG_GAUSSIAN, LOGISTIC_VG]
+    for use_pallas in ("tree", "auto"):
+        for k in kernels:
+            k.launches = 0
+        res = sample(2, m, 100, 64, warmup_stages=stages, device="cuda",
+                     use_pallas=use_pallas)
+        torch.cuda.synchronize()
+        counts = {k.symbol: k.launches for k in kernels}
+        if use_pallas == "tree":
+            assert counts.pop("tree_logistic_launch") == 40 + 25, counts
+            assert counts.pop("tree_logistic_dense_launch") == 50 + 25 + 100
+        else:
+            assert counts.pop("logistic_vg_launch") > 0
+        assert not any(counts.values()), counts
+        assert bool(torch.isfinite(res.draws).all())

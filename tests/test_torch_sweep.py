@@ -395,11 +395,17 @@ def test_tree_opts_are_checked(opts, error):
 def test_tree_opts_refused_where_the_kernel_is_not_ported():
     """``tree_opts`` on models whose whole-tree kernel the port lacks raise
     ``NotImplementedError`` naming their ROADMAP item; without ``tree_opts``
-    those models run as before."""
+    those models run as before.  Logistic regression's kernel is ported:
+    its ``tree_opts`` configure it under ``use_pallas="tree"``, and the
+    default route, which runs no whole tree for it, ignores them as JAX's
+    does."""
     logistic = logistic_regression(np.zeros((4, 2), np.float32),
                                    np.zeros(4, np.float32), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 2 item 5"):
-        sample(0, logistic, 2, 2, device="cpu", tree_opts={"n_sweep": 2})
+    opts = {"n_sweep": 2}
+    assert NUTSKernel(logistic, tree_opts=opts).transition_factory is None
+    assert NUTSKernel(logistic, tree_opts=opts, use_pallas="tree") \
+        .transition_factory(W.identity_metric(2, torch.float32, "cpu"),
+                            2)._sweep.n_sweep == 2
     m = Model(name="tile_logp", dim=2, logp=lambda q: -(q * q).sum(-1),
               structure={"kind": "tile_logp"})
     with pytest.raises(NotImplementedError, match="item 6"):
