@@ -37,6 +37,10 @@ Phases, each printed with its wall time:
    covariance as a dense M^-1 and under the diagonal of it, at three step
    sizes, in the three forms, with a sweep of 16 against 16 launches, and
    the per-leaf library composition of the physics timed for reference;
+   K5-stoch_vol (``csrc/tree_stoch_vol.cu``, the AR(1) physics) at T = 100
+   (D = 102) at 1,024 and 10,240 chains, under a diagonal and a dense
+   metric, at three step sizes, every 16th chain started where f32 tanh
+   saturates (raw_phi = 10), and a sweep of 16 against 16 launches;
 3. ``sample()`` on BASELINE config 3 (logistic regression, 10,000 x 50 data
    from a seed, 8192 chains, dense metric, a short warmup schedule, 128
    draws) through K1; then the same through K5-logistic
@@ -64,7 +68,12 @@ Phases, each printed with its wall time:
 9. ``sample()`` on BASELINE config 2, the 10-D Neal's funnel, at 64 chains
    (``delta`` 0.9, no L-BFGS start, 1,000 draws; the examples' run) through
    K5 with the funnel physics, and on its non-centred form through K5 with
-   the Gaussian physics;
+   the Gaussian physics; then ``sample()`` on BASELINE config 5's model,
+   stochastic volatility at T = 100 (data drawn on the card by the model's
+   recursion, the true latents kept), config 5's recipe (delta 0.9, dense
+   windows, 4 doubling windows, no L-BFGS start) at 1,024 chains, 200
+   draws, through K5-stoch_vol, and its two launchers timed at the tuned
+   state;
 10. ``sample()`` on the 250-D multivariate normal of Hoffman and Gelman
    (2014) with a Wishart precision of 300 degrees of freedom (``mvn``) at
    1,024 chains, dense windows, 1,000 draws: K5 with the dense Gaussian's
@@ -78,7 +87,8 @@ Phases, each printed with its wall time:
    the lockstep tree, at a fixed step size from the identity metric; the
    250-D ``mvn`` and the 100-D normal through K5-dense and autograd on the
    lockstep tree at the tuned step size and dense metric of phases 10 and
-   11; it fails if ``NUTSKernel.TREE_MIN_CHAINS`` or
+   11, stochastic volatility likewise at its tuned state (1 to 10,240
+   chains); it fails if ``NUTSKernel.TREE_MIN_CHAINS`` or
    ``TREE_MIN_CHAINS_BY_PHYSICS`` contradicts the timings.
 
 Each ``sample()`` phase resets every kernel's launch count just before the
@@ -86,7 +96,8 @@ call and reads the counts just after, and checks the posterior (finite
 draws, split R-hat, acceptance; the coefficients' correlation for logistic
 regression, the moments within Monte Carlo error for the normals and the
 ``mvn``, the means of mu and log_tau against the quadrature golden for
-eight schools, v's standard deviation for the funnel).
+eight schools, v's standard deviation for the funnel; for stochastic
+volatility the divergent fraction and the true latents' coverage).
 
 It prints a ``{"kernels": [...]}`` line, the card's line, and as its last
 line ``{"ok": true, "device": {...}}``.  Any failure raises and the script
@@ -165,9 +176,15 @@ TREE_SFU_PER_LEAF = 4
 # -e x, 3 per x lane; logp and d/dv, 12; exp(-v).  The dense Gaussian:
 # the negation and the log density's terms, 3 per lane, beside its product
 # P q (counted by tree_bound).
+# Stochastic volatility, per h lane: innov's 3, the two sums' 4, exp's
+# argument, r2 e, the observation term's 3, d/dh's 4 and the neighbour's
+# 2: 18; per chain: u, z1, z1^2, u z1^2, phi inv_s, the two shifts of the
+# priors, h_1's gradient 3, d/draw_phi 8, d/dlog_s 3 and logp 13: 35; tanh,
+# exp(-log_s) and log u; and one exp per h lane (PHYSICS_LANE_SFU).
 PHYSICS_COST = {"gaussian": (0, 0, 0), "eight_schools": (14, 25, 4),
                 "funnel": (3, 12, 1), "dense_gaussian": (3, 0, 0),
-                "logistic": (3, 6, 0)}
+                "logistic": (3, 6, 0), "stoch_vol": (18, 35, 3)}
+PHYSICS_LANE_SFU = {"stoch_vol": 1}
 # logistic regression per observation and evaluation, beyond the products'
 # 4 D flops (tree_bound): |eta| and its negation, ll's four, the sigmoid's
 # two and its select, the residual's two, w ll and its sum: 12 flops; exp
@@ -200,6 +217,35 @@ LOGISTIC_REPLACES = "1242"
 LOGISTIC_BLOCK_N = 2048
 INV_VAR = 0.01                    # the prior of logistic_regression()
 LOGISTIC_CROSSOVER_CHAINS = (1, 64, 1024, C)
+# BASELINE config 5's model, stochastic volatility, at the examples' T = 100
+# (examples/baseline_configs.py:141-143: phi 0.97, s 0.15; D = 102) through
+# K5 with its AR(1) physics (csrc/tree_stoch_vol.cu), with the recipe of
+# :144-153 (delta 0.9, dense windows, doubling_stages 4, no L-BFGS start)
+# at the examples' full-scale 1,024 chains and 200 draws, the draws stored
+# (the port has neither streamed moments nor chunked tuning yet); the
+# kernel checks also at config 5's 10,240 chains
+SV_T, SV_PHI, SV_S = 100, 0.97, 0.15
+SV_CHAINS, SV_BIG, SV_DRAWS = 1024, 10_240, 200
+# every SV_THIN-th transition is recorded: the centred posterior mixes
+# slowly without ASIS (not ported), in JAX too; on an H100 200 consecutive
+# draws of converged chains read a split R-hat of 1.27 on log_s (its
+# autocorrelation time about 69 transitions), 16 transitions apart 1.042
+# on an h_t (the slowest coordinate, about 235); 32 apart halves that
+# excess (PERF.md section 6)
+SV_THIN = 32
+# the kernel checks' step sizes under 0.5 + U(0, 1) or _spd's M^-1 from
+# tile_start: trees of depth about 6.7, 4.3 and 0.3 (almost every chain
+# diverges), and the sweep check's
+SV_EPS = (0.002, 0.02, 0.2)
+SV_SWEEP_EPS = 0.02
+SV_SATURATED = 10.0               # raw_phi where f32 tanh is 1: u = 0
+SV_ACCEPT_BAND = (0.75, 0.99)     # delta 0.9 (PERF.md section 2)
+SV_DIV_MAX = 0.05                 # the divergent fraction of transitions
+SV_COVERAGE = 70                  # true h_t in their central 90 % intervals
+SV_CROSSOVER_CHAINS = (1, 64, 1024, SV_BIG)
+# the TPU code K5-stoch_vol replaces in both metric forms: jax.vjp of the
+# model's tile_logp inside the kernel built by make_tree_transition
+SV_REPLACES = "906"
 FLAGSHIP_K = 16                   # n_sweep of the flagship sample()
 SWEEP_KS = (1, 4, 16, 64)         # the n_sweep values the bench times
 BENCH_EPS, BENCH_TRANSITIONS, PROBE_EPS = 0.25, 64, 0.005  # bench.py's
@@ -477,7 +523,8 @@ def tree_bound(c: int, d: int, out, form: str = "array",
     over ``n_obs`` observations (logistic regression) adds per evaluation
     4 D flops per observation for its two products, ``LOGISTIC_OBS_FLOPS``
     and ``LOGISTIC_OBS_SFU`` more per observation, and its observation
-    matrix and two rows read once."""
+    matrix and two rows read once; a physics with special functions on its
+    lanes (``PHYSICS_LANE_SFU``) adds those per evaluation."""
     from inplacedhmc_tpu_torch.ops.tile_physics import PHYSICS
     k = out.q.shape[0] if out.q.ndim == 3 else 1
     steps = float(out.steps.sum())
@@ -486,7 +533,7 @@ def tree_bound(c: int, d: int, out, form: str = "array",
     lane_flops, chain_flops, phys_sfu = PHYSICS_COST[physics]
     evals = steps + k * c + c
     lanes = {"gaussian": 0, "eight_schools": d - 2, "funnel": d - 1,
-             "dense_gaussian": d, "logistic": d}[physics]
+             "dense_gaussian": d, "logistic": d, "stoch_vol": d - 2}[physics]
     flops = 25.0 * d * steps + (lane_flops * lanes + chain_flops) * evals
     flops += (4.0 * d + LOGISTIC_OBS_FLOPS) * n_obs * evals
     phys_mat = PHYSICS[physics].matrix is not None
@@ -495,7 +542,8 @@ def tree_bound(c: int, d: int, out, form: str = "array",
         products += 2 * steps + k * c + (k * c if form == "refresh" else 0)
     flops += 2.0 * d * d * products
     sfu = TREE_SFU_PER_LEAF * steps + 3 * merges + phys_sfu * evals \
-        + LOGISTIC_OBS_SFU * n_obs * evals
+        + LOGISTIC_OBS_SFU * n_obs * evals \
+        + PHYSICS_LANE_SFU.get(physics, 0) * lanes * evals
     n_rows = len(PHYSICS[physics].rows) + (0 if dense else 1)
     n_mats = phys_mat + dense * (1 + (form == "refresh"))
     nbytes = 4.0 * (c * d + 2 * c + n_rows * d + n_mats * d * d) \
@@ -587,7 +635,9 @@ def compare_tree(got, want, label: str, bound=None, grad_q=None,
     shift)`` runs the plain version on those chains with every uniform
     times exp(shift); a differing chain is a verified tie when the shift
     -4e or +4e gives the kernel's integer fields and its q, logp, energy
-    and log_sum_alpha (by the rule above)."""
+    and log_sum_alpha (by the rule above).  A NaN agrees with a NaN in the
+    same place (``same_value``): a gradient component that is NaN on both
+    sides, as stochastic volatility's d/draw_phi where tanh saturates."""
     import torch
     c = got.q.shape[0]
     q_got, q_want = (got.q, want.q) if grad_q is None else grad_q
@@ -598,7 +648,8 @@ def compare_tree(got, want, label: str, bound=None, grad_q=None,
     n_int = int(bad.sum())
 
     def agree(g, w):
-        return (g == w) | ((g - w).abs() <= TREE_RTOL * (1 + w.abs()))
+        return same_value(g, w) \
+            | ((g - w).abs() <= TREE_RTOL * (1 + w.abs()))
 
     def agree_lsa(g, w, e):
         same = agree(g, w)
@@ -617,7 +668,8 @@ def compare_tree(got, want, label: str, bound=None, grad_q=None,
             same = same.all(dim=1)
         n_field[f] = int((~same).sum())
         bad |= ~same
-        d = torch.where(g == w, torch.zeros_like(g), (g - w).abs())
+        d = torch.where(same_value(g, w), torch.zeros_like(g),
+                        (g - w).abs())
         diffs[f] = d if d.ndim == 1 else d.amax(dim=1)
     ok = ~bad
     err = {f: (v[ok].max().item() if bool(ok.any()) else 0.0)
@@ -660,6 +712,12 @@ def compare_tree(got, want, label: str, bound=None, grad_q=None,
     if n_bad - ties > allowed:
         raise RuntimeError(f"K5 disagrees with its plain version ({label})")
     return max(err.values())
+
+
+def same_value(g, w):
+    """Equal, or NaN on both sides."""
+    import torch
+    return (g == w) | (torch.isnan(g) & torch.isnan(w))
 
 
 def _first(out):
@@ -818,33 +876,73 @@ def check_generator(card: str) -> None:
 
 
 def tile_model(name: str):
-    """The model of a tile physics at its BASELINE width, on the card."""
+    """The model of a tile physics at its BASELINE width, on the card
+    (stochastic volatility at ``SV_T``, ``sv_problem``)."""
     from inplacedhmc_tpu_torch.models import eight_schools, funnel, funnel_nc
     return {"eight_schools": eight_schools, "funnel": lambda: funnel(F_DIM),
-            "funnel_nc": lambda: funnel_nc(F_DIM)}[name]()
+            "funnel_nc": lambda: funnel_nc(F_DIM),
+            "stoch_vol": lambda: sv_problem()[0]}[name]()
+
+
+@functools.lru_cache(maxsize=None)
+def sv_problem():
+    """Stochastic volatility's data, made on the card from a seeded
+    generator by the documented recursion (``synthetic_returns``' recipe,
+    kept here so that the true latents are known): innovations ``eps ~ N(0,
+    SV_S^2)``, ``h_1 = eps_1 / sqrt(1 - SV_PHI^2)``, ``h_t = SV_PHI h_{t-1} +
+    eps_t``, returns ``z exp(h / 2)``.  Returns the model
+    (``stoch_vol(returns)``, T = ``SV_T``) and the true ``h [T]``."""
+    import torch
+
+    from inplacedhmc_tpu_torch.models import stoch_vol
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 50)
+    eps = torch.randn((SV_T,), generator=gen, device="cuda") * SV_S
+    h = torch.empty_like(eps)
+    h[0] = eps[0] / math.sqrt(1.0 - SV_PHI * SV_PHI)
+    for t in range(1, SV_T):
+        h[t] = SV_PHI * h[t - 1] + eps[t]
+    r = torch.randn((SV_T,), generator=gen, device="cuda") * torch.exp(0.5 * h)
+    return stoch_vol(r, device="cuda"), h
+
+
+#: coordinate 0's value at which a model's density is not finite (the
+#: funnel's exp(-v) overflows float32 at v = -95; stochastic volatility's
+#: tanh(10) is 1 in float32, so log(1 - phi^2) is -inf and d/draw_phi NaN)
+SATURATED = {"funnel": -95.0, "stoch_vol": SV_SATURATED}
 
 
 def tile_start(name: str, c: int, gen, neck: bool = False):
-    """Positions for ``c`` chains of a tile model: normal, with eight
-    schools' mu about its posterior; with ``neck``, every 16th funnel chain
-    at v = -95, where exp(-v) overflows float32, so the density and the
-    gradient are non-finite and the leaf's sanitisation runs."""
+    """Positions for ``c`` chains of a tile model at its width: normal, with
+    eight schools' mu about its posterior; stochastic volatility's about
+    the truth (raw_phi, log_s 0.2 from it, each h_t 0.3); with ``neck``,
+    every 16th chain at coordinate 0's ``SATURATED`` value, where the
+    density and the gradient are non-finite and the leaf's sanitisation
+    runs."""
     import torch
-    q = torch.randn((c, 10), generator=gen, device="cuda")
+    if name == "stoch_vol":
+        h = sv_problem()[1]
+        q = torch.randn((c, SV_T + 2), generator=gen, device="cuda")
+        q[:, 0] = math.atanh(SV_PHI) + 0.2 * q[:, 0]
+        q[:, 1] = math.log(SV_S) + 0.2 * q[:, 1]
+        q[:, 2:] = h + 0.3 * q[:, 2:]
+    else:
+        q = torch.randn((c, 10), generator=gen, device="cuda")
     if name == "eight_schools":
         q[:, 0] = 5.0 + 4.0 * q[:, 0]
     if neck:
-        q[::16, 0] = -95.0
+        q[::16, 0] = SATURATED[name]
     return q
 
 
-def check_sweep(card: str, physics: str = "gaussian") -> None:
+def check_sweep(card: str, physics: str = "gaussian",
+                eps: float = 0.3) -> None:
     """One launch of ``SWEEP_CHECK_K`` transitions drawing everything itself
     against that many one-transition launches fed what the generator draws
-    for its key (max_depth 10, eps 0.3, 1 row in 1,000 padded; the standard
-    normal at 10,240 x 100, or a tile model at 1,024 x 10): every field
-    equal bit for bit.  Timed beside the single launches (each with its own
-    key) and the bound."""
+    for its key (max_depth 10, step size ``eps``, 1 row in 1,000 padded;
+    the standard normal at 10,240 x 100, or a tile model at 1,024 chains
+    and its width): every field equal bit for bit.  Timed beside the single
+    launches (each with its own key) and the bound."""
     import torch
 
     from inplacedhmc_tpu_torch.ops.tree import (TREE_KERNELS, TreeOut,
@@ -856,15 +954,15 @@ def check_sweep(card: str, physics: str = "gaussian") -> None:
         data = {"lam": torch.ones((d,), device="cuda")}
         q0 = torch.randn((c, d), generator=gen, device="cuda")
     else:
-        c, d = E_CHAINS, 10
         st = tile_model(physics).structure
         data = {**st["data"], **st["scalars"]}
-        q0 = tile_start(physics, c, gen)
+        q0 = tile_start(physics, E_CHAINS, gen)
+        c, d = q0.shape
     phys = _physics(physics, data)
     md, k = MAX_DEPTH, SWEEP_CHECK_K
     minv = 0.5 + torch.rand((d,), generator=gen, device="cuda")
     sqrt_mass = 1.0 / torch.sqrt(minv)
-    e = torch.full((c,), 0.3, device="cuda")
+    e = torch.full((c,), eps, device="cuda")
     valid = (torch.arange(c, device="cuda") % 1000 != 999).to(torch.int32)
     key = _key(SEED + 9)
     kern = TREE_KERNELS[physics]
@@ -911,27 +1009,40 @@ def check_sweep(card: str, physics: str = "gaussian") -> None:
 
 
 def check_tile_kernel(card: str, physics: str, chain_counts, eps_list,
-                      neck: bool = False) -> None:
+                      neck: bool = False, dense: bool = False) -> None:
     """K5 with a tile physics against its plain version at its model's
-    width (10), max_depth 10, for each chain count and step size, in the
+    width, max_depth 10, for each chain count and step size, in the
     default route's form (momentum and directions from the host, the
     uniforms drawn in the kernel; the plain version fed the kernel's own):
-    ``compare_tree``'s rule; timed beside its bound.  With ``neck`` some
-    funnel chains start where the density overflows (``tile_start``)."""
+    ``compare_tree``'s rule; timed beside its bound (3 launches where the
+    trees average above depth 7, else 20).  The metric is ``0.5 +
+    U(0, 1)`` on the diagonal, or with ``dense`` a dense ``M^-1``
+    (``_spd``, the source's second launcher).  With ``neck`` every 16th
+    chain starts where the density is not finite (``tile_start``): those
+    chains must diverge at their first leaf and keep their start."""
     import torch
 
-    from inplacedhmc_tpu_torch.ops.tree import (TREE_KERNELS,
+    from inplacedhmc_tpu_torch.core.metric import dense_metric
+    from inplacedhmc_tpu_torch.ops.tree import (TREE_DENSE_KERNELS,
+                                                TREE_KERNELS,
                                                 direction_words_int32)
 
     st = tile_model(physics).structure
     phys = _physics(physics, {**st["data"], **st["scalars"]})
-    kern = TREE_KERNELS[physics]
-    d, md = 10, MAX_DEPTH
+    kern = (TREE_DENSE_KERNELS if dense else TREE_KERNELS)[physics]
+    md = MAX_DEPTH
+    metric = "dense" if dense else "diagonal"
     for c in chain_counts:
         gen = torch.Generator(device="cuda").manual_seed(SEED + 12 + c)
         q0 = tile_start(physics, c, gen, neck)
-        minv = 0.5 + torch.rand((d,), generator=gen, device="cuda")
-        p0 = torch.randn((c, d), generator=gen, device="cuda") / minv.sqrt()
+        d = q0.shape[1]
+        xi = torch.randn((c, d), generator=gen, device="cuda")
+        if dense:
+            minv = _spd(d, gen)
+            p0 = (xi @ dense_metric(minv).mass_chol.T).contiguous()
+        else:
+            minv = 0.5 + torch.rand((d,), generator=gen, device="cuda")
+            p0 = xi / minv.sqrt()
         d32 = direction_words_int32(torch.randint(
             0, 2 ** 32, (c,), generator=gen, dtype=torch.int64,
             device="cuda"))
@@ -944,26 +1055,28 @@ def check_tile_kernel(card: str, physics: str, chain_counts, eps_list,
             got = launch()
             torch.cuda.synchronize()
             if kern.launches != before + 1:
-                raise RuntimeError(f"the wrapper did not launch K5 with the "
-                                   f"{physics} physics")
+                raise RuntimeError(f"the wrapper did not launch {kern.symbol}")
             want = plain()
-            label = f"{physics}, {c} chains, eps {eps}"
+            label = f"{physics}, {metric} metric, {c} chains, eps {eps}"
             compare_tree(got, want, label, replay=plain)
             # every position stays finite; the density and energy too but
-            # on the chains that start where the density overflows, which
-            # diverge at their first leaf and keep their start
-            rest = q0[:, 0] != -95.0
+            # on the chains that start where the density is not finite,
+            # which diverge at their first leaf and keep their start
+            rest = q0[:, 0] != SATURATED.get(physics, math.nan)
             n_neck = int((~rest).sum())
             finite = bool(torch.isfinite(got.q).all()) and all(
                 bool(torch.isfinite(getattr(got, f)[rest]).all())
                 for f in ("logp", "energy"))
-            if n_neck and not bool((got.term[~rest] == 1).all()):
+            if n_neck and not (bool((got.term[~rest] == 1).all())
+                               and torch.equal(got.q[~rest], q0[~rest])):
                 finite = False
-            ms = cuda_time_ms(launch, 20)
+            deep = float(want.depth.double().mean()) > 7
+            ms = cuda_time_ms(launch, 3, 1) if deep else cuda_time_ms(launch)
             bound_ms, bound_by, steps = tree_bound(c, d, want, "prng",
-                                                   physics)
+                                                   physics, dense)
             neck_note = (f"; the {n_neck} chains started where the density "
-                         f"overflows all diverged" if n_neck else "")
+                         f"is not finite all diverged at their start"
+                         if n_neck else "")
             print(f"[k5] {label} on {card}: kernel {ms:.4f} ms; {steps:.0f} "
                   f"leapfrog steps, {steps / ms * 1e3:.4g} steps/s; bound "
                   f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.3f} of "
@@ -971,7 +1084,8 @@ def check_tile_kernel(card: str, physics: str, chain_counts, eps_list,
             if not finite:
                 raise RuntimeError(f"K5 ({label}) returned a non-finite "
                                    f"state, or a chain started where the "
-                                   f"density overflows did not diverge")
+                                   f"density is not finite did not diverge "
+                                   f"there")
 
 
 @functools.lru_cache(maxsize=None)
@@ -1444,6 +1558,7 @@ def tree_at_state(card: str, res, form: str = "prng", k: int = 1,
                       f"{TREE_KERNELS[physics].source}",
             "replaces": "inplacedhmc_tpu/ops/tree_pallas.py:"
                         + (LOGISTIC_REPLACES if physics == "logistic"
+                           else SV_REPLACES if physics == "stoch_vol"
                            else DENSE_REPLACES[physics] if dense else "92"),
             "launches": None, "max_abs_err": abs_err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
@@ -1846,6 +1961,97 @@ def run_tile_sample(card: str, kernels, name: str):
     return res, launches, sample_s
 
 
+def run_sv_sample(card: str, kernels):
+    """``sample()`` on stochastic volatility at T = ``SV_T`` (``sv_problem``)
+    through K5 with its physics: config 5's recipe (delta 0.9, dense
+    windows, ``doubling_stages`` 4, no L-BFGS start), ``SV_CHAINS`` chains,
+    ``SV_DRAWS`` draws, every ``SV_THIN``-th transition recorded; the
+    diagonal launcher until the first dense window
+    closes and the dense one after (``tree_launches``), once per transition,
+    and no other kernel: no transition ran the lockstep tree.  Gates:
+    finite draws, split R-hat max over every coordinate < 1.05, mean
+    acceptance in ``SV_ACCEPT_BAND``, divergent fraction below
+    ``SV_DIV_MAX``, at least ``SV_COVERAGE`` of the true h_t inside their
+    central 90 % posterior intervals.  Prints phi's and s's posterior means
+    beside the truth.  Returns the result, the launch counts and the
+    sampling wall."""
+    import torch
+
+    from inplacedhmc_tpu_torch import (DualAveraging, default_warmup_stages,
+                                       sample)
+    from inplacedhmc_tpu_torch import diagnostics as diag
+
+    model, h_true = sv_problem()
+    stages = default_warmup_stages(
+        local_optimization=None,
+        stepsize_adaptation=DualAveraging(delta=0.9), doubling_stages=4,
+        metric="dense")
+    mine = tree_launches("stoch_vol", stages, SV_DRAWS * SV_THIN)
+    timer = StageTimer()
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    res = sample(SEED, model, SV_DRAWS, SV_CHAINS, warmup_stages=stages,
+                 reporter=timer, device="cuda", thin=SV_THIN)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts(kernels)
+    tag = f"[stoch_vol {SV_CHAINS} x {model.dim}]"
+    for stage, sec in timer.stages:
+        print(f"{tag} {stage}: {sec:.2f} s on {card}")
+    print(f"{tag} total {wall:.2f} s on {card}; launches "
+          f"{ {k: v for k, v in launches.items() if v} }, expected {mine}")
+    if any(launches[k] != v for k, v in mine.items()) or any(
+            v for k, v in launches.items() if k not in mine):
+        raise RuntimeError(f"the stoch_vol path did not go through "
+                           f"K5-stoch_vol alone: {launches}")
+    sample_s = timer.stages[-1][1]
+    draws, stats = res.draws, res.stats
+    if tuple(draws.shape) != (SV_DRAWS, SV_CHAINS, model.dim) \
+            or not bool(torch.isfinite(draws).all()):
+        raise RuntimeError("draws are not finite or not [n_draws, C, D]")
+    x = draws.double()
+    rhat = diag.split_rhat(x)
+    accept = stats.acceptance_rate.double().mean().item()
+    div = (stats.termination == 1).double().mean().item()
+    ess = diag.ess_bulk(x, cap=False)
+    hs = torch.sort(x[..., 2:].reshape(-1, SV_T), dim=0).values
+    n = hs.shape[0]
+    lo, hi = hs[int(0.05 * (n - 1))], hs[int(math.ceil(0.95 * (n - 1)))]
+    h64 = h_true.double()
+    covered = int(((h64 >= lo) & (h64 <= hi)).sum())
+    post = model.constrain(x)
+    chain_steps = int(stats.steps.sum())
+    print(f"{tag} eps {torch.exp(res.warmup_state.log_eps).item():.5g}, "
+          f"split R-hat max {rhat.max().item():.4f} (coordinate "
+          f"{int(rhat.argmax())}; raw_phi {rhat[0].item():.4f}, log_s "
+          f"{rhat[1].item():.4f}), acceptance mean {accept:.4f}, divergent "
+          f"fraction {div:.5f}; {covered} of {SV_T} true h_t in their "
+          f"central 90 % intervals; posterior means phi "
+          f"{post['phi'].mean().item():.4f} (truth {SV_PHI}), s "
+          f"{post['s'].mean().item():.4f} (truth {SV_S})")
+    print(f"{tag} {card}: {chain_steps * SV_THIN / sample_s:.4g} leapfrog "
+          f"steps/s (the recorded transitions' steps times {SV_THIN}), "
+          f"ess_bulk min {ess.min().item():.4g} (raw_phi "
+          f"{ess[0].item():.4g}, log_s {ess[1].item():.4g}) -> "
+          f"{ess.min().item() / sample_s:.4g} ESS/s")
+    print(diag.summarize_tree_statistics(stats))
+    fails = []
+    if not rhat.max().item() < 1.05:
+        fails.append(f"split R-hat {rhat.max().item()} >= 1.05")
+    lo_a, hi_a = SV_ACCEPT_BAND
+    if not lo_a <= accept <= hi_a:
+        fails.append(f"mean acceptance {accept} outside [{lo_a}, {hi_a}]")
+    if not div < SV_DIV_MAX:
+        fails.append(f"divergent fraction {div} >= {SV_DIV_MAX}")
+    if not covered >= SV_COVERAGE:
+        fails.append(f"{covered} true h_t covered, fewer than "
+                     f"{SV_COVERAGE}")
+    if fails:
+        raise RuntimeError("stoch_vol: " + "; ".join(fails))
+    return res, launches, sample_s
+
+
 def bench_flagship(card: str) -> int:
     """``bench.py``'s measurement of the flagship path, done the port's way:
     the 100-D standard normal at 10,240 chains from q0 normal (seed 0), eps
@@ -1929,8 +2135,9 @@ def crossover(card: str, physics: str = "gaussian", state=None,
     ``state`` (a ``WarmupState``) with ``model`` and positions from
     ``start(c, gen)``: the 100-D standard normal against the lockstep tree
     with K3 (with a dense metric: autograd on the lockstep tree), eight
-    schools (mu about its posterior), the funnel and the dense Gaussian
-    against autograd of ``logp`` on the lockstep tree, logistic regression
+    schools (mu about its posterior), the funnel, the dense Gaussian and
+    stochastic volatility against autograd of ``logp`` on the lockstep
+    tree, logistic regression
     (K5-logistic, which only ``use_pallas="tree"`` takes) against the
     default route's lockstep tree with K1.  With ``check``, fails unless
     the whole tree was the faster exactly at the counts from the threshold
@@ -2001,6 +2208,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     import inplacedhmc_tpu_torch  # noqa: F401  (fails outside a checkout)
+    from inplacedhmc_tpu_torch.core.metric import diag_metric
     from inplacedhmc_tpu_torch.models import logistic_regression
 
     card = card_line()
@@ -2020,6 +2228,12 @@ def main() -> int:
     check_tile_kernel(card, "funnel", (F_CHAINS, E_CHAINS), (0.05, 0.3, 3.0),
                       neck=True)
     check_sweep(card, "eight_schools")
+    t_sv = time.perf_counter()
+    for dense in (False, True):
+        check_tile_kernel(card, "stoch_vol", (SV_CHAINS, SV_BIG), SV_EPS,
+                          neck=True, dense=dense)
+    check_sweep(card, "stoch_vol", SV_SWEEP_EPS)
+    print(f"[k5-stoch_vol] checks {time.perf_counter() - t_sv:.2f} s")
     k5d_diag = check_dense_tree_kernel(card)
     check_dense_sweep(card)
     k5l_diag = check_logistic_tree_kernel(card)
@@ -2110,6 +2324,27 @@ def main() -> int:
             tiles.append(entry)
         del res
         print(f"[phase] {name} sample {time.perf_counter() - t:.2f} s")
+    # BASELINE config 5's model at T = 100 through K5-stoch_vol, then each
+    # launcher timed at the tuned state (the dense M^-1, and its diagonal)
+    t = time.perf_counter()
+    res, launches, sample_s = run_sv_sample(card, kernels)
+    st = tile_model("stoch_vol").structure
+    sv_data = {**st["data"], **st["scalars"]}
+    sv_state = res.warmup_state
+    sv = [tree_at_state(card, res, physics="stoch_vol", data=sv_data,
+                        name="tree_stoch_vol_dense")]
+    sv[0]["launches"] = launches["tree_stoch_vol_dense_launch"]
+    n = SV_DRAWS * SV_THIN
+    print(f"[stoch_vol] K5-stoch_vol device time {n} x {sv[0]['ms']:.4f} ms "
+          f"= {n * sv[0]['ms'] / 1e3:.3f} s of the {sample_s:.3f} s sampling "
+          f"wall")
+    sv_diag = sv_state._replace(metric=diag_metric(
+        torch.diagonal(sv_state.metric.inv).contiguous()))
+    sv.insert(0, tree_at_state(card, res._replace(warmup_state=sv_diag),
+                               physics="stoch_vol", data=sv_data))
+    sv[0]["launches"] = launches["tree_stoch_vol_launch"]
+    del res
+    print(f"[phase] stoch_vol sample {time.perf_counter() - t:.2f} s")
     # the dense metric: the 250-D Wishart-precision mvn at 1,024 chains on
     # the default route and with the flagship options, the 100-D normal at
     # 10,240 chains with dense windows
@@ -2165,10 +2400,14 @@ def main() -> int:
               lambda c, gen: torch.randn((c, MVN_DIM), generator=gen,
                                          device="cuda") @ chol)
     crossover(card, "gaussian", gauss_state)
+    crossover(card, "stoch_vol", sv_state, tile_model("stoch_vol"),
+              lambda c, gen: sv_state.z.q[torch.randint(
+                  0, SV_CHAINS, (c,), generator=gen, device="cuda")],
+              SV_CROSSOVER_CHAINS)
     print(f"[phase] crossover {time.perf_counter() - t:.2f} s")
     print(f"[phase] total {time.perf_counter() - t_start:.2f} s")
     print(json.dumps({"kernels": [k1, k3, k5, k5s, *tiles, *dense, k5l_diag,
-                                  k5l, k5ls]}))
+                                  k5l, k5ls, *sv]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

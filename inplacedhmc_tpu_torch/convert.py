@@ -65,7 +65,11 @@ def tile_model_from_numpy(physics: str, data, dim: int, *, scalars=None,
     or ``[1, D]``; kept bit for bit as float32), ``scalars`` the constants
     the JAX ``tile_logp`` closes over (the funnel's ``k`` and ``inv_s2``).
     Its ``logp`` is the physics' own value, so autograd of it and the
-    physics' hand-written gradient describe the same density."""
+    physics' hand-written gradient describe the same density.  For JAX's
+    ``stoch_vol(returns)``: ``tile_model_from_numpy("stoch_vol",
+    structure["data"], T + 2, scalars={"t": T})`` has its density (the
+    rows ``r2``, ``h_mask``, ``ar_mask`` as JAX rounds them, and
+    ``_make_tile_logp``'s ``T``)."""
     rows = {k: torch.as_tensor(np.array(v, dtype=np.float32).reshape(dim),
                                device=device) for k, v in data.items()}
     scalars = {k: float(v) for k, v in (scalars or {}).items()}

@@ -3,9 +3,9 @@
 // one chain per warp, K sequential transitions per launch, with the random
 // numbers drawn inside the kernel.  Included by one source per physics
 // (tree_gaussian.cu, tree_eight_schools.cu, tree_funnel.cu,
-// tree_dense_gaussian.cu, tree_logistic.cu), each of which defines its
-// physics and its two extern "C" launchers with TREE_LAUNCHERS (diagonal
-// and dense Minv).
+// tree_dense_gaussian.cu, tree_logistic.cu, tree_stoch_vol.cu), each of
+// which defines its physics and its two extern "C" launchers with
+// TREE_LAUNCHERS (diagonal and dense Minv).
 //
 // Replaces the TPU kernel inplacedhmc_tpu/ops/tree_pallas.py::_make_kernel
 // (launched by _build_transition_padded, built by make_tree_transition,

@@ -27,11 +27,13 @@ class Model:
       whole-tree kernel's ``dense_gaussian`` physics);
     * ``"tile_logp"``: ``physics``, the name of a hand-written value and
       gradient in ``ops/tile_physics.py`` (``"eight_schools"``,
-      ``"funnel"``; each has a device function for the whole-tree kernel);
-      ``data``, its rows (``[D]`` float32 tensors on the model's device,
-      zero past its lanes: eight schools' ``y``, ``sig``, ``obs_mask``, the
-      funnel's ``x_mask``); ``scalars``, its floats (the funnel's ``k``,
-      ``inv_s2``).  A physics the port has no device function for runs on
+      ``"funnel"``, ``"stoch_vol"``; each has a device function for the
+      whole-tree kernel); ``data``, its rows (``[D]`` float32 tensors on
+      the model's device, zero past its lanes: eight schools' ``y``,
+      ``sig``, ``obs_mask``, the funnel's ``x_mask``, stochastic
+      volatility's ``r2``, ``h_mask``, ``ar_mask``); ``scalars``, its
+      floats (the funnel's ``k``, ``inv_s2``; stochastic volatility's
+      ``t``).  A physics the port has no device function for runs on
       autograd and the lockstep tree.
 
     Models compare and hash by identity.

@@ -8,13 +8,13 @@ has no autodiff, so each physics here is written out by hand, value and
 gradient together, in the order of the device function of the same name
 (``csrc/tree_gaussian.cu``, ``csrc/tree_eight_schools.cu``,
 ``csrc/tree_funnel.cu``, ``csrc/tree_dense_gaussian.cu``,
-``csrc/tree_logistic.cu``): the same elementwise operations, each rounded
-on its own; only the row sums and the matrix products are taken in another
-order there (a per-lane sum and a warp butterfly; a warp mat-vec; for
-logistic regression a reduce-scatter over eight observations at a
-time).  These are the plain versions that the whole-tree
-transition's CPU path (``ops/tree.py``) calls at the start of a transition,
-at every leaf and for the final gradient.
+``csrc/tree_logistic.cu``, ``csrc/tree_stoch_vol.cu``): the same
+elementwise operations, each rounded on its own; only the row sums and the
+matrix products are taken in another order there (a per-lane sum and a
+warp butterfly; a warp mat-vec; for logistic regression a reduce-scatter
+over eight observations at a time).  These are the plain versions that
+the whole-tree transition's CPU path (``ops/tree.py``) calls at the start
+of a transition, at every leaf and for the final gradient.
 
 A physics takes ``q [C, D]`` and ``data``, a dict of its tensors (in
 ``q``'s dtype and on its device, zero past the model's lanes; shapes
@@ -57,9 +57,30 @@ past D read zero rows and get a zero gradient.
   sig) w``; ``logp = -0.5 inv_var |q|^2 + sum w ll``, ``grad = -inv_var q
   + resid x``.  Under ``grad_bf16`` ``resid`` and ``x`` are rounded to
   bfloat16 before the backward product (exact in float32) and the sum stays
-  in ``q``'s dtype; the log density is never rounded.  Observations with
+  in ``q``'s dtype; the log density is never rounded.  :func:`logistic_data`
+  sets ``grad_bf16`` only under ``physics_mode="chunked"``, as JAX reads it
+  only there.  Observations with
   ``w = 0`` contribute exactly nothing.  :func:`logistic_data` builds the
   data.
+* ``"stoch_vol"`` (BASELINE config 5's model, ``models/stoch_vol.py``;
+  JAX's ``_make_tile_logp``, ``inplacedhmc_tpu/models/stoch_vol.py:61-93``):
+  lanes ``[raw_phi, log_s, h_1..h_T]``; rows ``r2`` (the squared returns on
+  the h lanes), ``h_mask`` (1 on the h lanes ``2..T+1``) and ``ar_mask``
+  (1 on ``3..T+1``, the lanes with a predecessor); scalar ``t = T``.  With
+  ``phi = tanh(raw_phi)``, ``inv_s = exp(-log_s)``, ``u = 1 - phi^2``,
+  ``z1 = h_1 inv_s``, ``h`` the q of the h lanes (0 elsewhere), ``h'_l =
+  h_{l-1}`` (0 at lane 0) and ``innov_l = (q_l - phi h'_l) inv_s`` on the
+  ``ar_mask`` lanes (0 elsewhere): ``logp = -0.5 (raw_phi - 1.5)^2 - 0.5
+  (log_s + 2)^2 + 0.5 log u - T log_s - 0.5 u z1^2 - 0.5 sum innov^2 + sum
+  -0.5 (h + r2 e^-h)`` over the h lanes; on an h lane ``d/dh_l = 0.5 r2
+  e^-h - 0.5 - innov_l inv_s + phi inv_s innov_{l+1}``, and ``- u z1
+  inv_s`` more on lane 2 (h_1); ``d/draw_phi = -(raw_phi - 1.5) + u (-phi
+  / u + phi z1^2 + inv_s sum innov_l h'_l)`` (``tanh' = u``; JAX's vjp
+  takes the cotangent times ``(1 + phi)(1 - phi)``, the same to rounding,
+  and both give NaN where ``tanh`` saturates and ``u = 0``, where the log
+  density is ``-inf``); ``d/dlog_s = -(log_s + 2) - T + u z1^2 + sum
+  innov^2``.  Three row sums: ``sum innov^2``, ``sum innov h'`` and the
+  observation terms'.  Needs D >= 3.
 
 Data shapes (:class:`Spec`): ``rows`` are ``[D]``, ``matrix`` ``[D, D]``,
 ``obs_matrix`` ``[npad, D]`` and ``obs_rows`` ``[npad]`` (``npad`` the
@@ -148,6 +169,35 @@ def logistic(q: torch.Tensor, data: dict):
     return logp, grad
 
 
+def stoch_vol(q: torch.Tensor, data: dict):
+    hm, am = data["h_mask"] != 0, data["ar_mask"] != 0
+    r2, t = data["r2"], data["t"]
+    raw_phi, log_s = q[:, 0], q[:, 1]
+    phi = torch.tanh(raw_phi)
+    inv_s = torch.exp(-log_s)
+    u = 1.0 - phi * phi
+    z1 = q[:, 2] * inv_s
+    z1z1 = z1 * z1
+    uz2 = u * z1z1
+    h = torch.where(hm, q, 0.0)
+    hprev = torch.nn.functional.pad(h[:, :-1], (1, 0))
+    innov = torch.where(am, (q - phi[:, None] * hprev) * inv_s[:, None], 0.0)
+    re = r2 * torch.exp(-h)
+    s_ii = _rowsum(innov * innov)
+    s_ih = _rowsum(innov * hprev)
+    s_obs = _rowsum(torch.where(hm, -0.5 * (h + re), 0.0))
+    innov_next = torch.nn.functional.pad(innov[:, 1:], (0, 1))
+    grad = torch.where(hm, (0.5 * re - 0.5) - innov * inv_s[:, None]
+                       + (phi * inv_s)[:, None] * innov_next, 0.0)
+    grad[:, 2] = grad[:, 2] - (u * z1) * inv_s
+    a, b = raw_phi - 1.5, log_s + 2.0
+    grad[:, 0] = -a + u * ((-(phi / u) + phi * z1z1) + inv_s * s_ih)
+    grad[:, 1] = ((-b - t) + uz2) + s_ii
+    logp = -0.5 * (a * a) - 0.5 * (b * b) + 0.5 * torch.log(u) \
+        - t * log_s - 0.5 * uz2 - 0.5 * s_ii + s_obs
+    return logp, grad
+
+
 #: the physics modes of JAX's ``make_logistic_tree_transition``: both run
 #: the one hand-written physics, which computes their common function
 LOGISTIC_MODES = ("chunked", "vjp")
@@ -161,7 +211,10 @@ def logistic_data(x, y, inv_var: float, *, physics_mode: str = "chunked",
     round_up(N, block_n)``, ``y`` and the weights ``w`` (1 on the N
     observations, 0 on the padding) padded alike, on ``x``'s device in its
     dtype.  ``physics_mode`` ``"chunked"`` and ``"vjp"`` compute the same
-    function and give the same data.  ``block_n`` must be positive."""
+    function and give the same data, but for ``grad_bf16``: JAX's ``"vjp"``
+    form differentiates its float32 ``tile_logp`` and never reads it
+    (``tree_pallas.py:1202-1222``), so under ``"vjp"`` the scalar is 0 and
+    the gradient stays in ``x``'s dtype.  ``block_n`` must be positive."""
     if physics_mode not in LOGISTIC_MODES:
         raise ValueError(f"unknown physics_mode {physics_mode!r} "
                          f"(have {LOGISTIC_MODES})")
@@ -179,7 +232,8 @@ def logistic_data(x, y, inv_var: float, *, physics_mode: str = "chunked",
     wo = torch.zeros((npad,), **kw)
     wo[:n] = 1.0
     return {"x": xo, "y": yo, "w": wo, "inv_var": float(inv_var),
-            "grad_bf16": 1.0 if grad_bf16 else 0.0, "block_n": block_n}
+            "grad_bf16": 1.0 if grad_bf16 and physics_mode != "vjp" else 0.0,
+            "block_n": block_n}
 
 
 class Spec(NamedTuple):
@@ -211,6 +265,7 @@ PHYSICS: Dict[str, Spec] = {
     "logistic": Spec(logistic, (), ("inv_var", "grad_bf16"),
                      obs_matrix="x", obs_rows=("y", "w"),
                      settings=("block_n",)),
+    "stoch_vol": Spec(stoch_vol, ("r2", "h_mask", "ar_mask"), ("t",)),
 }
 
 

@@ -7,7 +7,8 @@ The port's counterpart of ``inplacedhmc_tpu/ops/tree_pallas.py``
 ``make_logistic_tree_transition``).  The physics is the model's log density
 and gradient, written by hand (``ops/tile_physics.py``: the Gaussian of
 ``diag_gaussian`` models, eight schools, the funnel, the dense Gaussian of
-``mvn``, logistic regression over an ``[npad, D]`` observation matrix)
+``mvn``, logistic regression over an ``[npad, D]`` observation matrix,
+stochastic volatility's AR(1) latents)
 where JAX differentiates the model's ``tile_logp`` in its kernel or
 hand-fuses it (logistic regression's chunked ``tile_vg``).  ``M^-1`` is a
 ``[D]`` diagonal or a ``[D, D]`` dense matrix; with a dense one every
@@ -41,8 +42,7 @@ chains in plain torch, drawing the same Philox numbers.  There is no other
 path: a CUDA tensor launches the kernel or raises.  The ``gaussian_*``
 functions are these with the Gaussian physics of precision ``lam``.
 
-Not ported yet: the stochastic-volatility physics, bf16 checkpoint stacks
-and D above 256.
+Not ported yet: bf16 checkpoint stacks and D above 256.
 """
 
 from __future__ import annotations
@@ -811,7 +811,8 @@ def make_logistic_tree_transition(x, y, inv_var: float, metric_inv, *,
     the one hand-written physics: JAX's two forms compute the same function
     (the hand-fused value and gradient, and autodiff of the log density).
     ``grad_bf16`` rounds the backward product's inputs to bfloat16, on the
-    card and in the plain version; ``block_n`` pads the observations to a
+    card and in the plain version, under ``"chunked"`` only: JAX's ``"vjp"``
+    form never reads it; ``block_n`` pads the observations to a
     multiple of it (``ops/tile_physics.py::logistic_data``) and sets the
     plain version's chunk; the kernel walks eight observations per step
     whatever it is."""

@@ -10,10 +10,11 @@ The port's counterpart of ``inplacedhmc_tpu/sample.py``:
   whole-tree kernel where it takes the problem and the lockstep tree with
   the fused Gaussian leapfrog elsewhere; for ``"dense_gaussian"`` (``mvn``)
   and ``"tile_logp"`` models whose physics has a device function (eight
-  schools, the funnel) the whole-tree kernel where it takes the problem and
-  autograd on the lockstep tree elsewhere; autograd of ``model.logp``
-  otherwise.  ``"tree"`` forces the whole-tree kernel wherever the metric
-  qualifies, from one chain, and adds logistic regression to its kinds;
+  schools, the funnel, stochastic volatility) the whole-tree kernel where
+  it takes the problem and autograd on the lockstep tree elsewhere;
+  autograd of ``model.logp`` otherwise.  ``"tree"`` forces the whole-tree
+  kernel wherever the metric qualifies, from one chain, and adds logistic
+  regression to its kinds;
   ``"on"`` runs the fused potential and leapfrog and no whole tree;
   ``"off"`` autograd on the lockstep tree.  The whole-tree kernel takes one
   shared float32 metric, diagonal or dense.
@@ -32,7 +33,8 @@ padded state; implies ``refresh_inside``), ``n_sweep`` (transitions per
 launch while sampling) and ``block_c`` (the chain tile the state is padded
 to); for logistic regression also ``physics_mode`` (``"chunked"`` or
 ``"vjp"``: both run the one hand-written physics, which computes the
-function of both), ``grad_bf16`` and ``block_n``
+function of both), ``grad_bf16`` (read under ``"chunked"`` only, as in
+JAX) and ``block_n``
 (``ops/tree.py::make_logistic_tree_transition``).  A route that runs no
 whole tree ignores them, as in JAX.
 
@@ -45,7 +47,7 @@ already), the ``ckpt_bf16`` tree option, the whole tree above D = 256, and
 ``tree_opts`` on tile physics without a device function.  The whole-tree
 kernel is ported, with a diagonal and a dense metric, for
 ``diag_gaussian``, ``dense_gaussian`` and ``logistic`` models and the
-``"eight_schools"`` and ``"funnel"`` tile physics.
+``"eight_schools"``, ``"funnel"`` and ``"stoch_vol"`` tile physics.
 """
 
 from __future__ import annotations
@@ -83,10 +85,13 @@ TREE_KINDS = {"auto": ("diag_gaussian", "dense_gaussian", "tile_logp"),
                        "logistic")}
 #: the values of ``use_pallas``
 USE_PALLAS = ("auto", "on", "tree", "off", "interpret")
-#: model kinds with a whole-tree kernel in the JAX package that the port has
-#: not ported yet (``"tile_logp"``: physics without a device function),
-#: with their ROADMAP item
-_TREE_NOT_PORTED = {"tile_logp": "queue 2 item 6"}
+#: model kinds with a whole-tree kernel in the JAX package that the port
+#: runs only where it has a device function (``"tile_logp"``: JAX
+#: differentiates any ``tile_logp`` in its kernel, the port writes each
+#: physics out by hand), with what a model of that kind lacks
+_TREE_NOT_PORTED = {"tile_logp": "the port has no hand-written device "
+                                 "function of this physics in "
+                                 "ops/tile_physics.py and csrc/"}
 
 
 class MCMCResult(NamedTuple):
@@ -223,11 +228,12 @@ class NUTSKernel:
       (``ops/leapfrog.py``) as its ``step_fn``, and autograd on the lockstep
       tree otherwise;
     * ``"dense_gaussian"`` (``mvn``), and ``"tile_logp"`` whose ``physics``
-      has a device function (``ops/tile_physics.py``): with a shared
-      float32 metric, diagonal or dense, the whole-tree transition with that
-      physics from ``TREE_MIN_CHAINS_BY_PHYSICS[physics]`` chains where the
-      kernel takes the dimension, else autograd of ``model.logp`` on the
-      lockstep tree;
+      has a device function (``ops/tile_physics.py``: eight schools, the
+      funnel, stochastic volatility; ``csrc/tree_<physics>.cu``): with a
+      shared float32 metric, diagonal or dense, the whole-tree transition
+      with that physics from ``TREE_MIN_CHAINS_BY_PHYSICS[physics]``
+      chains where the kernel takes the dimension, else autograd of
+      ``model.logp`` on the lockstep tree;
     * any other model: autograd of ``model.logp``.
 
     ``"tree"`` forces the whole-tree transition wherever the metric
@@ -256,7 +262,7 @@ class NUTSKernel:
     #: the same for each tile physics, from its own crossover against
     #: autograd on the lockstep tree (``chip_smoke.py``, PERF.md)
     TREE_MIN_CHAINS_BY_PHYSICS = {"eight_schools": 1, "funnel": 1,
-                                  "dense_gaussian": 1}
+                                  "dense_gaussian": 1, "stoch_vol": 1}
 
     def __init__(self, model: Model, algorithm: NUTS = NUTS(),
                  pooled: bool = True, tree_opts: Optional[dict] = None,
@@ -454,7 +460,7 @@ def _tree_options(st: Optional[dict], use_pallas: str,
         raise NotImplementedError(
             f"tree_opts: the whole-tree kernel for {kind!r} models with "
             f"physics {st.get('physics')!r} is not ported to "
-            f"inplacedhmc_tpu_torch yet (ROADMAP {_TREE_NOT_PORTED[kind]})")
+            f"inplacedhmc_tpu_torch ({_TREE_NOT_PORTED[kind]})")
     allowed = TREE_OPTS + (LOGISTIC_TREE_OPTS if kind == "logistic" else ())
     unknown = set(topts) - set(allowed)
     if unknown:

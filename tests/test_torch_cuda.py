@@ -4,10 +4,12 @@
 generator; ``csrc/tree_eight_schools.cu`` and ``csrc/tree_funnel.cu``, its
 tile physics; K5-dense, each source's dense-metric launcher, and
 ``csrc/tree_dense_gaussian.cu``; K5-logistic, ``csrc/tree_logistic.cu``,
-with and without ``grad_bf16``) against their plain torch versions, the
-flagship ``sample(tree_opts=...)`` path through K5, and ``sample()`` on
-eight schools, the funnel, an ``mvn`` and a logistic regression
-(``use_pallas="tree"``) through their kernels.
+with and without ``grad_bf16``, which ``physics_mode="vjp"`` does not read;
+K5-stoch_vol, ``csrc/tree_stoch_vol.cu``) against their plain torch
+versions, the flagship ``sample(tree_opts=...)`` path through K5, and
+``sample()`` on eight schools, the funnel, an ``mvn``, a logistic
+regression (``use_pallas="tree"``) and stochastic volatility through their
+kernels.
 
 They carry the ``cuda`` marker and skip, inside the test, where there is no
 card.  This file imports neither JAX nor the JAX package, so on a machine
@@ -951,3 +953,205 @@ def test_cuda_logistic_sample_goes_through_k5():
             assert counts.pop("logistic_vg_launch") > 0
         assert not any(counts.values()), counts
         assert bool(torch.isfinite(res.draws).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["diag", "dense"])
+def test_cuda_logistic_vjp_ignores_grad_bf16(metric):
+    """Under ``physics_mode="vjp"`` ``grad_bf16`` is not read, as in JAX
+    (whose ``vjp`` form differentiates its float32 ``tile_logp``): the data
+    carry ``grad_bf16 = 0``, and a transition of the kernel equals the one
+    built without ``grad_bf16`` bit for bit; its proposal's gradient is the
+    float32 physics' within the f32 sums' rounding (1e-4 relative)."""
+    _needs_card()
+    c, d, md = 45, 50, 6
+    q, phys, minv, limit = _logistic_tree(31, c, d, metric)
+    e = torch.full((c,), 0.5 * limit, device="cuda")
+    key, scale = _key(33), _scale(minv)
+    data = tp.logistic_data(phys.data["x"][:1000], phys.data["y"][:1000],
+                            INV_VAR, physics_mode="vjp", grad_bf16=True,
+                            block_n=333)
+    assert data["grad_bf16"] == 0.0
+    vjp = tp.bind("logistic", data)
+    got = tree.tree_transition(q, None, e, None, None, vjp, minv, md,
+                               -1000.0, key=key, sqrt_mass=scale)
+    f32 = tree.tree_transition(q, None, e, None, None, phys, minv, md,
+                               -1000.0, key=key, sqrt_mass=scale)
+    for f in tree.TreeOut._fields:
+        assert torch.equal(getattr(got, f), getattr(f32, f)), f
+    _, g_plain = phys(got.q)
+    assert bool(((got.grad - g_plain).abs()
+                 <= 1e-4 * (1 + g_plain.abs())).all())
+
+
+def _sv(seed, c, t, metric, saturate=False):
+    """Inputs of K5-stoch_vol: a series of ``t`` returns drawn from the
+    model (phi 0.9, s 0.3), positions about the truth (0.2 on the
+    hyperparameters, 0.3 on each h_t; with ``saturate`` every fourth chain
+    at ``raw_phi = 10``, where float32 ``tanh`` is 1), the physics on the
+    card, and a metric: ``0.5 + U(0, 1)`` with the hyperparameters' entries
+    a tenth of that, or dense, that diagonal plus a small symmetric part."""
+    rng = np.random.default_rng(seed)
+    phi, s = 0.9, 0.3
+    h = np.zeros(t)
+    h[0] = rng.normal() * s / np.sqrt(1 - phi * phi)
+    for i in range(1, t):
+        h[i] = phi * h[i - 1] + s * rng.normal()
+    r = rng.normal(size=t) * np.exp(0.5 * h)
+    q = np.concatenate([np.arctanh(phi) + 0.2 * rng.normal(size=(c, 1)),
+                        np.log(s) + 0.2 * rng.normal(size=(c, 1)),
+                        h + 0.3 * rng.normal(size=(c, t))], axis=1)
+    if saturate:
+        q[::4, 0] = 10.0
+    m = models.stoch_vol(r.astype(np.float32))
+    st = m.structure
+    phys = tp.bind("stoch_vol", {**st["data"], **st["scalars"]})
+    d = t + 2
+    diag = 0.5 + rng.uniform(size=d)
+    diag[:2] *= 0.1
+    if metric == "dense":
+        b = rng.normal(size=(d, d)) * 0.05 / np.sqrt(d)
+        minv = np.diag(diag) + 0.5 * (b @ b.T) * np.sqrt(np.outer(diag, diag))
+        minv = 0.5 * (minv + minv.T)
+    else:
+        minv = diag
+    return (torch.as_tensor(q, dtype=torch.float32, device="cuda"), phys,
+            torch.as_tensor(minv, dtype=torch.float32,
+                            device="cuda").contiguous(), m)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["diag", "dense"])
+@pytest.mark.parametrize("t", [5, 30, 31, 100, 254])
+@pytest.mark.parametrize("eps", [0.01, 0.05, 0.4])
+def test_cuda_stoch_vol_tree_matches_plain_version(metric, t, eps):
+    """K5-stoch_vol (``csrc/tree_stoch_vol.cu``) against its plain version
+    fed the kernel's own draws, at T = 5, 30, 31, 100 and 254 (D = 7, 32,
+    33, 102 and 256: the AR(1) neighbour shifts inside one register, at its
+    end, one past it, ending inside the fourth, and at the kernel's cap),
+    under a diagonal and a dense metric, at a deep, a mixed and a divergent
+    step size, the uniforms drawn in the kernel: at most one chain in
+    twenty differs (``_compare_any_field``: the three row sums, and a dense
+    metric's products, add their terms in another order); every state is
+    finite."""
+    _needs_card()
+    c, md = 40, 7
+    q, phys, minv, _ = _sv(60 + t, c, t, metric)
+    d = t + 2
+    e = torch.full((c,), eps, device="cuda")
+    key = _key(t + 61)
+    xi, dirs, unif = tree.philox_draws(key, c, d, md)
+    p0 = tree.refresh_momentum(_scale(minv), xi[0]).contiguous()
+    kern = (tree.TREE_DENSE_KERNELS if metric == "dense"
+            else tree.TREE_KERNELS)["stoch_vol"]
+    before = kern.launches
+    got = tree.tree_transition(q, p0, e, dirs[0], None, phys, minv, md,
+                               -1000.0, key=key)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    want = tree.tree_transition_plain(q, p0, e, dirs[0], unif[0], phys, minv,
+                                      md, -1000.0)
+    _compare_any_field(got, want, c, c // 20)
+    for f in ("q", "logp", "grad", "energy"):
+        assert bool(torch.isfinite(getattr(got, f)).all()), f
+    if eps == 0.4:
+        assert bool((want.term == 1).any())
+    elif eps == 0.01:
+        assert float(want.depth.double().mean()) >= 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["diag", "dense"])
+def test_cuda_stoch_vol_saturated_start_diverges(metric):
+    """Every fourth chain starts at ``raw_phi = 10``: float32 ``tanh`` is
+    1, the log density ``-inf`` and ``d/draw_phi`` NaN, on the card as in
+    the plain version and in JAX.  Those chains diverge at their first leaf
+    and keep their start with its ``-inf`` log density and NaN gradient
+    component; the kernel's records equal the plain version's on them, and
+    the other chains agree as in the test above."""
+    _needs_card()
+    c, t, md = 40, 100, 7
+    q, phys, minv, _ = _sv(70, c, t, metric, saturate=True)
+    e = torch.full((c,), 0.05, device="cuda")
+    key = _key(71)
+    xi, dirs, unif = tree.philox_draws(key, c, t + 2, md)
+    p0 = tree.refresh_momentum(_scale(minv), xi[0]).contiguous()
+    got = tree.tree_transition(q, p0, e, dirs[0], None, phys, minv, md,
+                               -1000.0, key=key)
+    want = tree.tree_transition_plain(q, p0, e, dirs[0], unif[0], phys, minv,
+                                      md, -1000.0)
+    sat = q[:, 0] == 10.0
+    for out in (got, want):
+        assert bool((out.term[sat] == 1).all() and (out.steps[sat] == 1).all())
+        assert torch.equal(out.q[sat], q[sat])
+        assert bool(torch.isneginf(out.logp[sat]).all())
+        assert bool(torch.isnan(out.grad[sat, 0]).all())
+    rest = ~sat
+    sub = tree.TreeOut(*(t_[rest] for t_ in got))
+    ref = tree.TreeOut(*(t_[rest] for t_ in want))
+    _compare_any_field(sub, ref, int(rest.sum()), int(rest.sum()) // 20)
+    assert bool(torch.isfinite(got.q).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["diag", "dense"])
+def test_cuda_stoch_vol_sweep_bit_identical_to_single_launches(metric):
+    """K5-stoch_vol at T = 100: one launch of 5 transitions drawing
+    everything equals 5 one-transition launches fed what its generator
+    draws (under a dense metric the momentum ``xi mass_chol^T`` in the
+    kernel's order of operations), bit for bit."""
+    _needs_card()
+    c, t, md, k = 70, 100, 7, 5
+    q, phys, minv, _ = _sv(80, c, t, metric)
+    d = t + 2
+    e = torch.full((c,), 0.02, device="cuda")
+    key, scale = _key(81), _scale(minv)
+    swept = tree.tree_sweep(q, e, phys, minv, md, -1000.0, k, key=key,
+                            sqrt_mass=scale)
+    xi, dirs, unif = tree.philox_draws(key, c, d, md, k)
+    for s in range(k):
+        if metric == "dense":
+            p = torch.zeros_like(xi[s])
+            for i in range(d):
+                p = p + xi[s][:, i:i + 1] * scale[i]
+        else:
+            p = scale * xi[s]
+        one = tree.tree_sweep(q, e, phys, minv, md, -1000.0,
+                              momentum=p[None], dirs=dirs[s:s + 1],
+                              unif=unif[s:s + 1])
+        for f in tree.TreeOut._fields:
+            if f != "grad":
+                assert torch.equal(getattr(swept, f)[s], getattr(one, f)[0]), \
+                    (s, f)
+        q = one.q[0]
+    assert torch.equal(swept.grad, one.grad)
+
+
+@pytest.mark.cuda
+def test_cuda_stoch_vol_sample_goes_through_k5():
+    """``sample()`` on stochastic volatility at T = 100 (config 5's recipe
+    with a short schedule: delta 0.9, dense windows, no L-BFGS start) at
+    64 chains and 100 draws: K5-stoch_vol's diagonal launcher until the
+    first dense window closes and its dense one after, once per
+    transition, and no other kernel; finite draws."""
+    _needs_card()
+    from inplacedhmc_tpu_torch import (DualAveraging, default_warmup_stages,
+                                       sample)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    m = models.stoch_vol(models.synthetic_returns(gen, 100, 0.97, 0.15))
+    stages = default_warmup_stages(
+        local_optimization=None,
+        stepsize_adaptation=DualAveraging(delta=0.9), init_steps=40,
+        middle_steps=25, doubling_stages=2, terminating_steps=25,
+        metric="dense")
+    kernels = [*tree.TREE_KERNELS.values(), *tree.TREE_DENSE_KERNELS.values(),
+               lf.LEAPFROG_GAUSSIAN, LOGISTIC_VG]
+    for k in kernels:
+        k.launches = 0
+    res = sample(2, m, 100, 64, warmup_stages=stages, device="cuda")
+    torch.cuda.synchronize()
+    counts = {k.symbol: k.launches for k in kernels}
+    assert counts.pop("tree_stoch_vol_launch") == 40 + 25, counts
+    assert counts.pop("tree_stoch_vol_dense_launch") == 50 + 25 + 100
+    assert not any(counts.values()), counts
+    assert bool(torch.isfinite(res.draws).all())

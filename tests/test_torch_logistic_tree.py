@@ -162,17 +162,19 @@ def _terms_scale(x, y, q):
 
 @pytest.mark.parametrize("mode,grad_bf16,block_n", [
     ("chunked", False, 128), ("chunked", True, 128), ("chunked", False, 2048),
-    ("vjp", False, 2048)])
+    ("vjp", False, 2048), ("vjp", True, 2048)])
 def test_logistic_physics_matches_jax_tiles_and_autograd(
         monkeypatch, mode, grad_bf16, block_n):
     """The plain ``logistic`` physics on the data ``logistic_data`` pads
     (N = 250: 6 or 1,798 zero rows) against the tile physics JAX's builder
     makes for the same mode, ``grad_bf16`` and ``block_n``, in float32:
     the log density within 2e-6 of the sum of its terms' magnitudes, each
-    gradient component within 2e-6 of its terms'.  With ``grad_bf16`` both
-    round the residual and x to bfloat16 before the backward product.
-    Without it, in float64, against torch autograd of the port's model
-    ``logp`` to 1e-10 relative."""
+    gradient component within 2e-6 of its terms'.  With ``grad_bf16`` under
+    ``"chunked"`` both round the residual and x to bfloat16 before the
+    backward product; under ``"vjp"`` neither reads it (JAX differentiates
+    its float32 ``tile_logp``), so the f32 bound holds.  Without rounding,
+    in float64, against torch autograd of the port's model ``logp`` to
+    1e-10 relative."""
     x, y, beta, cov, rng = _problem(1)
     c, d = 16, x.shape[1]
     q = (beta + rng.normal(size=(c, d)) @ np.linalg.cholesky(cov).T * 2.0
@@ -190,10 +192,12 @@ def test_logistic_physics_matches_jax_tiles_and_autograd(
     lp_scale, g_scale = _terms_scale(x, y, q)
     assert (np.abs(lp.numpy() - jlp) <= PHYS_RTOL * lp_scale).all()
     tol = PHYS_RTOL * g_scale
-    if grad_bf16:   # the residual's bfloat16 rounding can differ at a tie
+    rounds = grad_bf16 and mode == "chunked"
+    assert data["grad_bf16"] == (1.0 if rounds else 0.0)
+    if rounds:   # the residual's bfloat16 rounding can differ at a tie
         tol = tol + 2.0 ** -8 * np.abs(x).max()
     assert (np.abs(g.numpy() - jg) <= tol).all()
-    if grad_bf16:
+    if rounds:
         plain = tp.bind("logistic", {**data, "grad_bf16": 0.0})
         assert not torch.equal(plain(torch.as_tensor(q))[1], g)
         return

@@ -393,8 +393,9 @@ def test_tree_opts_are_checked(opts, error):
 
 
 def test_tree_opts_refused_where_the_kernel_is_not_ported():
-    """``tree_opts`` on models whose whole-tree kernel the port lacks raise
-    ``NotImplementedError`` naming their ROADMAP item; without ``tree_opts``
+    """``tree_opts`` on models whose whole-tree kernel the port lacks (a
+    tile model whose physics has no hand-written device function) raise
+    ``NotImplementedError`` saying what they lack; without ``tree_opts``
     those models run as before.  Logistic regression's kernel is ported:
     its ``tree_opts`` configure it under ``use_pallas="tree"``, and the
     default route, which runs no whole tree for it, ignores them as JAX's
@@ -408,7 +409,8 @@ def test_tree_opts_refused_where_the_kernel_is_not_ported():
                             2)._sweep.n_sweep == 2
     m = Model(name="tile_logp", dim=2, logp=lambda q: -(q * q).sum(-1),
               structure={"kind": "tile_logp"})
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError,
+                       match="no hand-written device function"):
         NUTSKernel(m, tree_opts={"block_c": 8})
     assert NUTSKernel(m).transition_factory is None
 

@@ -408,7 +408,7 @@ def test_routes_of_tile_models(monkeypatch):
     assert nc.transition_factory(f32, 1) is not None
     assert nc.step_factory(f32) is not None
     other = Model(name="t", dim=2, logp=lambda q: -(q * q).sum(-1),
-                  structure={"kind": "tile_logp", "physics": "stoch_vol"})
+                  structure={"kind": "tile_logp", "physics": "no_device"})
     kern = NUTSKernel(other)
     assert kern.transition_factory is None and kern.step_factory is None
 
@@ -419,12 +419,13 @@ def test_routes_of_tile_models(monkeypatch):
     ({"ckpt_bf16": True}, NotImplementedError, "item 1 \\(e\\)")])
 def test_tree_opts_on_tile_models(opts, error, match):
     """``tree_opts`` on a tile model with a device physics are checked as
-    for Gaussians; on one without, refused naming the ROADMAP item."""
+    for Gaussians; on one without, refused, saying what it lacks."""
     with pytest.raises(error, match=match):
         NUTSKernel(eight_schools(device="cpu"), tree_opts=opts)
     other = Model(name="t", dim=2, logp=lambda q: -(q * q).sum(-1),
-                  structure={"kind": "tile_logp", "physics": "stoch_vol"})
-    with pytest.raises(NotImplementedError, match="queue 2 item 6"):
+                  structure={"kind": "tile_logp", "physics": "no_device"})
+    with pytest.raises(NotImplementedError,
+                       match="no hand-written device function"):
         NUTSKernel(other, tree_opts={"refresh_inside": True})
 
 
