@@ -40,7 +40,15 @@ Phases, each printed with its wall time:
    K5-stoch_vol (``csrc/tree_stoch_vol.cu``, the AR(1) physics) at T = 100
    (D = 102) at 1,024 and 10,240 chains, under a diagonal and a dense
    metric, at three step sizes, every 16th chain started where f32 tanh
-   saturates (raw_phi = 10), and a sweep of 16 against 16 launches;
+   saturates (raw_phi = 10), and a sweep of 16 against 16 launches; K5's
+   wide form (D above 256, one chain per block of ceil(D / 256) warps):
+   the SASS of its instantiations, the Gaussian at 64 and 1,024 chains x
+   1,000 in the three forms at three step sizes, the dense Gaussian on a
+   512-D Wishart-precision target at 256 chains under a diagonal and a
+   dense metric, stochastic volatility at T = 1,000 (D = 1,002) at 1,024
+   and 10,240 chains under a diagonal metric and at 1,024 under a dense
+   one, every 16th chain saturated, and a sweep of 16 against 16 launches
+   at D = 1,002;
 3. ``sample()`` on BASELINE config 3 (logistic regression, 10,000 x 50 data
    from a seed, 8192 chains, dense metric, a short warmup schedule, 128
    draws) through K1; then the same through K5-logistic
@@ -61,8 +69,9 @@ Phases, each printed with its wall time:
 6. ``sample()`` on the 100-D standard normal at 64 chains (the examples'
    config 1 run: default warmup, 1000 draws): the whole-tree route as well;
 7. ``sample()`` on the 1000-D standard normal at 64 chains, default warmup,
-   1000 draws: above the whole-tree kernel's D bound (256), so the lockstep
-   route with K3 as its leapfrog;
+   1000 draws: the whole-tree route through K5's wide form; then the same
+   model with ``use_pallas="on"``, the lockstep tree with K3 as its
+   leapfrog, cut to a 200-transition warmup and 100 draws (K3's own path);
 8. ``sample()`` on BASELINE config 4, eight schools, at 1,024 chains
    (default warmup, 1,000 draws) through K5 with the eight-schools physics;
 9. ``sample()`` on BASELINE config 2, the 10-D Neal's funnel, at 64 chains
@@ -73,12 +82,15 @@ Phases, each printed with its wall time:
    recursion, the true latents kept), config 5's recipe (delta 0.9, dense
    windows, 4 doubling windows, no L-BFGS start) at 1,024 chains, 200
    draws, through K5-stoch_vol, and its two launchers timed at the tuned
-   state;
+   state; then config 5's own T = 1,000 (D = 1,002) through K5-stoch_vol's
+   wide form, the full warmup of the same recipe at 1,024 chains, 64
+   consecutive draws (split R-hat printed, not gated), and its two
+   launchers timed at the tuned state;
 10. ``sample()`` on the 250-D multivariate normal of Hoffman and Gelman
    (2014) with a Wishart precision of 300 degrees of freedom (``mvn``) at
-   1,024 chains, dense windows, 1,000 draws: K5 with the dense Gaussian's
+   1,024 chains, 4 dense windows, 300 draws: K5 with the dense Gaussian's
    physics, diagonal until the first dense window closes and dense after;
-   then 1,024 draws with the flagship ``tree_opts`` from its tuned state;
+   then 256 draws with the flagship ``tree_opts`` from its tuned state;
 11. ``sample()`` on the 100-D standard normal at 10,240 chains with dense
    windows, 256 draws: the Gaussian K5 under a dense metric;
 12. the crossover between the routes: one transition through each, at 1 to
@@ -88,8 +100,12 @@ Phases, each printed with its wall time:
    250-D ``mvn`` and the 100-D normal through K5-dense and autograd on the
    lockstep tree at the tuned step size and dense metric of phases 10 and
    11, stochastic volatility likewise at its tuned state (1 to 10,240
-   chains); it fails if ``NUTSKernel.TREE_MIN_CHAINS`` or
-   ``TREE_MIN_CHAINS_BY_PHYSICS`` contradicts the timings.
+   chains); above D = 256 (K5's wide form) at 1, 64, 1,024 and 10,240
+   chains, at the tuned states of phases 7 and 9: the 1000-D normal
+   against the lockstep tree with K3, stochastic volatility at T = 1,000
+   against autograd on the lockstep tree; it fails if
+   ``NUTSKernel.TREE_MIN_CHAINS`` or ``TREE_MIN_CHAINS_BY_PHYSICS``
+   contradicts the timings.
 
 Each ``sample()`` phase resets every kernel's launch count just before the
 call and reads the counts just after, and checks the posterior (finite
@@ -122,7 +138,12 @@ N_DRAWS = 128
 G_DIM = 100                       # BASELINE config 1: the 100-D std normal
 G_CHAINS, G_DRAWS = 10_240, 256   # the whole-tree route
 S_CHAINS, S_DRAWS = 64, 1000      # examples config 1: the whole-tree route
-W_DIM = 1000                      # above K5's D bound: the lockstep route
+W_DIM = 1000                      # the 1000-D normal: K5's wide form
+# the shortened lockstep run of the 1000-D normal that keeps K3 on a path
+# (use_pallas="on"): a 200-transition warmup and W_K3_DRAWS draws
+W_K3_STAGES = dict(init_steps=30, middle_steps=20, doubling_stages=3,
+                   terminating_steps=30)
+W_K3_DRAWS = 100
 E_CHAINS, E_DRAWS = 1024, 1000    # BASELINE config 4: eight schools
 F_DIM, F_CHAINS, F_DRAWS = 10, 64, 1000  # config 2: the funnel, as
                                         # examples/baseline_configs.py runs it
@@ -131,7 +152,9 @@ F_DIM, F_CHAINS, F_DRAWS = 10, 64, 1000  # config 2: the funnel, as
 FUNNEL_V_SD_BAND = (2.45, 3.0)
 GOLDEN_EIGHT_SCHOOLS = os.path.join(os.path.dirname(os.path.abspath(
     __file__)), "tests", "golden", "eight_schools.json")
-CROSSOVER_CHAINS = (1, 4, 16, 64, 256, 1024, 10_240)
+# the chain counts of the crossovers (every threshold is 1; the counts
+# between these were dropped to keep the script within its time budget)
+CROSSOVER_CHAINS = (1, 64, 1024, 10_240)
 # the step sizes of the routes' crossover (identity metric, q0 normal)
 CROSSOVER_EPS = {"gaussian": 0.3, "eight_schools": 0.3, "funnel": 0.2}
 MAX_DEPTH = 10
@@ -150,6 +173,18 @@ TREE_MISMATCH_FRACTION = 1e-3
 # as a tie only when the plain version, its uniforms shifted by that
 # difference, makes the kernel's choice (compare_tree).
 TREE_RTOL = 1e-4  # float fields of the chains that agree, relative to 1 + |x|
+# Above D = 256 stochastic volatility's d/draw_phi and d/dlog_s are sums of
+# D terms that cancel (sum innov^2 against T), so an f32 rounding
+# difference of gamma_D times the sum of the terms' magnitudes (Higham,
+# section 3.1) is far beyond TREE_RTOL of the result, and the leapfrog
+# carries it into q and the log density: there the float fields are also
+# held to LONG_SUM_K gamma_D of their terms' magnitudes (``sv_terms``), as
+# tests/test_torch_stoch_vol.py holds the plain version to JAX's.  gamma_D
+# bounds one evaluation; a trajectory carries each leaf's difference into
+# the next, and the agreeing chains of the T = 1,000 checks need up to
+# about 16 on the gradient (printed per case as "K needed")
+LONG_SUM_K = 16
+LONG_SUM_NEED: dict = {}   # the largest K each field needed in this run
 # K1 sums N = 1e4 f32 terms per chain in another order than the float64
 # reference: a random-walk rounding error of about sqrt(N) * 2^-24 = 6e-6 of
 # sum_n |term_n|, so logp is held to 1e-5 of that sum.  The gradient's
@@ -203,8 +238,12 @@ SWEEP_CHECK_K = 16                # the n_sweep of the bit-identity check
 # the dense metric's target: Hoffman and Gelman's 250-D multivariate normal
 # with a Wishart precision, at 300 degrees of freedom (mvn_target)
 MVN_DIM, MVN_DF, MVN_SEED = 250, 300, 0
-MVN_CHAINS, MVN_DRAWS = 1024, 1000
-MVN_SWEEP_DRAWS = 1024            # a multiple of FLAGSHIP_K
+# the mvn run keeps 4 doubling windows (the default's first four: 500
+# warmup transitions; 3 leave a worse metric and slower transitions), 150
+# draws, and its flagship run from the tuned state 128 draws (5 windows,
+# 1,000 and 1,024 draws until the wide phases took their time)
+MVN_CHAINS, MVN_DRAWS, MVN_DOUBLING = 1024, 150, 4
+MVN_SWEEP_DRAWS = 128             # a multiple of FLAGSHIP_K
 DENSE_G_DRAWS = 256               # the 100-D normal with dense windows
 # the TPU code each dense-metric form replaces: the dense branch of
 # _make_kernel, and the dense Gaussian's _dense_gaussian_tile_vg
@@ -241,8 +280,18 @@ SV_SWEEP_EPS = 0.02
 SV_SATURATED = 10.0               # raw_phi where f32 tanh is 1: u = 0
 SV_ACCEPT_BAND = (0.75, 0.99)     # delta 0.9 (PERF.md section 2)
 SV_DIV_MAX = 0.05                 # the divergent fraction of transitions
-SV_COVERAGE = 70                  # true h_t in their central 90 % intervals
+SV_COVERAGE = 70                  # percent of the true h_t in their central
+                                  # 90 % intervals
 SV_CROSSOVER_CHAINS = (1, 64, 1024, SV_BIG)
+# config 5's own T = 1,000 (D = 1,002: K5's wide form, one chain per block
+# of 4 warps) at the examples' 1,024 chains (examples/baseline_configs.py:
+# 136-161), the full warmup of its recipe, then SV_WIDE_DRAWS consecutive
+# draws; its split R-hat is printed, not gated: without ASIS (not ported)
+# the centred model needs thousands of transitions at this T
+SV_WIDE_T, SV_WIDE_DRAWS = 1000, 64
+# the dense Gaussian above D = 256: a Wishart-precision mvn at D = 512 with
+# the 250-D target's ratio of degrees of freedom to D (300 / 250), 256 chains
+MVN_WIDE_DIM, MVN_WIDE_DF, MVN_WIDE_CHAINS = 512, 614, 256
 # the TPU code K5-stoch_vol replaces in both metric forms: jax.vjp of the
 # model's tile_logp inside the kernel built by make_tree_transition
 SV_REPLACES = "906"
@@ -291,6 +340,19 @@ def wall_ms(fn, iters: int = 5, warmup: int = 1) -> float:
         fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) / iters * 1e3
+
+
+def timed(fn):
+    """``(fn(), ms)``: the result of one call and its wall time,
+    synchronised at both ends (``wall_ms`` of one call without warm-up, its
+    result kept: a comparison's run of the plain version timed as it runs).
+    """
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
 
 
 def bound(flops: float, nbytes: float, sfu: float = 0.0):
@@ -608,8 +670,60 @@ def _n_obs(phys) -> int:
     return 0 if phys.obs_matrix() is None else int(phys.data["w"].sum())
 
 
+def _long_sums(phys, d: int) -> bool:
+    """Whether the log density sums so many terms that its rounding
+    difference can exceed TREE_RTOL of a log_sum_alpha of order 1
+    (``compare_tree``'s ``lsa_bound``): logistic regression's N
+    observations, or more than 256 coordinates (K5's wide form)."""
+    return (phys is not None and _n_obs(phys) > 0) or d > 256
+
+
+def sv_terms(phys, q):
+    """Stochastic volatility's scales at ``q [C, D]``, float64: per chain
+    the sum of the magnitudes of the log density's terms, and per gradient
+    component the sum of its terms' magnitudes
+    (``tests/test_torch_stoch_vol.py::_terms`` in torch); 0 where they are
+    not finite (a saturated tanh)."""
+    import torch
+    q = q.double()
+    r2, hm, am = (phys.data[k].double() for k in ("r2", "h_mask", "ar_mask"))
+    hm, am = hm != 0, am != 0
+    t = float(phys.data["t"])
+    raw_phi, log_s = q[:, :1], q[:, 1:2]
+    phi, inv_s = torch.tanh(raw_phi), torch.exp(-log_s)
+    u = 1.0 - phi * phi
+    z1 = q[:, 2:3] * inv_s
+    h = torch.where(hm, q, 0.0)
+    hprev = torch.nn.functional.pad(h[:, :-1], (1, 0))
+    innov = torch.where(am, (q - phi * hprev) * inv_s, 0.0)
+    re = r2 * torch.exp(-h)
+    lp = (0.5 * (raw_phi - 1.5) ** 2 + 0.5 * (log_s + 2.0) ** 2
+          + 0.5 * torch.log(u).abs() + t * log_s.abs()
+          + 0.5 * u * z1 * z1)[:, 0] + 0.5 * (innov ** 2).sum(1) \
+        + torch.where(hm, 0.5 * (h.abs() + re), 0.0).sum(1)
+    nxt = torch.nn.functional.pad(innov[:, 1:], (0, 1)).abs()
+    g = torch.where(hm, 0.5 * re + 0.5 + innov.abs() * inv_s
+                    + phi.abs() * inv_s * nxt, 0.0)
+    g[:, 2] += (u * z1.abs() * inv_s)[:, 0]
+    g[:, 0] = (((raw_phi - 1.5).abs() + phi.abs() + u * (
+        phi.abs() * z1 * z1
+        + inv_s * (innov * hprev).abs().sum(1, keepdim=True))))[:, 0]
+    g[:, 1] = ((log_s + 2.0).abs() + t + u * z1 * z1)[:, 0] \
+        + (innov ** 2).sum(1)
+    return (torch.nan_to_num(lp, nan=0.0, posinf=0.0),
+            torch.nan_to_num(g, nan=0.0, posinf=0.0))
+
+
+def _terms_of(phys, d: int):
+    """``compare_tree``'s ``terms`` for ``phys`` at ``d``: ``sv_terms``
+    for stochastic volatility above D = 256, else None."""
+    if phys.name != "stoch_vol" or d <= 256:
+        return None
+    return functools.partial(sv_terms, phys)
+
+
 def compare_tree(got, want, label: str, bound=None, grad_q=None,
-                 replay=None, lsa_bound: bool = False) -> float:
+                 replay=None, lsa_bound: bool = False, terms=None) -> float:
     """K5 against its plain version: the chains whose integer fields differ,
     or whose float fields differ beyond TREE_RTOL, may be at most
     TREE_MISMATCH_FRACTION of all, not counting the verified ties below;
@@ -620,7 +734,8 @@ def compare_tree(got, want, label: str, bound=None, grad_q=None,
     sum over N observations (logistic regression): its rounding difference
     e (the largest energy difference of the chains that agree so far) can
     exceed TREE_RTOL of a log_sum_alpha of order 1, so log_sum_alpha also
-    agrees within 4 e (each exp(min(delta, 0)) has a delta that is a
+    agrees within 4 e; so it does for a log density over more than 256
+    coordinates (``_long_sums``) (each exp(min(delta, 0)) has a delta that is a
     difference of two joint densities, the argument below).  ``grad_q``:
     the kernel's and the plain version's
     positions of the gradients, where those are not ``got.q`` and
@@ -637,7 +752,12 @@ def compare_tree(got, want, label: str, bound=None, grad_q=None,
     -4e or +4e gives the kernel's integer fields and its q, logp, energy
     and log_sum_alpha (by the rule above).  A NaN agrees with a NaN in the
     same place (``same_value``): a gradient component that is NaN on both
-    sides, as stochastic volatility's d/draw_phi where tanh saturates."""
+    sides, as stochastic volatility's d/draw_phi where tanh saturates.
+    ``terms`` (``sv_terms``: stochastic volatility above D = 256): q, logp,
+    energy and grad also agree within ``LONG_SUM_K`` gamma_D of their
+    scales (``1 + |q|``, the log density's terms' magnitudes, those plus
+    the kinetic energy, each gradient component's terms' magnitudes), here
+    and in the replay."""
     import torch
     c = got.q.shape[0]
     q_got, q_want = (got.q, want.q) if grad_q is None else grad_q
@@ -647,9 +767,21 @@ def compare_tree(got, want, label: str, bound=None, grad_q=None,
         bad |= getattr(got, f) != getattr(want, f)
     n_int = int(bad.sum())
 
-    def agree(g, w):
-        return same_value(g, w) \
+    scale = {}
+    if terms is not None:
+        gam = LONG_SUM_K * _gamma(got.q.shape[1])
+        lp_t, g_t = terms(want.q)[0], terms(q_want)[1]
+        kin = (want.logp - want.energy).abs().double()
+        scale = {"q": gam * (1 + want.q.abs().double()), "logp": gam * lp_t,
+                 "energy": gam * (lp_t + kin), "grad": gam * g_t}
+
+    def agree(g, w, f=None, rows=None):
+        same = same_value(g, w) \
             | ((g - w).abs() <= TREE_RTOL * (1 + w.abs()))
+        if f in scale:
+            sc = scale[f] if rows is None else scale[f][rows]
+            same |= (g - w).abs().double() <= sc
+        return same
 
     def agree_lsa(g, w, e):
         same = agree(g, w)
@@ -658,7 +790,7 @@ def compare_tree(got, want, label: str, bound=None, grad_q=None,
     diffs, n_field = {}, {}
     for f in ("q", "logp", "grad", "energy", "log_sum_alpha"):
         g, w = getattr(got, f), getattr(want, f)
-        same = agree(g, w)
+        same = agree(g, w, f)
         if f == "grad" and bound is not None:
             same |= (g - w).abs().double() <= bound(q_got, q_want)
         if f == "log_sum_alpha":
@@ -674,6 +806,22 @@ def compare_tree(got, want, label: str, bound=None, grad_q=None,
     ok = ~bad
     err = {f: (v[ok].max().item() if bool(ok.any()) else 0.0)
            for f, v in diffs.items()}
+    if scale:
+        # the K each field needs on the chains that agree: its largest
+        # difference beyond TREE_RTOL over gamma_D times its scale
+        need = {}
+        for f, sc in scale.items():
+            g, w = getattr(got, f)[ok], getattr(want, f)[ok]
+            unit = sc[ok] / LONG_SUM_K
+            d = torch.where(same_value(g, w)
+                            | ((g - w).abs() <= TREE_RTOL * (1 + w.abs())),
+                            torch.zeros_like(g), (g - w).abs()).double()
+            r = torch.where(unit > 0, d / unit, torch.zeros_like(d))
+            need[f] = float(r.max()) if r.numel() else 0.0
+            LONG_SUM_NEED[f] = max(LONG_SUM_NEED.get(f, 0.0), need[f])
+        print(f"[k5] {label}: K needed by field "
+              f"{({f: float(f'{v:.3g}') for f, v in need.items()})} "
+              f"(LONG_SUM_K {LONG_SUM_K})")
     rows = torch.nonzero(bad).flatten()
     ties, notes = 0, []
     shift = 4.0 * err["energy"]
@@ -687,7 +835,7 @@ def compare_tree(got, want, label: str, bound=None, grad_q=None,
             for f in ("q", "logp", "energy", "log_sum_alpha"):
                 g, w = getattr(got, f)[rows], getattr(r, f)
                 same = agree_lsa(g, w, err["energy"]) \
-                    if f == "log_sum_alpha" else agree(g, w)
+                    if f == "log_sum_alpha" else agree(g, w, f, rows)
                 tie &= same.all(dim=1) if same.ndim == 2 else same
             for i in torch.nonzero(tie).flatten().tolist():
                 notes.append(f"chain {int(rows[i])} at {sign * shift:+.3g} "
@@ -786,20 +934,23 @@ def tree_form(form: str, q0, p0, e, d32, unif, phys, minv, key, md: int,
         plain)
 
 
-def check_tree_kernel(card: str) -> None:
-    """K5 against its plain version at 10,240 x 100, max_depth 10, with the
-    same q0, p0, directions and uniforms at three step sizes: 0.3 (trees of
-    mixed depths that end in U-turns), 1.8 (divergences, since the largest
-    M^-1 makes the step unstable) and 0.002 (every tree reaches max depth);
-    in each of its three forms (``tree_form``), timed beside its bound."""
+def check_tree_kernel(card: str, c: int = G_CHAINS, d: int = G_DIM,
+                      seed: int = 3) -> None:
+    """K5 against its plain version at ``c`` x ``d`` (by default 10,240 x
+    100; above D = 256 its wide form, one chain per block of warps),
+    max_depth 10, with the same q0, p0, directions and uniforms at three
+    step sizes: 0.3 (trees of mixed depths that end in U-turns), 1.8
+    (divergences, since the largest M^-1 makes the step unstable) and 0.002
+    (every tree reaches max depth); in each of its three forms
+    (``tree_form``), timed beside its bound."""
     import torch
 
-    from inplacedhmc_tpu_torch.ops.tree import (TREE_GAUSSIAN,
+    from inplacedhmc_tpu_torch.ops.tree import (TREE_GAUSSIAN, WARP_DIM,
                                                 direction_words_int32,
-                                                n_uniforms)
+                                                n_uniforms, wide_smem_bytes)
 
-    c, d, md = G_CHAINS, G_DIM, MAX_DEPTH
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    md = MAX_DEPTH
+    gen = torch.Generator(device="cuda").manual_seed(SEED + seed)
     lam = torch.ones((d,), device="cuda")
     minv = 0.5 + torch.rand((d,), generator=gen, device="cuda")
     q0 = torch.randn((c, d), generator=gen, device="cuda")
@@ -808,9 +959,14 @@ def check_tree_kernel(card: str) -> None:
                          device="cuda")
     d32 = direction_words_int32(dirs)
     unif = torch.rand((n_uniforms(md), c), generator=gen, device="cuda")
-    key = _key(SEED + 6)
-    print(f"[k5] checkpoint stacks: {2 * md * d * 4} bytes of dynamic shared "
-          f"memory per chain (one warp), up to 4 chains per block")
+    key = _key(SEED + 6 + seed)
+    if d <= WARP_DIM:
+        print(f"[k5] checkpoint stacks: {2 * md * d * 4} bytes of dynamic "
+              f"shared memory per chain (one warp), up to 4 chains per block")
+    else:
+        print(f"[k5] wide form at D = {d}: one chain per block of "
+              f"{-(-d // WARP_DIM)} warps, {wide_smem_bytes(d, md)} bytes of "
+              f"dynamic shared memory per block")
     for eps in (0.3, 1.8, 0.002):
         e = torch.full((c,), eps, device="cuda")
         for form in ("array", "prng", "refresh"):
@@ -824,12 +980,15 @@ def check_tree_kernel(card: str) -> None:
                 raise RuntimeError("the wrapper did not launch K5 on a CUDA "
                                    "tensor")
             want = plain()
-            compare_tree(got, want, f"eps {eps}, {form}", replay=plain)
+            tag = f"{c} x {d}, eps {eps}, {form}"
+            compare_tree(got, want, tag, replay=plain,
+                         lsa_bound=_long_sums(None, d))
             ms = cuda_time_ms(launch, 3 if eps < 0.01 else 20)
             bound_ms, bound_by, steps = tree_bound(c, d, want, form)
-            print(f"[k5] eps {eps}, {form} on {card}: kernel {ms:.4f} ms; "
+            print(f"[k5] {tag} on {card}: kernel {ms:.4f} ms; "
                   f"{steps:.0f} leapfrog steps, {steps / ms * 1e3:.4g} "
-                  f"steps/s; bound {bound_ms:.4f} ms ({bound_by})")
+                  f"steps/s; bound {bound_ms:.4f} ms ({bound_by}), "
+                  f"{bound_ms / ms:.4f} of it")
 
 
 def check_generator(card: str) -> None:
@@ -875,34 +1034,35 @@ def check_generator(card: str) -> None:
         raise RuntimeError("K5's generator disagrees with utils/philox.py")
 
 
-def tile_model(name: str):
+def tile_model(name: str, sv_t: int = SV_T):
     """The model of a tile physics at its BASELINE width, on the card
-    (stochastic volatility at ``SV_T``, ``sv_problem``)."""
+    (stochastic volatility at ``sv_t``, ``sv_problem``)."""
     from inplacedhmc_tpu_torch.models import eight_schools, funnel, funnel_nc
     return {"eight_schools": eight_schools, "funnel": lambda: funnel(F_DIM),
             "funnel_nc": lambda: funnel_nc(F_DIM),
-            "stoch_vol": lambda: sv_problem()[0]}[name]()
+            "stoch_vol": lambda: sv_problem(sv_t)[0]}[name]()
 
 
 @functools.lru_cache(maxsize=None)
-def sv_problem():
-    """Stochastic volatility's data, made on the card from a seeded
-    generator by the documented recursion (``synthetic_returns``' recipe,
-    kept here so that the true latents are known): innovations ``eps ~ N(0,
-    SV_S^2)``, ``h_1 = eps_1 / sqrt(1 - SV_PHI^2)``, ``h_t = SV_PHI h_{t-1} +
-    eps_t``, returns ``z exp(h / 2)``.  Returns the model
-    (``stoch_vol(returns)``, T = ``SV_T``) and the true ``h [T]``."""
+def sv_problem(t_len: int = SV_T):
+    """Stochastic volatility's data for a series of ``t_len`` returns, made
+    on the card from a seeded generator by the documented recursion
+    (``synthetic_returns``' recipe, kept here so that the true latents are
+    known): innovations ``eps ~ N(0, SV_S^2)``, ``h_1 = eps_1 / sqrt(1 -
+    SV_PHI^2)``, ``h_t = SV_PHI h_{t-1} + eps_t``, returns ``z exp(h / 2)``.
+    Returns the model (``stoch_vol(returns)``) and the true ``h [T]``."""
     import torch
 
     from inplacedhmc_tpu_torch.models import stoch_vol
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 50)
-    eps = torch.randn((SV_T,), generator=gen, device="cuda") * SV_S
+    eps = torch.randn((t_len,), generator=gen, device="cuda") * SV_S
     h = torch.empty_like(eps)
     h[0] = eps[0] / math.sqrt(1.0 - SV_PHI * SV_PHI)
-    for t in range(1, SV_T):
+    for t in range(1, t_len):
         h[t] = SV_PHI * h[t - 1] + eps[t]
-    r = torch.randn((SV_T,), generator=gen, device="cuda") * torch.exp(0.5 * h)
+    r = torch.randn((t_len,), generator=gen, device="cuda") \
+        * torch.exp(0.5 * h)
     return stoch_vol(r, device="cuda"), h
 
 
@@ -912,17 +1072,18 @@ def sv_problem():
 SATURATED = {"funnel": -95.0, "stoch_vol": SV_SATURATED}
 
 
-def tile_start(name: str, c: int, gen, neck: bool = False):
+def tile_start(name: str, c: int, gen, neck: bool = False,
+               sv_t: int = SV_T):
     """Positions for ``c`` chains of a tile model at its width: normal, with
-    eight schools' mu about its posterior; stochastic volatility's about
-    the truth (raw_phi, log_s 0.2 from it, each h_t 0.3); with ``neck``,
-    every 16th chain at coordinate 0's ``SATURATED`` value, where the
-    density and the gradient are non-finite and the leaf's sanitisation
-    runs."""
+    eight schools' mu about its posterior; stochastic volatility's (at
+    ``sv_t``) about the truth (raw_phi, log_s 0.2 from it, each h_t 0.3);
+    with ``neck``, every 16th chain at coordinate 0's ``SATURATED`` value,
+    where the density and the gradient are non-finite and the leaf's
+    sanitisation runs."""
     import torch
     if name == "stoch_vol":
-        h = sv_problem()[1]
-        q = torch.randn((c, SV_T + 2), generator=gen, device="cuda")
+        h = sv_problem(sv_t)[1]
+        q = torch.randn((c, sv_t + 2), generator=gen, device="cuda")
         q[:, 0] = math.atanh(SV_PHI) + 0.2 * q[:, 0]
         q[:, 1] = math.log(SV_S) + 0.2 * q[:, 1]
         q[:, 2:] = h + 0.3 * q[:, 2:]
@@ -936,13 +1097,14 @@ def tile_start(name: str, c: int, gen, neck: bool = False):
 
 
 def check_sweep(card: str, physics: str = "gaussian",
-                eps: float = 0.3) -> None:
+                eps: float = 0.3, sv_t: int = SV_T) -> None:
     """One launch of ``SWEEP_CHECK_K`` transitions drawing everything itself
     against that many one-transition launches fed what the generator draws
     for its key (max_depth 10, step size ``eps``, 1 row in 1,000 padded;
     the standard normal at 10,240 x 100, or a tile model at 1,024 chains
-    and its width): every field equal bit for bit.  Timed beside the single
-    launches (each with its own key) and the bound."""
+    and its width, stochastic volatility at ``sv_t``): every field equal
+    bit for bit.  Timed beside the single launches (each with its own key)
+    and the bound."""
     import torch
 
     from inplacedhmc_tpu_torch.ops.tree import (TREE_KERNELS, TreeOut,
@@ -954,9 +1116,9 @@ def check_sweep(card: str, physics: str = "gaussian",
         data = {"lam": torch.ones((d,), device="cuda")}
         q0 = torch.randn((c, d), generator=gen, device="cuda")
     else:
-        st = tile_model(physics).structure
+        st = tile_model(physics, sv_t).structure
         data = {**st["data"], **st["scalars"]}
-        q0 = tile_start(physics, E_CHAINS, gen)
+        q0 = tile_start(physics, E_CHAINS, gen, sv_t=sv_t)
         c, d = q0.shape
     phys = _physics(physics, data)
     md, k = MAX_DEPTH, SWEEP_CHECK_K
@@ -1001,15 +1163,21 @@ def check_sweep(card: str, physics: str = "gaussian",
     one_ms = cuda_time_ms(lambda: [tree_sweep(
         q0, e, phys, minv, md, -1000.0, key=kk, sqrt_mass=sqrt_mass,
         valid=valid, out=one) for kk in keys], iters=5, warmup=1)
+    # the single launches each start from q0: their work is not the sweep's
+    one_steps = sum(float(tree_sweep(
+        q0, e, phys, minv, md, -1000.0, key=kk, sqrt_mass=sqrt_mass,
+        valid=valid).steps.sum()) for kk in keys)
     bound_ms, bound_by, _ = tree_bound(c, d, swept, "refresh", physics)
     print(f"[sweep] {physics} on {card}: one launch of {k} {ms:.4f} ms "
-          f"({ms / k:.4f} ms per transition), {k} launches of one "
-          f"{one_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}); "
-          f"{steps / ms * 1e3:.4g} steps/s")
+          f"({ms / k:.4f} ms per transition, {steps / ms * 1e3:.4g} "
+          f"steps/s), {k} launches of one from the start {one_ms:.4f} ms "
+          f"({one_steps:.0f} steps, {one_steps / one_ms * 1e3:.4g} "
+          f"steps/s); bound {bound_ms:.4f} ms ({bound_by})")
 
 
 def check_tile_kernel(card: str, physics: str, chain_counts, eps_list,
-                      neck: bool = False, dense: bool = False) -> None:
+                      neck: bool = False, dense: bool = False,
+                      sv_t: int = SV_T) -> None:
     """K5 with a tile physics against its plain version at its model's
     width, max_depth 10, for each chain count and step size, in the
     default route's form (momentum and directions from the host, the
@@ -1019,7 +1187,8 @@ def check_tile_kernel(card: str, physics: str, chain_counts, eps_list,
     U(0, 1)`` on the diagonal, or with ``dense`` a dense ``M^-1``
     (``_spd``, the source's second launcher).  With ``neck`` every 16th
     chain starts where the density is not finite (``tile_start``): those
-    chains must diverge at their first leaf and keep their start."""
+    chains must diverge at their first leaf and keep their start.
+    Stochastic volatility runs at T = ``sv_t``."""
     import torch
 
     from inplacedhmc_tpu_torch.core.metric import dense_metric
@@ -1027,14 +1196,14 @@ def check_tile_kernel(card: str, physics: str, chain_counts, eps_list,
                                                 TREE_KERNELS,
                                                 direction_words_int32)
 
-    st = tile_model(physics).structure
+    st = tile_model(physics, sv_t).structure
     phys = _physics(physics, {**st["data"], **st["scalars"]})
     kern = (TREE_DENSE_KERNELS if dense else TREE_KERNELS)[physics]
     md = MAX_DEPTH
     metric = "dense" if dense else "diagonal"
     for c in chain_counts:
         gen = torch.Generator(device="cuda").manual_seed(SEED + 12 + c)
-        q0 = tile_start(physics, c, gen, neck)
+        q0 = tile_start(physics, c, gen, neck, sv_t)
         d = q0.shape[1]
         xi = torch.randn((c, d), generator=gen, device="cuda")
         if dense:
@@ -1057,8 +1226,10 @@ def check_tile_kernel(card: str, physics: str, chain_counts, eps_list,
             if kern.launches != before + 1:
                 raise RuntimeError(f"the wrapper did not launch {kern.symbol}")
             want = plain()
-            label = f"{physics}, {metric} metric, {c} chains, eps {eps}"
-            compare_tree(got, want, label, replay=plain)
+            label = f"{physics}, {metric} metric, {c} x {d}, eps {eps}"
+            compare_tree(got, want, label, replay=plain,
+                         lsa_bound=_long_sums(phys, d),
+                         terms=_terms_of(phys, d))
             # every position stays finite; the density and energy too but
             # on the chains that start where the density is not finite,
             # which diverge at their first leaf and keep their start
@@ -1089,27 +1260,27 @@ def check_tile_kernel(card: str, physics: str, chain_counts, eps_list,
 
 
 @functools.lru_cache(maxsize=None)
-def mvn_target():
+def mvn_target(dim: int = MVN_DIM, df: int = MVN_DF):
     """The 250-D multivariate normal of Hoffman and Gelman (2014), section
-    4.1, with 300 degrees of freedom where they use 250: the precision is
-    A = X X^T with X ``[250, 300]`` standard normal from numpy's
-    ``default_rng(MVN_SEED)`` (a Wishart draw with identity scale), and
-    ``mvn`` gets ``cov = inv(A)`` in float64, which it holds as float32 and
-    inverts on the card.  Returns the model and ``sigma``, the float64
-    inverse of the float32 precision the model holds: the covariance the
-    gates hold the draws to."""
+    4.1, with 300 degrees of freedom where they use 250 (or another ``dim``
+    and ``df``): the precision is A = X X^T with X ``[dim, df]`` standard
+    normal from numpy's ``default_rng(MVN_SEED)`` (a Wishart draw with
+    identity scale), and ``mvn`` gets ``cov = inv(A)`` in float64, which it
+    holds as float32 and inverts on the card.  Returns the model and
+    ``sigma``, the float64 inverse of the float32 precision the model
+    holds: the covariance the gates hold the draws to."""
     import numpy as np
     import torch
 
     from inplacedhmc_tpu_torch.models import mvn
 
-    x = np.random.default_rng(MVN_SEED).standard_normal((MVN_DIM, MVN_DF))
+    x = np.random.default_rng(MVN_SEED).standard_normal((dim, df))
     a = x @ x.T
     model = mvn(np.linalg.inv(a), device="cuda")
     sigma = torch.linalg.inv(model.structure["precision"].double())
     eig = np.linalg.eigvalsh(a)
     sd = torch.sqrt(torch.diag(sigma))
-    print(f"[mvn] target: {MVN_DIM}-D, Wishart precision with {MVN_DF} "
+    print(f"[mvn] target: {dim}-D, Wishart precision with {df} "
           f"degrees of freedom (seed {MVN_SEED}): eigenvalues of A "
           f"{eig[0]:.4g} to {eig[-1]:.6g}, cond(A) {eig[-1] / eig[0]:.4g}; "
           f"marginal sds {float(sd.min()):.4f} to {float(sd.max()):.4f}")
@@ -1179,15 +1350,14 @@ def dense_case(card: str, label: str, physics: str, data: dict, q0, minv,
             if kern.launches != before + 1:
                 raise RuntimeError(f"the wrapper did not launch "
                                    f"{kern.symbol}")
-            want = plain()
+            want, plain_ms = timed(plain)
             tag = f"{label}, eps {eps:.4g}, {form}"
             err = compare_tree(got, want, tag, grad_bound(phys),
-                               replay=plain, lsa_bound=_n_obs(phys) > 0)
+                               replay=plain, lsa_bound=_long_sums(phys, d))
             if not bool(torch.isfinite(got.q).all()):
                 raise RuntimeError(f"K5 ({tag}) returned a non-finite state")
             deep = float(want.depth.double().mean()) > 7
             ms = cuda_time_ms(launch, 3 if deep else iters, 1)
-            plain_ms = wall_ms(plain, iters=1, warmup=0)
             bound_ms, bound_by, steps = tree_bound(c, d, want, form, physics,
                                                    dense, _n_obs(phys))
             # a launch lasts as long as its longest chain, whose [D, D]
@@ -1206,25 +1376,38 @@ def dense_case(card: str, label: str, physics: str, data: dict, q0, minv,
     return times
 
 
-def sass_spills() -> None:
-    """The local-memory loads and stores (``LDL``, ``STL``: spills) in the
-    SASS of each K5 instantiation of ``tree_dense_gaussian.cu``
-    (``cuobjdump -sass`` beside ``nvcc``), beside its loads from device
-    memory (``LDG``) and its shuffles."""
+def sass_spills(source: str = "dense_gaussian", wide_only: bool = False):
+    """ptxas's registers and spill bytes (``-Xptxas -v`` of the build) and
+    the local-memory loads and stores (``LDL``, ``STL``: spills) in the
+    SASS (``cuobjdump -sass`` beside ``nvcc``) of each K5 instantiation of
+    ``tree_<source>.cu``, beside its loads from device memory (``LDG``),
+    its shuffles and its barriers (``BAR``); with ``wide_only``, of the
+    wide form's only (team ``Block``: ``5BlockE`` in the mangled name)."""
     import re
 
     from inplacedhmc_tpu_torch.ops.cuda_build import find_nvcc
     from inplacedhmc_tpu_torch.ops.tree import TREE_DENSE_KERNELS
+    kernel = TREE_DENSE_KERNELS[source]
     cuobjdump = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
-    sass = subprocess.run(
-        [cuobjdump, "-sass", TREE_DENSE_KERNELS["dense_gaussian"].build()],
-        capture_output=True, text=True, check=True).stdout
+    sass = subprocess.run([cuobjdump, "-sass", kernel.build()],
+                          capture_output=True, text=True, check=True).stdout
+    usage, name = {}, None
+    for line in kernel.build_log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif name and "spill stores" in line:
+            usage[name] = " ".join(re.findall(
+                r"\d+ bytes spill (?:stores|loads)", line))
+        elif name and "Used" in line and "registers" in line:
+            usage[name] = (re.search(r"Used \d+ registers", line).group(0)
+                           + ", " + usage.get(name, "spills not reported"))
     for block in sass.split("Function : ")[1:]:
         name = block.split("\n")[0].strip()
-        if "tree_kernel" in name:
+        if "tree_kernel" in name and ("5BlockE" in name or not wide_only):
             count = {op: len(re.findall(rf"\b{op}\b", block))
-                     for op in ("LDL", "STL", "LDG", "SHFL")}
-            print(f"[sass] {name}: {count}")
+                     for op in ("LDL", "STL", "LDG", "SHFL", "BAR")}
+            print(f"[sass] {name}: {usage.get(name, 'ptxas not reported')}; "
+                  f"{count}")
 
 
 def check_dense_tree_kernel(card: str) -> dict:
@@ -1238,7 +1421,9 @@ def check_dense_tree_kernel(card: str) -> dict:
       at 64 chains, from draws of the target, under its diagonal metric
       diag(Sigma) at 0.5, 1.5 and 0.1 of the stability limit 2 /
       sqrt(lambda_max) of the preconditioned precision, and under the dense
-      metric Sigma at eps 0.3, 2.5 and 0.05, in the three forms;
+      metric Sigma at eps 0.3, 2.5 and 0.05, in the default route's form
+      at 64 chains, and in the three forms but for the deep 0.1 and 0.05
+      at 1,024 (``mvn_cases``);
     * eight schools and the funnel under a dense metric at their D = 10,
       1,024 chains, the default route's form.
 
@@ -1258,35 +1443,15 @@ def check_dense_tree_kernel(card: str) -> dict:
                {"lam": torch.ones((d,), device="cuda")},
                torch.randn((G_CHAINS, d), generator=gen, device="cuda"),
                _spd(d, gen), (0.3, 1.8, 0.002), seed=1)
-    model, sigma = mvn_target()
-    prec = model.structure["precision"]
-    chol = torch.linalg.cholesky(sigma)
-    var = torch.diag(sigma)
-    pre = prec.double() * torch.sqrt(var[:, None] * var[None, :])
-    limit = 2.0 / float(torch.linalg.eigvalsh(pre).max()) ** 0.5
-    sigma32 = sigma.float()
-    sigma32 = (0.5 * (sigma32 + sigma32.T)).contiguous()
-    entry = None
-    for c in (MVN_CHAINS, 64):
-        q0 = (torch.randn((c, MVN_DIM), generator=gen, dtype=torch.float64,
-                          device="cuda") @ chol.T).float().contiguous()
-        times = dense_case(
-            card, f"dense_gaussian, diagonal metric, {c} x {MVN_DIM}",
-            "dense_gaussian", {"prec": prec}, q0, var.float().contiguous(),
-            (0.5 * limit, 1.5 * limit, 0.1 * limit), seed=2)
-        if c == MVN_CHAINS:
-            ms, plain_ms, bound_ms, bound_by, err = times[(0.5 * limit,
-                                                           "prng")]
-            entry = {"name": "tree_dense_gaussian", "route": "cuda",
-                     "source": "inplacedhmc_tpu_torch/csrc/"
-                               "tree_dense_gaussian.cu",
-                     "replaces": "inplacedhmc_tpu/ops/tree_pallas.py:1118",
-                     "launches": None, "max_abs_err": err, "ms": ms,
-                     "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "library_ms": None}
-        dense_case(card, f"dense_gaussian, dense metric, {c} x {MVN_DIM}",
-                   "dense_gaussian", {"prec": prec}, q0, sigma32,
-                   (0.3, 2.5, 0.05), seed=3)
+    ms, plain_ms, bound_ms, bound_by, err = mvn_cases(
+        card, gen, MVN_DIM, MVN_DF, (MVN_CHAINS,), deep=False)
+    mvn_cases(card, gen, MVN_DIM, MVN_DF, (64,), forms=("prng",))
+    entry = {"name": "tree_dense_gaussian", "route": "cuda",
+             "source": "inplacedhmc_tpu_torch/csrc/tree_dense_gaussian.cu",
+             "replaces": "inplacedhmc_tpu/ops/tree_pallas.py:1118",
+             "launches": None, "max_abs_err": err, "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": bound_ms,
+             "bound_by": bound_by, "library_ms": None}
     for name, eps in (("eight_schools", 0.3), ("funnel", 0.2)):
         st = tile_model(name).structure
         dense_case(card, f"{name}, dense metric, {E_CHAINS} x 10", name,
@@ -1295,6 +1460,78 @@ def check_dense_tree_kernel(card: str) -> dict:
                    forms=("prng",), seed=4)
     print(f"[k5-dense] checks {time.perf_counter() - t:.2f} s")
     return entry
+
+
+def mvn_cases(card: str, gen, dim: int, df: int, chain_counts,
+              forms=("array", "prng", "refresh"), deep: bool = True) -> tuple:
+    """``dense_gaussian`` on the ``dim``-D Wishart-precision target
+    (``mvn_target(dim, df)``) at each chain count, from draws of the
+    target, under its diagonal metric diag(Sigma) at 0.5, 1.5 and (with
+    ``deep``) 0.1 of the stability limit 2 / sqrt(lambda_max) of the
+    preconditioned precision, and under the dense metric Sigma at eps 0.3,
+    2.5 and (with ``deep``) 0.05, in the ``forms`` (``dense_case``).
+    Returns the first count's timing under the diagonal metric at half the
+    limit, drawing its uniforms."""
+    import torch
+
+    model, sigma = mvn_target(dim, df)
+    prec = model.structure["precision"]
+    chol = torch.linalg.cholesky(sigma)
+    var = torch.diag(sigma)
+    pre = prec.double() * torch.sqrt(var[:, None] * var[None, :])
+    limit = 2.0 / float(torch.linalg.eigvalsh(pre).max()) ** 0.5
+    sigma32 = sigma.float()
+    sigma32 = (0.5 * (sigma32 + sigma32.T)).contiguous()
+    first = None
+    for c in chain_counts:
+        q0 = (torch.randn((c, dim), generator=gen, dtype=torch.float64,
+                          device="cuda") @ chol.T).float().contiguous()
+        times = dense_case(
+            card, f"dense_gaussian, diagonal metric, {c} x {dim}",
+            "dense_gaussian", {"prec": prec}, q0, var.float().contiguous(),
+            (0.5 * limit, 1.5 * limit) + ((0.1 * limit,) if deep else ()),
+            forms, seed=2)
+        if first is None:
+            first = times[(0.5 * limit, "prng")]
+        dense_case(card, f"dense_gaussian, dense metric, {c} x {dim}",
+                   "dense_gaussian", {"prec": prec}, q0, sigma32,
+                   (0.3, 2.5) + ((0.05,) if deep else ()), forms, seed=3)
+    return first
+
+
+def check_wide_kernels(card: str) -> None:
+    """K5's wide form (D above 256: one chain per block of ceil(D / 256)
+    warps, the row sums, the AR(1) neighbours and the ``[D, D]`` products
+    through shared memory) against its plain version, max_depth 10, by
+    ``compare_tree``'s rule: the SASS of the wide instantiations of the
+    Gaussian and stochastic volatility (``sass_spills``; the dense
+    Gaussian's print with its narrow ones); the Gaussian at 64 and 1,024
+    chains x 1,000 in its three forms at three step sizes
+    (``check_tree_kernel``); the dense Gaussian on a 512-D Wishart-precision
+    target at 256 chains under a diagonal and a dense metric, at a mixed
+    and a divergent step size (``mvn_cases``: the deep cases cost seconds
+    of the plain version each and add no form); stochastic volatility at
+    T = 1,000 at 1,024 and 10,240 chains under a diagonal metric and at
+    1,024 under a dense one, at three step sizes, every 16th chain
+    saturated (``check_tile_kernel``); and a sweep of 16 against 16
+    launches at D = 1,002 (``check_sweep``)."""
+    import torch
+
+    t = time.perf_counter()
+    for source in ("gaussian", "stoch_vol"):
+        sass_spills(source, wide_only=True)
+    for c in (S_CHAINS, E_CHAINS):
+        check_tree_kernel(card, c, W_DIM, seed=30 + c)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 31)
+    mvn_cases(card, gen, MVN_WIDE_DIM, MVN_WIDE_DF, (MVN_WIDE_CHAINS,),
+              deep=False)
+    for dense, counts in ((False, (SV_CHAINS, SV_BIG)), (True, (SV_CHAINS,))):
+        check_tile_kernel(card, "stoch_vol", counts, SV_EPS, neck=True,
+                          dense=dense, sv_t=SV_WIDE_T)
+    check_sweep(card, "stoch_vol", SV_SWEEP_EPS, SV_WIDE_T)
+    print(f"[k5-wide] stochastic volatility's long sums: the largest K "
+          f"needed by field {LONG_SUM_NEED} (LONG_SUM_K {LONG_SUM_K})")
+    print(f"[k5-wide] checks {time.perf_counter() - t:.2f} s")
 
 
 def sweep_case(card: str, label: str, phys, q0, minv, eps: float,
@@ -1503,7 +1740,8 @@ def tree_at_state(card: str, res, form: str = "prng", k: int = 1,
         kw = dict(momentum=p0[None], dirs=d32[None])
         launch, plain = tree_form("prng", q0, p0, e, d32, None, phys, minv,
                                   key, md)
-        got, want = launch(), plain()
+        got = launch()
+        want, plain_ms = timed(plain)
     else:
         kw = dict(sqrt_mass=scale)
         xi, dirs, unif = philox_draws(key, c, d, md, k)
@@ -1518,8 +1756,8 @@ def tree_at_state(card: str, res, form: str = "prng", k: int = 1,
                 q0[rows], p_all[0][rows], e[rows], dirs[0][rows],
                 unif[0][:, rows] * math.exp(shift), phys, minv, md, -1000.0)
 
-        got, want = tree_sweep(q0, e, phys, minv, md, -1000.0, k, key=key,
-                               **kw), plain()
+        got = tree_sweep(q0, e, phys, minv, md, -1000.0, k, key=key, **kw)
+        want, plain_ms = timed(plain)
         # the sweep's gradient is that of its last proposal: held against
         # the plain physics at the kernel's own last proposal (a tie in any
         # of the k transitions parts the two sides' last proposals)
@@ -1530,16 +1768,20 @@ def tree_at_state(card: str, res, form: str = "prng", k: int = 1,
                            f"{float(e[0]):.4g}, {form}, n_sweep {k}",
                            grad_bound(phys), grad_q,
                            plain if form == "prng" else first,
-                           lsa_bound=_n_obs(phys) > 0)
+                           lsa_bound=_long_sums(phys, d),
+                           terms=_terms_of(phys, d))
     # timed on a start and output buffers made beforehand: nothing but the
     # kernel is queued in the timed loop
     out = tree_sweep(q0, e, phys, minv, md, -1000.0, k, key=key, **kw)
-    # a dense state's launches take tens of ms and its plain version
-    # seconds (it ran once above): fewer repeats
+    # a dense or wide state's launches take tens of ms and its plain
+    # version seconds: fewer repeats, and the plain version timed on its
+    # comparison run above
+    slow = dense or d > 256
     ms = cuda_time_ms(lambda: tree_sweep(
         q0, e, phys, minv, md, -1000.0, k, key=key, out=out, **kw),
-        *((5, 1) if dense else (20, 3)))
-    plain_ms = wall_ms(plain, *((1, 0) if dense else (2, 1)))
+        *((3, 1) if slow else (20, 3)))
+    if not slow:
+        plain_ms = wall_ms(plain, 2, 1)
     bound_ms, bound_by, steps = tree_bound(c, d, out, form, physics, dense,
                                            _n_obs(phys))
     metric = "dense" if dense else "diagonal"
@@ -1755,7 +1997,8 @@ def tree_launches(physics: str, stages, n_sampling: int,
 def run_gaussian_sample(card: str, kernels, dim: int, n_chains: int,
                         n_draws: int, route: str, tree_opts=None, *,
                         model=None, metric: str = "diag", var=None,
-                        physics: str = "gaussian", state=None):
+                        physics: str = "gaussian", state=None,
+                        use_pallas: str = "auto", stages=None):
     """``sample()`` on a Gaussian, by default the ``dim``-D standard normal,
     with the default warmup whose windows estimate a ``metric`` ("diag" or
     "dense"), through ``route`` ("tree": K5 once per transition, under the
@@ -1769,7 +2012,9 @@ def run_gaussian_sample(card: str, kernels, dim: int, n_chains: int,
     q^2).  ``model`` (another Gaussian, ``physics`` its whole-tree physics)
     replaces the standard normal.  With ``state`` (a ``WarmupState``, of a
     run on the same model) there is no warmup: the sampling loop starts
-    from its positions, metric and eps."""
+    from its positions, metric and eps.  ``use_pallas`` is ``sample()``'s
+    (``"on"``: the lockstep tree with K3 whatever K5 takes); ``stages``
+    replaces the default warmup."""
     import torch
 
     from inplacedhmc_tpu_torch import (DenseMetric, NUTSKernel,
@@ -1780,7 +2025,8 @@ def run_gaussian_sample(card: str, kernels, dim: int, n_chains: int,
     if model is None:
         model = std_normal(dim, device="cuda")
     dim = model.dim
-    stages = default_warmup_stages(metric=metric)
+    if stages is None:
+        stages = default_warmup_stages(metric=metric)
     start, form = {}, "diag"
     if state is not None:
         stages = ()
@@ -1792,7 +2038,8 @@ def run_gaussian_sample(card: str, kernels, dim: int, n_chains: int,
         k.launches = 0
     t0 = time.perf_counter()
     res = sample(SEED, model, n_draws, n_chains, warmup_stages=stages,
-                 reporter=timer, device="cuda", tree_opts=tree_opts, **start)
+                 reporter=timer, device="cuda", tree_opts=tree_opts,
+                 use_pallas=use_pallas, **start)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = launch_counts(kernels)
@@ -1961,38 +2208,40 @@ def run_tile_sample(card: str, kernels, name: str):
     return res, launches, sample_s
 
 
-def run_sv_sample(card: str, kernels):
-    """``sample()`` on stochastic volatility at T = ``SV_T`` (``sv_problem``)
-    through K5 with its physics: config 5's recipe (delta 0.9, dense
-    windows, ``doubling_stages`` 4, no L-BFGS start), ``SV_CHAINS`` chains,
-    ``SV_DRAWS`` draws, every ``SV_THIN``-th transition recorded; the
-    diagonal launcher until the first dense window
-    closes and the dense one after (``tree_launches``), once per transition,
-    and no other kernel: no transition ran the lockstep tree.  Gates:
-    finite draws, split R-hat max over every coordinate < 1.05, mean
-    acceptance in ``SV_ACCEPT_BAND``, divergent fraction below
-    ``SV_DIV_MAX``, at least ``SV_COVERAGE`` of the true h_t inside their
-    central 90 % posterior intervals.  Prints phi's and s's posterior means
-    beside the truth.  Returns the result, the launch counts and the
-    sampling wall."""
+def run_sv_sample(card: str, kernels, t_len: int = SV_T,
+                  n_draws: int = SV_DRAWS, thin: int = SV_THIN,
+                  gate_rhat: bool = True):
+    """``sample()`` on stochastic volatility at T = ``t_len``
+    (``sv_problem``) through K5 with its physics: config 5's recipe (delta
+    0.9, dense windows, ``doubling_stages`` 4, no L-BFGS start),
+    ``SV_CHAINS`` chains, ``n_draws`` draws, every ``thin``-th transition
+    recorded; the diagonal launcher until the first dense window closes and
+    the dense one after (``tree_launches``), once per transition, and no
+    other kernel: no transition ran the lockstep tree.  Gates: finite draws,
+    split R-hat max over every coordinate < 1.05 (with ``gate_rhat``; else
+    printed only), mean acceptance in ``SV_ACCEPT_BAND``, divergent
+    fraction below ``SV_DIV_MAX``, at least ``SV_COVERAGE`` percent of the
+    true h_t inside their central 90 % posterior intervals.  Prints phi's
+    and s's posterior means beside the truth.  Returns the result, the
+    launch counts and the sampling wall."""
     import torch
 
     from inplacedhmc_tpu_torch import (DualAveraging, default_warmup_stages,
                                        sample)
     from inplacedhmc_tpu_torch import diagnostics as diag
 
-    model, h_true = sv_problem()
+    model, h_true = sv_problem(t_len)
     stages = default_warmup_stages(
         local_optimization=None,
         stepsize_adaptation=DualAveraging(delta=0.9), doubling_stages=4,
         metric="dense")
-    mine = tree_launches("stoch_vol", stages, SV_DRAWS * SV_THIN)
+    mine = tree_launches("stoch_vol", stages, n_draws * thin)
     timer = StageTimer()
     for k in kernels:
         k.launches = 0
     t0 = time.perf_counter()
-    res = sample(SEED, model, SV_DRAWS, SV_CHAINS, warmup_stages=stages,
-                 reporter=timer, device="cuda", thin=SV_THIN)
+    res = sample(SEED, model, n_draws, SV_CHAINS, warmup_stages=stages,
+                 reporter=timer, device="cuda", thin=thin)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = launch_counts(kernels)
@@ -2007,7 +2256,7 @@ def run_sv_sample(card: str, kernels):
                            f"K5-stoch_vol alone: {launches}")
     sample_s = timer.stages[-1][1]
     draws, stats = res.draws, res.stats
-    if tuple(draws.shape) != (SV_DRAWS, SV_CHAINS, model.dim) \
+    if tuple(draws.shape) != (n_draws, SV_CHAINS, model.dim) \
             or not bool(torch.isfinite(draws).all()):
         raise RuntimeError("draws are not finite or not [n_draws, C, D]")
     x = draws.double()
@@ -2015,38 +2264,39 @@ def run_sv_sample(card: str, kernels):
     accept = stats.acceptance_rate.double().mean().item()
     div = (stats.termination == 1).double().mean().item()
     ess = diag.ess_bulk(x, cap=False)
-    hs = torch.sort(x[..., 2:].reshape(-1, SV_T), dim=0).values
+    hs = torch.sort(x[..., 2:].reshape(-1, t_len), dim=0).values
     n = hs.shape[0]
     lo, hi = hs[int(0.05 * (n - 1))], hs[int(math.ceil(0.95 * (n - 1)))]
     h64 = h_true.double()
     covered = int(((h64 >= lo) & (h64 <= hi)).sum())
+    need = math.ceil(SV_COVERAGE * t_len / 100)
     post = model.constrain(x)
     chain_steps = int(stats.steps.sum())
     print(f"{tag} eps {torch.exp(res.warmup_state.log_eps).item():.5g}, "
           f"split R-hat max {rhat.max().item():.4f} (coordinate "
           f"{int(rhat.argmax())}; raw_phi {rhat[0].item():.4f}, log_s "
-          f"{rhat[1].item():.4f}), acceptance mean {accept:.4f}, divergent "
-          f"fraction {div:.5f}; {covered} of {SV_T} true h_t in their "
-          f"central 90 % intervals; posterior means phi "
+          f"{rhat[1].item():.4f}; {'gated' if gate_rhat else 'not gated'}), "
+          f"acceptance mean {accept:.4f}, divergent "
+          f"fraction {div:.5f}; {covered} of {t_len} true h_t in their "
+          f"central 90 % intervals (at least {need}); posterior means phi "
           f"{post['phi'].mean().item():.4f} (truth {SV_PHI}), s "
           f"{post['s'].mean().item():.4f} (truth {SV_S})")
-    print(f"{tag} {card}: {chain_steps * SV_THIN / sample_s:.4g} leapfrog "
-          f"steps/s (the recorded transitions' steps times {SV_THIN}), "
+    print(f"{tag} {card}: {chain_steps * thin / sample_s:.4g} leapfrog "
+          f"steps/s (the recorded transitions' steps times {thin}), "
           f"ess_bulk min {ess.min().item():.4g} (raw_phi "
           f"{ess[0].item():.4g}, log_s {ess[1].item():.4g}) -> "
           f"{ess.min().item() / sample_s:.4g} ESS/s")
     print(diag.summarize_tree_statistics(stats))
     fails = []
-    if not rhat.max().item() < 1.05:
+    if gate_rhat and not rhat.max().item() < 1.05:
         fails.append(f"split R-hat {rhat.max().item()} >= 1.05")
     lo_a, hi_a = SV_ACCEPT_BAND
     if not lo_a <= accept <= hi_a:
         fails.append(f"mean acceptance {accept} outside [{lo_a}, {hi_a}]")
     if not div < SV_DIV_MAX:
         fails.append(f"divergent fraction {div} >= {SV_DIV_MAX}")
-    if not covered >= SV_COVERAGE:
-        fails.append(f"{covered} true h_t covered, fewer than "
-                     f"{SV_COVERAGE}")
+    if not covered >= need:
+        fails.append(f"{covered} true h_t covered, fewer than {need}")
     if fails:
         raise RuntimeError("stoch_vol: " + "; ".join(fails))
     return res, launches, sample_s
@@ -2142,7 +2392,9 @@ def crossover(card: str, physics: str = "gaussian", state=None,
     default route's lockstep tree with K1.  With ``check``, fails unless
     the whole tree was the faster exactly at the counts from the threshold
     (``NUTSKernel.TREE_MIN_CHAINS``, ``TREE_MIN_CHAINS_BY_PHYSICS``) up;
-    returns the faster route by chain count."""
+    returns the faster route by chain count.  The whole tree is timed over
+    10 transitions (2 where its first took more than 0.1 s), the other
+    route over 2 (its first alone where that took more than a second)."""
     import torch
 
     from inplacedhmc_tpu_torch import DenseMetric, NUTSKernel, identity_metric
@@ -2180,9 +2432,16 @@ def crossover(card: str, physics: str = "gaussian", state=None,
             else torch.randn((c, G_DIM), generator=gen, device="cuda") \
             if physics == "gaussian" else tile_start(physics, c, gen)
         z = evaluate(kern.potential, q0)
-        k5 = wall_ms(lambda: trans(gen, z, eps), iters=10, warmup=2)
+        t0 = time.perf_counter()
+        trans(gen, z, eps)[1].depth.max().item()   # K5's warm-up
+        k5 = wall_ms(lambda: trans(gen, z, eps),
+                     iters=2 if time.perf_counter() - t0 > 0.1 else 10,
+                     warmup=1)
+        t0 = time.perf_counter()
         depth = int(lockstep(gen, z)[1].depth.max())   # also its warm-up
-        slow = wall_ms(lambda: lockstep(gen, z), iters=2, warmup=0)
+        warm_s = time.perf_counter() - t0
+        slow = warm_s * 1e3 if warm_s > 1.0 else wall_ms(
+            lambda: lockstep(gen, z), iters=2, warmup=0)
         faster[c] = "K5" if k5 < slow else "lockstep"
         print(f"[crossover] {physics} ({model.dim}-D, {form} metric), {c} "
               f"chains, eps {eps:.4g} on {card}: whole tree (K5) {k5:.3f} "
@@ -2208,8 +2467,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     import inplacedhmc_tpu_torch  # noqa: F401  (fails outside a checkout)
+    from inplacedhmc_tpu_torch import default_warmup_stages
     from inplacedhmc_tpu_torch.core.metric import diag_metric
-    from inplacedhmc_tpu_torch.models import logistic_regression
+    from inplacedhmc_tpu_torch.models import logistic_regression, std_normal
 
     card = card_line()
     print(f"[card] {card}; torch {torch.__version__}, "
@@ -2229,11 +2489,12 @@ def main() -> int:
                       neck=True)
     check_sweep(card, "eight_schools")
     t_sv = time.perf_counter()
-    for dense in (False, True):
-        check_tile_kernel(card, "stoch_vol", (SV_CHAINS, SV_BIG), SV_EPS,
-                          neck=True, dense=dense)
+    for dense, counts in ((False, (SV_CHAINS, SV_BIG)), (True, (SV_CHAINS,))):
+        check_tile_kernel(card, "stoch_vol", counts, SV_EPS, neck=True,
+                          dense=dense)
     check_sweep(card, "stoch_vol", SV_SWEEP_EPS)
     print(f"[k5-stoch_vol] checks {time.perf_counter() - t_sv:.2f} s")
+    check_wide_kernels(card)
     k5d_diag = check_dense_tree_kernel(card)
     check_dense_sweep(card)
     k5l_diag = check_logistic_tree_kernel(card)
@@ -2303,9 +2564,24 @@ def main() -> int:
     del res
     print(f"[phase] whole-tree sample, {S_CHAINS} chains "
           f"{time.perf_counter() - t:.2f} s")
+    # the 1000-D normal through K5's wide form (the default route), then
+    # the same model on the lockstep tree with K3 (use_pallas="on"), cut
+    # to a short run: K3's own path
     t = time.perf_counter()
-    _, launches, _ = run_gaussian_sample(card, kernels, W_DIM, S_CHAINS,
-                                         S_DRAWS, "lockstep")
+    res, launches, sample_s = run_gaussian_sample(
+        card, kernels, W_DIM, S_CHAINS, S_DRAWS, "tree")
+    k5w = tree_at_state(card, res, name="gaussian_tree_transition_wide")
+    k5w["launches"] = launches["tree_gaussian_launch"]
+    print(f"[tree {S_CHAINS} x {W_DIM}] K5 (wide) device time {S_DRAWS} x "
+          f"{k5w['ms']:.4f} ms = {S_DRAWS * k5w['ms'] / 1e3:.3f} s of the "
+          f"{sample_s:.3f} s sampling wall")
+    w_state = res.warmup_state
+    del res
+    print(f"[phase] wide whole-tree sample {time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
+    _, launches, _ = run_gaussian_sample(
+        card, kernels, W_DIM, S_CHAINS, W_K3_DRAWS, "lockstep",
+        use_pallas="on", stages=default_warmup_stages(**W_K3_STAGES))
     k3["launches"] = launches["leapfrog_gaussian_launch"]
     print(f"[phase] lockstep sample {time.perf_counter() - t:.2f} s")
     tiles = []
@@ -2345,6 +2621,30 @@ def main() -> int:
     sv[0]["launches"] = launches["tree_stoch_vol_launch"]
     del res
     print(f"[phase] stoch_vol sample {time.perf_counter() - t:.2f} s")
+    # config 5's T = 1,000 through K5-stoch_vol's wide form: the full
+    # warmup, SV_WIDE_DRAWS consecutive draws, R-hat printed; then each
+    # launcher timed at the tuned state
+    t = time.perf_counter()
+    res, launches, sample_s = run_sv_sample(
+        card, kernels, SV_WIDE_T, SV_WIDE_DRAWS, 1, gate_rhat=False)
+    st = tile_model("stoch_vol", SV_WIDE_T).structure
+    svw_data = {**st["data"], **st["scalars"]}
+    svw_state = res.warmup_state
+    svw = [tree_at_state(card, res, physics="stoch_vol", data=svw_data,
+                         name="tree_stoch_vol_wide_dense")]
+    svw[0]["launches"] = launches["tree_stoch_vol_dense_launch"]
+    print(f"[stoch_vol {SV_WIDE_T}] K5-stoch_vol (wide) device time "
+          f"{SV_WIDE_DRAWS} x {svw[0]['ms']:.4f} ms = "
+          f"{SV_WIDE_DRAWS * svw[0]['ms'] / 1e3:.3f} s of the "
+          f"{sample_s:.3f} s sampling wall")
+    svw_diag = svw_state._replace(metric=diag_metric(
+        torch.diagonal(svw_state.metric.inv).contiguous()))
+    svw.insert(0, tree_at_state(card, res._replace(warmup_state=svw_diag),
+                                physics="stoch_vol", data=svw_data,
+                                name="tree_stoch_vol_wide"))
+    svw[0]["launches"] = launches["tree_stoch_vol_launch"]
+    del res
+    print(f"[phase] wide stoch_vol sample {time.perf_counter() - t:.2f} s")
     # the dense metric: the 250-D Wishart-precision mvn at 1,024 chains on
     # the default route and with the flagship options, the 100-D normal at
     # 10,240 chains with dense windows
@@ -2355,7 +2655,9 @@ def main() -> int:
     t = time.perf_counter()
     res, launches, sample_s = run_gaussian_sample(
         card, kernels, 0, MVN_CHAINS, MVN_DRAWS, "tree", model=model,
-        metric="dense", var=var, physics="dense_gaussian")
+        metric="dense", var=var, physics="dense_gaussian",
+        stages=default_warmup_stages(metric="dense",
+                                     doubling_stages=MVN_DOUBLING))
     entry = tree_at_state(card, res, physics="dense_gaussian", data=mvn_data,
                           name="tree_dense_gaussian_dense")
     entry["launches"] = launches["tree_dense_gaussian_dense_launch"]
@@ -2404,10 +2706,25 @@ def main() -> int:
               lambda c, gen: sv_state.z.q[torch.randint(
                   0, SV_CHAINS, (c,), generator=gen, device="cuda")],
               SV_CROSSOVER_CHAINS)
+    # above D = 256 (K5's wide form) at the tuned states: the 1000-D normal
+    # against the lockstep tree with K3, stochastic volatility at T = 1,000
+    # against autograd on the lockstep tree
+    crossover(card, "gaussian", w_state, std_normal(W_DIM, device="cuda"),
+              lambda c, gen: torch.randn((c, W_DIM), generator=gen,
+                                         device="cuda"),
+              CROSSOVER_CHAINS)
+    crossover(card, "stoch_vol", svw_state,
+              tile_model("stoch_vol", SV_WIDE_T),
+              lambda c, gen: svw_state.z.q[torch.randint(
+                  0, SV_CHAINS, (c,), generator=gen, device="cuda")],
+              CROSSOVER_CHAINS)
     print(f"[phase] crossover {time.perf_counter() - t:.2f} s")
+    print(f"[k5-wide] stochastic volatility's long sums over the run: the "
+          f"largest K needed by field {LONG_SUM_NEED} (LONG_SUM_K "
+          f"{LONG_SUM_K})")
     print(f"[phase] total {time.perf_counter() - t_start:.2f} s")
     print(json.dumps({"kernels": [k1, k3, k5, k5s, *tiles, *dense, k5l_diag,
-                                  k5l, k5ls, *sv]}))
+                                  k5l, k5ls, *sv, k5w, *svw]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

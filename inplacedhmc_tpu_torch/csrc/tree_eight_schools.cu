@@ -28,11 +28,14 @@ struct EightSchools {
   static constexpr int kNV = NV;
   static constexpr int kMinDim = 2;
   static constexpr bool kFusedGaussian = false;
+  static constexpr bool kWide = false;  // D <= 256 only
   float y[NV], sig[NV];
   bool obs[NV];
 
   __device__ __forceinline__ void load(const PhysicsData& pd,
-                                       const bool (&in)[NV], int lane) {
+                                       const bool (&in)[NV],
+                                       const Warp& t) {
+    const int lane = t.lane;
 #pragma unroll
     for (int k = 0; k < NV; ++k) {
       const int d = lane + 32 * k;
@@ -44,7 +47,8 @@ struct EightSchools {
 
   __device__ __forceinline__ float value_grad(const float (&q)[NV],
                                               float (&g)[NV],
-                                              int lane) const {
+                                              const Warp& t) const {
+    const int lane = t.lane;
     const float mu = __shfl_sync(FULL, q[0], 0);
     const float log_tau = __shfl_sync(FULL, q[0], 1);
     const float tau = expf(log_tau);

@@ -25,11 +25,14 @@ struct Funnel {
   static constexpr int kNV = NV;
   static constexpr int kMinDim = 1;
   static constexpr bool kFusedGaussian = false;
+  static constexpr bool kWide = false;  // D <= 256 only
   bool xm[NV];
   float kf, inv_s2;
 
   __device__ __forceinline__ void load(const PhysicsData& pd,
-                                       const bool (&in)[NV], int lane) {
+                                       const bool (&in)[NV],
+                                       const Warp& t) {
+    const int lane = t.lane;
 #pragma unroll
     for (int k = 0; k < NV; ++k)
       xm[k] = in[k] && pd.row[0][lane + 32 * k] != 0.f;
@@ -39,7 +42,8 @@ struct Funnel {
 
   __device__ __forceinline__ float value_grad(const float (&q)[NV],
                                               float (&g)[NV],
-                                              int lane) const {
+                                              const Warp& t) const {
+    const int lane = t.lane;
     const float v = __shfl_sync(FULL, q[0], 0);
     const float e = expf(-v);
     float s = 0.f;

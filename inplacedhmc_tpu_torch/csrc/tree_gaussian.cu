@@ -16,18 +16,21 @@ struct Gaussian {
   static constexpr int kNV = NV;
   static constexpr int kMinDim = 1;
   static constexpr bool kFusedGaussian = true;
+  static constexpr bool kWide = true;
   float lam[NV];  // the precision
 
+  template <class T>
   __device__ __forceinline__ void load(const PhysicsData& pd,
-                                       const bool (&in)[NV], int lane) {
+                                       const bool (&in)[NV], const T& t) {
 #pragma unroll
     for (int k = 0; k < NV; ++k)
-      lam[k] = in[k] ? pd.row[0][lane + 32 * k] : 0.f;
+      lam[k] = in[k] ? pd.row[0][t.base + t.lane + 32 * k] : 0.f;
   }
 
   // logp = -0.5 sum lam q^2, grad = -lam q
+  template <class T>
   __device__ __forceinline__ float value_grad(const float (&q)[NV],
-                                              float (&g)[NV], int) const {
+                                              float (&g)[NV], T& t) const {
     float part = 0.f;
 #pragma unroll
     for (int k = 0; k < NV; ++k) {
@@ -35,7 +38,7 @@ struct Gaussian {
       g[k] = -lq;
       part = add(part, mul(lq, q[k]));
     }
-    return mul(-0.5f, warp_sum(part));
+    return mul(-0.5f, t.sum(part));
   }
 };
 
@@ -69,7 +72,8 @@ __global__ void philox_draws_kernel(const int64_t* keyg, float* normals,
 
 // The two launchers (diagonal and dense Minv) of tree::launch_physics with
 // the Gaussian: row0 is the precision lam [D]; row1, row2, mat, s0, s1 are
-// not read.  Under a dense Minv the leaf is the generic one.
+// not read.  Under a dense Minv the leaf is the generic one.  D up to
+// MAX_DIM (the wide form above 256).
 TREE_LAUNCHERS(gaussian, tree::Gaussian)
 
 // Writes what the tree kernel's generator draws under `key` (int64 [2]) for

@@ -1,7 +1,8 @@
 // The whole NUTS transition for a diagonal or dense inverse metric Minv and
 // a tile physics P (the model's log density and gradient, written by hand),
-// one chain per warp, K sequential transitions per launch, with the random
-// numbers drawn inside the kernel.  Included by one source per physics
+// one chain per warp (above D = 256 one chain per block of warps), K
+// sequential transitions per launch, with the random numbers drawn inside
+// the kernel.  Included by one source per physics
 // (tree_gaussian.cu, tree_eight_schools.cu, tree_funnel.cu,
 // tree_dense_gaussian.cu, tree_logistic.cu, tree_stoch_vol.cu), each of
 // which defines its physics and its two extern "C" launchers with
@@ -33,20 +34,51 @@
 //
 // A physics P<NV> is a struct that holds one chain's data rows in registers
 // (NV values a lane, like lam and minv) and provides
-//   void load(const PhysicsData&, const bool (&in)[NV], int lane)
-//   float value_grad(const float (&q)[NV], float (&g)[NV], int lane) const
-// value_grad returns the chain's log density, reduced over the warp and the
-// same on every lane, and writes the lane's gradient entries, 0 on lanes
-// past D (there q is 0 and the rows read 0).  The kernel calls it for the
-// start of each transition, at each leaf and for the final gradient, where
-// the TPU kernel calls its physics (tree_pallas.py:266, :538, :586, :630).
-// The Gaussian's leaf keeps its log density and kinetic energy in one fused
-// loop (P::kFusedGaussian) under a diagonal metric.
+//   void load(const PhysicsData&, const bool (&in)[NV], const T& team)
+//   float value_grad(const float (&q)[NV], float (&g)[NV], T& team) const
+// value_grad returns the chain's log density, reduced over the team and the
+// same on every thread, and writes the thread's gradient entries, 0 past D
+// (there q is 0 and the rows read 0).  The kernel calls it for the start of
+// each transition, at each leaf and for the final gradient, where the TPU
+// kernel calls its physics (tree_pallas.py:266, :538, :586, :630).  The
+// Gaussian's leaf keeps its log density and kinetic energy in one fused
+// loop (P::kFusedGaussian) under a diagonal metric.  A physics with a wide
+// form (P::kWide: the Gaussian, the dense Gaussian, stochastic volatility)
+// takes either team T; the others take Warp only.
+//
+// One body, tree_kernel<T, P, kDense>, in two forms chosen by D in
+// launch_physics, the team T (Warp or Block below) the only difference:
+//  * T = Warp, D <= 256: one warp per chain, coordinate lane + 32 k in
+//    register k (NV = 1, 2, 4 or 8 by D), up to MAX_WARPS chains a block;
+//    a row sum is a fixed-order sum per lane and a butterfly shuffle
+//    (warp_sum), a coordinate's value reaches every lane by __shfl_sync;
+//  * T = Block, 256 < D <= MAX_DIM: one chain per block of W =
+//    ceil(D / 256) warps, NV = 8; warp w holds coordinates [256 w, 256 w +
+//    256) in the one-warp layout (coordinate 256 w + lane + 32 k in
+//    register k), so the loads, stores, stacks and elementwise updates are
+//    the one-warp ones per warp.  Every row-wide operation goes through
+//    shared memory after a barrier: a row sum is each warp's butterfly, its
+//    lane 0's partial stored, and after the barrier every thread adding the
+//    W partials in warp order, so the sum is the same on every thread and
+//    every branch (divergence, U-turn breaks, merges) stays uniform across
+//    the block, as every __syncthreads needs; the values of coordinates
+//    0..2 and the neighbours across a warp's edge (stochastic volatility's
+//    AR(1) term) are stored and read back the same way; a [D, D] mat-vec
+//    stages the vector in shared memory and each thread walks the rows in
+//    order.  Each operation alternates between two buffers, so the barrier
+//    of one operation keeps the next from overwriting what a slower thread
+//    of the one before still reads.
+// Warp's operations stay force-inlined to the warp's own shuffles, base a
+// constant 0, so that the one-warp form pays nothing for the team
+// (tools/compare_sass.py compares two checkouts' SASS, instantiation by
+// instantiation).
 //
 // The dense metric (kDense): Minv is [D, D] and every p# = Minv p is a warp
 // mat-vec (matvec below: v_i broadcast from its lane, row i of the matrix
 // read by the 32 lanes at once, i in order, each product and sum rounded on
-// its own); the refresh draws xi and takes p = xi S with S = mass_chol^T
+// its own; in the wide form v staged in shared memory and rows read by the
+// block's threads in batches of MATVEC_ROWS, in the same order, Block::
+// matvec); the refresh draws xi and takes p = xi S with S = mass_chol^T
 // [D, D] in the momentum slot.  A leaf does two products, Minv p_mid for
 // the position update and Minv p_new, which serves both the U-turn p# and
 // the kinetic energy 0.5 p . p#; a physics with a matrix (the dense
@@ -82,11 +114,14 @@
 //    m < trailing_ones(n) read slot popcount(n >> 1) - m.  The TPU kernel's
 //    odd-leaf stores go to a dummy slot that nothing reads; here they are
 //    skipped.  The stacks ([md, D] floats each, 8 KB per chain at D = 100,
-//    md = 10) live in dynamic shared memory, one region per warp; the
+//    md = 10) live in dynamic shared memory, one region per chain; the
 //    position, momentum and gradient vectors of the tree (15 of them) live
-//    in registers, NV = DP / 32 floats per lane.  Lanes past D hold zeros
-//    (minv and the momentum scale read as 0), so nothing of them reaches a
-//    row sum.
+//    in registers, NV floats per lane.  Lanes past D hold zeros (minv and
+//    the momentum scale read as 0), so nothing of them reaches a row sum.
+//    The wide form needs 4 (2 md D + 2 D + WIDE_SCRATCH) bytes of a block's
+//    SMEM_LIMIT (wide_bytes: the stacks, the mat-vec's two staging rows, the
+//    row sums' partials): at D = 2048, md <= 13; at D = 1002 and md = 10,
+//    88 KB, two blocks an SM.
 //  * Arithmetic: the operations of each leaf are those of the TPU kernel and
 //    of the plain torch version (ops/tree.py, ops/tile_physics.py), each
 //    rounded on its own (__fmul_rn, __fadd_rn: no FMA contraction); only the
@@ -108,8 +143,11 @@
 // grad once) at 3.35 TB/s.  The dense products reread their matrices from
 // L2 at every leaf of every chain, one row per step of a warp at its
 // register cap: their time is L2 latency, far from the bound
-// (chip_smoke.py prints the time per product on the longest chain); staging tiles in shared memory, several
-// chains per block sharing a tile, or 3xTF32 tensor cores are later work.
+// (chip_smoke.py prints the time per product on the longest chain); in the
+// wide form every chain streams its whole [D, D] matrix (4 MB at D = 1002)
+// from L2 at every product, so a launch of many chains is bound by L2's
+// bandwidth as well.  Staging tiles in shared memory, several chains per
+// block sharing a tile, or 3xTF32 tensor cores are later work.
 // With the draws made here no uniform array crosses device memory.  One
 // warp per chain leaves 32 - D lanes idle where D < 32 (22 of 32 at D =
 // 10); a simple kernel that is right comes first, the tile shape is later
@@ -117,7 +155,9 @@
 //
 // Registers: at D <= 128 the kernel asks for 4 blocks of 4 warps per SM
 // (__launch_bounds__), which caps it at 128 registers a thread; above that
-// the sweep loop and the generator would leave room for 3 blocks only.
+// the sweep loop and the generator would leave room for 3 blocks only.  The
+// wide form allows blocks of up to MAX_WIDE_WARPS warps, one per SM at
+// least: 255 registers a thread.
 
 #pragma once
 
@@ -130,7 +170,12 @@ namespace tree {
 constexpr int TERM_MAX_DEPTH = 0;  // core/state.py::Termination
 constexpr int TERM_DIVERGENCE = 1;
 constexpr int TERM_TURNING = 2;
-constexpr int MAX_WARPS = 4;          // chains per block
+constexpr int MAX_WARPS = 4;          // chains per block (narrow)
+constexpr int WARP_DIM = 256;         // coordinates of one warp (32 x NV 8)
+constexpr int MAX_DIM = 2048;         // the wide form: up to 8 warps a chain
+constexpr int MAX_WIDE_WARPS = MAX_DIM / WARP_DIM;
+constexpr int WIDE_SCRATCH = 64;      // floats: two buffers of 32
+constexpr int MATVEC_ROWS = 4;        // rows of the wide mat-vec's batch
 constexpr int SMEM_LIMIT = 232448;    // dynamic shared memory of one block
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -211,16 +256,6 @@ __device__ __forceinline__ void copy(float (&dst)[NV], const float (&src)[NV]) {
   for (int k = 0; k < NV; ++k) dst[k] = src[k];
 }
 
-// sum_d a_d b_d over the chain's row
-template <int NV>
-__device__ __forceinline__ float dot(const float (&a)[NV],
-                                     const float (&b)[NV]) {
-  float s = 0.f;
-#pragma unroll
-  for (int k = 0; k < NV; ++k) s = add(s, mul(a[k], b[k]));
-  return warp_sum(s);
-}
-
 // out_j = sum_i v_i M[i][j] over the chain's row, M a [D, D] row-major
 // matrix (symmetric, or mass_chol^T for the refresh): v_i is broadcast from
 // its lane, lane l adds M[i][l + 32k] v_i for i = 0 .. D-1 in order, so row
@@ -247,6 +282,191 @@ __device__ __forceinline__ void matvec(const float* __restrict__ m, int D,
     }
   }
   copy(out, acc);
+}
+
+// A team: the threads of one chain and their row-wide operations.  sum
+// (one row sum, the same on every thread), sum2 and sum3 (two and three at
+// once), lead (the values of coordinates 0..N-1, from register 0),
+// from_prev and from_next (the neighbours across the warp edges: each
+// thread passes its last or first register's value and gets the value of
+// the coordinate before its warp's first or after its warp's last, 0 where
+// there is none), matvec (out = v M, out may alias v) and leader (the one
+// thread that writes the chain's records).  base is the first coordinate of
+// the thread's warp: coordinate base + lane + 32 k sits in register k.
+//
+// Warp, the one-warp form's: the chain's warp, its operations the butterfly
+// (warp_sum), __shfl_sync and the warp mat-vec above; base is 0 and there
+// is no warp edge.
+struct Warp {
+  static constexpr bool kWide = false;
+  static constexpr int base = 0;
+  int lane;
+
+  __device__ __forceinline__ explicit Warp(float*) : lane(threadIdx.x & 31) {}
+  __device__ __forceinline__ bool leader() const { return lane == 0; }
+  __device__ __forceinline__ float sum(float v) const { return warp_sum(v); }
+  __device__ __forceinline__ void sum2(float& a, float& b) const {
+    a = warp_sum(a);
+    b = warp_sum(b);
+  }
+  __device__ __forceinline__ void sum3(float& a, float& b, float& c) const {
+    a = warp_sum(a);
+    b = warp_sum(b);
+    c = warp_sum(c);
+  }
+  template <int N>
+  __device__ __forceinline__ void lead(float x0, float (&out)[N]) const {
+#pragma unroll
+    for (int i = 0; i < N; ++i) out[i] = __shfl_sync(FULL, x0, i);
+  }
+  __device__ __forceinline__ float from_prev(float) const { return 0.f; }
+  __device__ __forceinline__ float from_next(float) const { return 0.f; }
+  template <int NV>
+  __device__ __forceinline__ void matvec(const float* __restrict__ m, int D,
+                                         const float (&v)[NV],
+                                         float (&out)[NV]) const {
+    tree::matvec(m, D, v, out, lane);
+  }
+};
+
+// Block, the wide form's: the block of warps of one chain, its operations
+// through shared memory (the forms at the top of this file).
+struct Block {
+  static constexpr bool kWide = true;
+  int lane, warp, nw, base;
+  float* scratch;  // [2][WIDE_SCRATCH / 2]
+  float* stage;    // [2][D]
+  unsigned ph;     // operations so far: the buffer of the next is ph & 1
+
+  // s: the block's shared memory after the stacks
+  __device__ __forceinline__ explicit Block(float* s)
+      : lane(threadIdx.x & 31), warp(threadIdx.x >> 5), nw(blockDim.x >> 5),
+        base(WARP_DIM * (threadIdx.x >> 5)), scratch(s),
+        stage(s + WIDE_SCRATCH), ph(0u) {}
+  __device__ __forceinline__ bool leader() const { return threadIdx.x == 0; }
+  __device__ __forceinline__ float* buffer() {
+    return scratch + (ph++ & 1u) * (WIDE_SCRATCH / 2);
+  }
+  __device__ __forceinline__ float total(const float* r) const {
+    float s = r[0];
+    for (int w = 1; w < nw; ++w) s = add(s, r[w]);
+    return s;
+  }
+  __device__ __forceinline__ float sum(float v) {
+    v = warp_sum(v);
+    float* r = buffer();
+    if (lane == 0) r[warp] = v;
+    __syncthreads();
+    return total(r);
+  }
+  __device__ __forceinline__ void sum2(float& a, float& b) {
+    a = warp_sum(a);
+    b = warp_sum(b);
+    float* r = buffer();
+    if (lane == 0) {
+      r[warp] = a;
+      r[MAX_WIDE_WARPS + warp] = b;
+    }
+    __syncthreads();
+    a = total(r);
+    b = total(r + MAX_WIDE_WARPS);
+  }
+  __device__ __forceinline__ void sum3(float& a, float& b, float& c) {
+    a = warp_sum(a);
+    b = warp_sum(b);
+    c = warp_sum(c);
+    float* r = buffer();
+    if (lane == 0) {
+      r[warp] = a;
+      r[MAX_WIDE_WARPS + warp] = b;
+      r[2 * MAX_WIDE_WARPS + warp] = c;
+    }
+    __syncthreads();
+    a = total(r);
+    b = total(r + MAX_WIDE_WARPS);
+    c = total(r + 2 * MAX_WIDE_WARPS);
+  }
+  template <int N>
+  __device__ __forceinline__ void lead(float x0, float (&out)[N]) {
+    float* r = buffer();
+    if (warp == 0 && lane < N) r[lane] = x0;
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < N; ++i) out[i] = r[i];
+  }
+  __device__ __forceinline__ float from_prev(float last) {
+    float* r = buffer();
+    if (lane == 31) r[warp] = last;
+    __syncthreads();
+    return warp > 0 ? r[warp - 1] : 0.f;
+  }
+  __device__ __forceinline__ float from_next(float first) {
+    float* r = buffer();
+    if (lane == 0) r[warp] = first;
+    __syncthreads();
+    return warp + 1 < nw ? r[warp + 1] : 0.f;
+  }
+  // v staged in shared memory; each thread adds M[i][j] v_i for its own
+  // columns j over i = 0 .. D-1 in order (the narrow form's order), row i
+  // read through the read-only cache by the block's threads at once.  The
+  // rows come in batches of MATVEC_ROWS whose loads are all issued before
+  // the first of their products, so that a batch waits for L2 once, not
+  // once a row.  Within a batch a column past D reads the next row's first
+  // entries (in bounds: the batches stop before the last row), and its
+  // sums are dropped at the end; the rows after the batches, the last
+  // among them, read only the columns below D
+  template <int NV>
+  __device__ __forceinline__ void matvec(const float* __restrict__ m, int D,
+                                         const float (&v)[NV],
+                                         float (&out)[NV]) {
+    float* st = stage + (ph++ & 1u) * D;
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      const int d = base + lane + 32 * k;
+      if (d < D) st[d] = v[k];
+    }
+    __syncthreads();
+    float acc[NV];
+#pragma unroll
+    for (int k = 0; k < NV; ++k) acc[k] = 0.f;
+    const float* row = m + base + lane;
+    int i = 0;
+    for (; i + MATVEC_ROWS < D; i += MATVEC_ROWS) {
+      float r[MATVEC_ROWS][NV];
+#pragma unroll
+      for (int j = 0; j < MATVEC_ROWS; ++j)
+#pragma unroll
+        for (int k = 0; k < NV; ++k)
+          r[j][k] = __ldg(row + (int64_t)j * D + 32 * k);
+      row += (int64_t)MATVEC_ROWS * D;
+#pragma unroll
+      for (int j = 0; j < MATVEC_ROWS; ++j) {
+        const float vi = st[i + j];
+#pragma unroll
+        for (int k = 0; k < NV; ++k) acc[k] = add(acc[k], mul(r[j][k], vi));
+      }
+    }
+    for (; i < D; ++i, row += D) {
+      const float vi = st[i];
+#pragma unroll
+      for (int k = 0; k < NV; ++k)
+        if (base + lane + 32 * k < D)
+          acc[k] = add(acc[k], mul(__ldg(row + 32 * k), vi));
+    }
+#pragma unroll
+    for (int k = 0; k < NV; ++k)
+      out[k] = base + lane + 32 * k < D ? acc[k] : 0.f;
+  }
+};
+
+// sum_d a_d b_d over the chain's row
+template <class T, int NV>
+__device__ __forceinline__ float dot(T& t, const float (&a)[NV],
+                                     const float (&b)[NV]) {
+  float s = 0.f;
+#pragma unroll
+  for (int k = 0; k < NV; ++k) s = add(s, mul(a[k], b[k]));
+  return t.sum(s);
 }
 
 // A physics' data: up to three [D] rows, two scalars, a [D, D] matrix, an
@@ -290,22 +510,33 @@ struct Args {
   float min_delta;
 };
 
-template <class P, bool kDense>
-__global__ void __launch_bounds__(32 * MAX_WARPS, P::kNV <= 4 ? 4 : 1)
+// The transition of one chain by the team T (Warp: a chain per warp, up to
+// MAX_WARPS a block; Block: a chain per block of up to MAX_WIDE_WARPS).
+// Every branch depends on values that are the same on every thread of the
+// team (its sums), so every thread of a block reaches every barrier.
+template <class T, class P, bool kDense>
+__global__ void __launch_bounds__(T::kWide ? 32 * MAX_WIDE_WARPS
+                                           : 32 * MAX_WARPS,
+                                  T::kWide || P::kNV > 4 ? 1 : 4)
 tree_kernel(const Args a) {
   constexpr int NV = P::kNV;
   extern __shared__ float smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int64_t c = (int64_t)blockIdx.x * (blockDim.x >> 5) + warp;
-  if (c >= a.C) return;  // the whole warp leaves together
+  const int64_t c = T::kWide ? (int64_t)blockIdx.x
+                             : (int64_t)blockIdx.x * (blockDim.x >> 5) + warp;
+  if (c >= a.C) return;  // the whole warp (team) leaves together
   const int64_t C = a.C;
   const int D = a.D, md = a.md;
   const int n_unif = (1 << md) - 1 + md;
 
+  // the team's stacks: one region per warp of the block, or the block's
+  // one region followed by its scratch
   const int64_t stack_len = 2 * (int64_t)md * D;
-  float* stk_s = smem + warp * stack_len;
+  float* stk_s = smem + (T::kWide ? 0 : warp * stack_len);
   float* stk_ps = stk_s + (int64_t)md * D;
+  T team(smem + stack_len);
+  const int base = team.base;
 
   const Key key = a.key ? Key{(uint32_t)a.key[0], (uint32_t)a.key[1]}
                         : Key{0u, 0u};
@@ -320,30 +551,30 @@ tree_kernel(const Args a) {
   const int64_t row = c * D;
 #pragma unroll
   for (int k = 0; k < NV; ++k) {
-    const int d = lane + 32 * k;
+    const int d = base + lane + 32 * k;
     in[k] = d < D;
     minv[k] = (in[k] && !kDense) ? a.minv[d] : 0.f;
     propq[k] = in[k] ? a.q0[row + d] : 0.f;  // the sweep's carry
   }
   P phys;
-  phys.load(a.pd, in, lane);
+  phys.load(a.pd, in, team);
 
   for (int s = 0; s < a.n_sweep; ++s) {
     // the transition's start: the carry, its log density and gradient, and
     // its momentum
-    const float logp0 = phys.value_grad(propq, lg, lane);
+    const float logp0 = phys.value_grad(propq, lg, team);
     float kin_part = 0.f;
     if constexpr (kDense) {
       float pv[NV];  // xi under refresh, then the momentum xi mass_chol^T
 #pragma unroll
       for (int k = 0; k < NV; ++k) {
-        const int d = lane + 32 * k;
+        const int d = base + lane + 32 * k;
         pv[k] = !in[k]     ? 0.f
                 : a.refresh ? draw_normal(key, (uint32_t)c, s, d)
                             : a.p0[((int64_t)s * C + c) * D + d];
       }
-      if (a.refresh) matvec(a.p0, D, pv, pv, lane);
-      matvec(a.minv, D, pv, psl, lane);
+      if (a.refresh) team.matvec(a.p0, D, pv, pv);
+      team.matvec(a.minv, D, pv, psl);
 #pragma unroll
       for (int k = 0; k < NV; ++k) {
         lq[k] = rq[k] = subq[k] = cq[k] = propq[k];
@@ -355,7 +586,7 @@ tree_kernel(const Args a) {
     } else {
 #pragma unroll
       for (int k = 0; k < NV; ++k) {
-        const int d = lane + 32 * k;
+        const int d = base + lane + 32 * k;
         float p = 0.f;
         if (in[k])
           p = a.refresh ? mul(a.p0[d], draw_normal(key, (uint32_t)c, s, d))
@@ -367,7 +598,7 @@ tree_kernel(const Args a) {
         kin_part = add(kin_part, mul(mul(p, minv[k]), p));
       }
     }
-    const float pi0 = sub(logp0, mul(0.5f, warp_sum(kin_part)));
+    const float pi0 = sub(logp0, mul(0.5f, team.sum(kin_part)));
     const uint32_t dirs = a.refresh ? draw_direction(key, (uint32_t)c, s)
                                     : (uint32_t)a.dirs[(int64_t)s * C + c];
     const float* unif_s = a.unif ? a.unif + (int64_t)s * n_unif * C : nullptr;
@@ -419,14 +650,14 @@ tree_kernel(const Args a) {
             lp_part = add(lp_part, mul(lqn, qn[k]));
             kin_leaf = add(kin_leaf, mul(mul(pn[k], minv[k]), pn[k]));
           }
-          logp_new = mul(-0.5f, warp_sum(lp_part));
+          logp_new = mul(-0.5f, team.sum(lp_part));
         } else {
           float p_mid[NV];
           if constexpr (kDense) {
 #pragma unroll
             for (int k = 0; k < NV; ++k)
               p_mid[k] = add(cp[k], mul(half, cg[k]));
-            matvec(a.minv, D, p_mid, qn, lane);  // Minv p_mid
+            team.matvec(a.minv, D, p_mid, qn);  // Minv p_mid
 #pragma unroll
             for (int k = 0; k < NV; ++k)
               qn[k] = add(cq[k], mul(eps_signed, qn[k]));
@@ -437,12 +668,12 @@ tree_kernel(const Args a) {
               qn[k] = add(cq[k], mul(eps_signed, mul(minv[k], p_mid[k])));
             }
           }
-          logp_new = phys.value_grad(qn, gn, lane);
+          logp_new = phys.value_grad(qn, gn, team);
           if constexpr (kDense) {
 #pragma unroll
             for (int k = 0; k < NV; ++k)
               pn[k] = add(p_mid[k], mul(half, gn[k]));
-            matvec(a.minv, D, pn, psn, lane);
+            team.matvec(a.minv, D, pn, psn);
 #pragma unroll
             for (int k = 0; k < NV; ++k)
               kin_leaf = add(kin_leaf, mul(pn[k], psn[k]));
@@ -455,7 +686,7 @@ tree_kernel(const Args a) {
             }
           }
         }
-        const float kin_new = mul(0.5f, warp_sum(kin_leaf));
+        const float kin_new = mul(0.5f, team.sum(kin_leaf));
         // any non-finite joint density is -inf, a NaN delta is -inf
         float joint = sub(logp_new, isfinite(kin_new) ? kin_new : INFINITY);
         if (!isfinite(joint)) joint = -INFINITY;
@@ -481,8 +712,8 @@ tree_kernel(const Args a) {
 #pragma unroll
           for (int k = 0; k < NV; ++k) {
             if (in[k]) {
-              stk_s[slot * D + lane + 32 * k] = scum[k];
-              stk_ps[slot * D + lane + 32 * k] = psn[k];
+              stk_s[slot * D + base + lane + 32 * k] = scum[k];
+              stk_ps[slot * D + base + lane + 32 * k] = psn[k];
             }
           }
         }
@@ -499,14 +730,15 @@ tree_kernel(const Args a) {
           float ta = 0.f, tb = 0.f;
 #pragma unroll
           for (int k = 0; k < NV; ++k) {
-            const float sv = in[k] ? stk_s[j * D + lane + 32 * k] : 0.f;
-            const float ps = in[k] ? stk_ps[j * D + lane + 32 * k] : 0.f;
+            const float sv =
+                in[k] ? stk_s[j * D + base + lane + 32 * k] : 0.f;
+            const float ps =
+                in[k] ? stk_ps[j * D + base + lane + 32 * k] : 0.f;
             const float rn = sub(scum[k], sv);
             ta = add(ta, mul(rn, ps));
             tb = add(tb, mul(rn, psn[k]));
           }
-          ta = warp_sum(ta);
-          tb = warp_sum(tb);
+          team.sum2(ta, tb);
           if (ta < 0.f || tb < 0.f) {
             turning = true;
             turn_pos = i_base + (n - (2 << m) + 2) * signi;
@@ -577,7 +809,7 @@ tree_kernel(const Args a) {
         }
         if (isf) i_right = i_end; else i_left = i_end;
         depth = d + 1;
-        turn_top = dot(rho, psl) < 0.f || dot(rho, psr) < 0.f;
+        turn_top = dot(team, rho, psl) < 0.f || dot(team, rho, psr) < 0.f;
       }
       if (died_div) term = TERM_DIVERGENCE;
       if (died_turn || turn_top) term = TERM_TURNING;
@@ -596,8 +828,8 @@ tree_kernel(const Args a) {
     const int64_t at = (int64_t)s * C + c;
 #pragma unroll
     for (int k = 0; k < NV; ++k)
-      if (in[k]) a.q_out[at * D + lane + 32 * k] = propq[k];
-    if (lane == 0) {
+      if (in[k]) a.q_out[at * D + base + lane + 32 * k] = propq[k];
+    if (team.leader()) {
       a.logp_out[at] = prop_logp;
       a.energy_out[at] = add(prop_delta, pi0);
       a.lsa_out[at] = logf(sum_alpha);
@@ -610,10 +842,10 @@ tree_kernel(const Args a) {
   }
 
   // the final proposal's gradient (lg is free again)
-  phys.value_grad(propq, lg, lane);
+  phys.value_grad(propq, lg, team);
 #pragma unroll
   for (int k = 0; k < NV; ++k)
-    if (in[k]) a.grad_out[row + lane + 32 * k] = lg[k];
+    if (in[k]) a.grad_out[row + base + lane + 32 * k] = lg[k];
 }
 
 template <class P, bool kDense>
@@ -624,12 +856,35 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   const int bytes = warps * per_warp;
   if (bytes > SMEM_LIMIT) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      tree_kernel<P, kDense>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+      tree_kernel<Warp, P, kDense>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   const int64_t blocks = (a.C + warps - 1) / warps;
   if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
-  tree_kernel<P, kDense><<<(unsigned)blocks, 32 * warps, bytes, stream>>>(a);
+  tree_kernel<Warp, P, kDense>
+      <<<(unsigned)blocks, 32 * warps, bytes, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// The wide form's dynamic shared memory (its bound, ops/tree.py::takes):
+// the stacks, the scratch of the row sums, the mat-vec's two staging rows
+__host__ __device__ constexpr int64_t wide_bytes(int D, int md) {
+  return (int64_t)sizeof(float) *
+         (2 * (int64_t)md * D + WIDE_SCRATCH + 2 * (int64_t)D);
+}
+
+// One chain per block of ceil(D / 256) warps
+template <class P, bool kDense>
+cudaError_t launch_wide(const Args& a, cudaStream_t stream) {
+  const int64_t bytes = wide_bytes(a.D, a.md);
+  if (bytes > SMEM_LIMIT || a.C > 0x7fffffff) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      tree_kernel<Block, P, kDense>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  const int warps = (a.D + WARP_DIM - 1) / WARP_DIM;
+  tree_kernel<Block, P, kDense>
+      <<<(unsigned)a.C, 32 * warps, (int)bytes, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -652,7 +907,8 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
 // [D, D] dense.  Outputs: q [K, C, D] (q[K - 1] the final carry); logp,
 // energy, log_sum_alpha [K, C]; term, term_left, term_right, depth, steps
 // [K, C] int32; grad [C, D] of the final carry.  D must be in [P's least
-// D, 256], md in [1, 30], K >= 1.
+// D, 256], or for a physics with a wide form (P::kWide) in (256, MAX_DIM]
+// with wide_bytes(D, md) <= SMEM_LIMIT; md in [1, 30], K >= 1.
 #define TREE_LAUNCH_PARAMS                                                  \
   const float *q0, const float *p0, const float *eps, const int32_t *dirs, \
       const int32_t *valid, const int64_t *key, const float *unif,          \
@@ -691,7 +947,9 @@ int launch_physics(TREE_LAUNCH_PARAMS) {
   if (D <= 32) return (int)launch<P<1>, kDense>(a, s);
   if (D <= 64) return (int)launch<P<2>, kDense>(a, s);
   if (D <= 128) return (int)launch<P<4>, kDense>(a, s);
-  if (D <= 256) return (int)launch<P<8>, kDense>(a, s);
+  if (D <= WARP_DIM) return (int)launch<P<8>, kDense>(a, s);
+  if constexpr (P<8>::kWide)
+    if (D <= MAX_DIM) return (int)launch_wide<P<8>, kDense>(a, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -66,6 +66,7 @@ struct Logistic {
   static constexpr int kNV = NV;
   static constexpr int kMinDim = 1;
   static constexpr bool kFusedGaussian = false;
+  static constexpr bool kWide = false;  // D <= 256 only (the reduce-scatter)
   static constexpr int J = 8;  // observations per step
   const float* x;              // [n_obs, D]
   const float* y;              // [n_obs]
@@ -76,7 +77,7 @@ struct Logistic {
   bool bf16;
 
   __device__ __forceinline__ void load(const PhysicsData& pd,
-                                       const bool (&)[NV], int) {
+                                       const bool (&)[NV], const Warp&) {
     x = pd.obs_mat;
     y = pd.obs_row[0];
     w = pd.obs_row[1];
@@ -88,7 +89,8 @@ struct Logistic {
 
   __device__ __forceinline__ float value_grad(const float (&q)[NV],
                                               float (&g)[NV],
-                                              int lane) const {
+                                              const Warp& t) const {
+    const int lane = t.lane;
     float acc[NV];
 #pragma unroll
     for (int k = 0; k < NV; ++k) acc[k] = 0.f;

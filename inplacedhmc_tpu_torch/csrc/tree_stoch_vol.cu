@@ -24,17 +24,27 @@
 // and the leaf's sanitisation turns the leaf into a divergence.
 //
 // The AR(1) term is the one thing here that couples neighbouring lanes:
-// the kernel holds coordinate lane + 32 k in register k, so h'_l comes from
-// the lane below (__shfl_up_sync) and, on lane 0, from lane 31 of register
-// k - 1 (0 for register 0: lane 0 has no predecessor); innov_{l+1} comes
-// from the lane above (__shfl_down_sync) and, on lane 31, from lane 0 of
-// register k + 1 (0 past the last register).  Lanes past D hold q = 0 and
-// read no row, so neither shift reads an h past h_T.  raw_phi, log_s and
-// h_1 come to every lane from lanes 0, 1 and 2 (three broadcasts); the log
-// density's observation terms, sum innov^2 and sum innov h' are three warp
-// sums.  Per leaf about 18 flops per h lane, 4 shuffles per register, 3
-// warp sums of 5 shuffles, and an exponential per h lane, a tanh, an
-// exponential and a log per chain (the SFU's).
+// the kernel holds coordinate base + lane + 32 k in register k (base the
+// first coordinate of the thread's warp: 0 in the narrow form, 256 w in
+// warp w of the wide one), so h'_l comes from the lane below
+// (__shfl_up_sync) and, on lane 0, from lane 31 of register k - 1, or for
+// register 0 from lane 31 of the last register of the warp before (the
+// team's from_prev; 0 in the first warp: h_1 has no predecessor);
+// innov_{l+1} comes from the lane above (__shfl_down_sync) and, on lane 31,
+// from lane 0 of register k + 1, or past the last register from lane 0 of
+// register 0 of the warp after (the team's from_next; 0 past the last
+// warp).  Coordinates past D hold q = 0 and read no row, so neither shift
+// reads an h past h_T.  raw_phi, log_s and h_1 come to every thread from
+// coordinates 0, 1 and 2 (by __shfl_sync from lanes 0, 1 and 2 in the
+// narrow form, through the team's lead in the wide one); the log density's
+// observation terms, sum innov^2 and sum innov h' are three row sums (the
+// team's sum3: warp sums in the narrow form).  Per leaf about 18 flops per
+// h lane, 4 shuffles per register, 3 row sums, and an exponential per h
+// lane, a tanh, an exponential and a log per chain (the SFU's); the wide
+// form adds four barriers (lead, from_prev, sum3, from_next).  One
+// value_grad serves both forms: the team (tree_kernel.cuh's Warp or Block)
+// supplies the row sums, the lead values and the neighbours across warp
+// edges (none in a Warp).
 
 #include "tree_kernel.cuh"
 
@@ -45,15 +55,17 @@ struct StochVol {
   static constexpr int kNV = NV;
   static constexpr int kMinDim = 3;
   static constexpr bool kFusedGaussian = false;
+  static constexpr bool kWide = true;
   float r2[NV];
   bool hm[NV], am[NV];
   float tf;
 
+  template <class T>
   __device__ __forceinline__ void load(const PhysicsData& pd,
-                                       const bool (&in)[NV], int lane) {
+                                       const bool (&in)[NV], const T& t) {
 #pragma unroll
     for (int k = 0; k < NV; ++k) {
-      const int d = lane + 32 * k;
+      const int d = t.base + t.lane + 32 * k;
       hm[k] = in[k] && pd.row[1][d] != 0.f;
       am[k] = in[k] && pd.row[2][d] != 0.f;
       r2[k] = hm[k] ? pd.row[0][d] : 0.f;
@@ -61,12 +73,13 @@ struct StochVol {
     tf = pd.scalar[0];
   }
 
+  template <class T>
   __device__ __forceinline__ float value_grad(const float (&q)[NV],
-                                              float (&g)[NV],
-                                              int lane) const {
-    const float raw_phi = __shfl_sync(FULL, q[0], 0);
-    const float log_s = __shfl_sync(FULL, q[0], 1);
-    const float h1 = __shfl_sync(FULL, q[0], 2);
+                                              float (&g)[NV], T& t) const {
+    const int lane = t.lane;
+    float lead[3];  // raw_phi, log_s, h_1
+    t.lead(q[0], lead);
+    const float raw_phi = lead[0], log_s = lead[1], h1 = lead[2];
     const float phi = tanhf(raw_phi);
     const float inv_s = expf(-log_s);
     const float u = sub(1.f, mul(phi, phi));
@@ -75,7 +88,8 @@ struct StochVol {
     const float uz2 = mul(u, z1z1);
     float innov[NV];
     float s_ii = 0.f, s_ih = 0.f, s_obs = 0.f;
-    float last = 0.f;  // h at lane 31 of the register before
+    // h at lane 31 of the register before
+    float last = t.from_prev(hm[NV - 1] ? q[NV - 1] : 0.f);
 #pragma unroll
     for (int k = 0; k < NV; ++k) {
       const float h = hm[k] ? q[k] : 0.f;
@@ -95,25 +109,25 @@ struct StochVol {
       }
       g[k] = gk;
     }
-    s_ii = warp_sum(s_ii);
-    s_ih = warp_sum(s_ih);
-    s_obs = warp_sum(s_obs);
+    t.sum3(s_ii, s_ih, s_obs);
+    const float after = t.from_next(innov[0]);  // past the last register
     const float phis = mul(phi, inv_s);
 #pragma unroll
     for (int k = 0; k < NV; ++k) {
       const float down = __shfl_down_sync(FULL, innov[k], 1);
       const float first =
           __shfl_sync(FULL, innov[k + 1 < NV ? k + 1 : k], 0);
-      const float next = lane < 31 ? down : k + 1 < NV ? first : 0.f;
+      const float next = lane < 31 ? down : k + 1 < NV ? first : after;
       if (hm[k]) g[k] = add(g[k], mul(phis, next));
     }
     const float a = sub(raw_phi, 1.5f);
     const float b = add(log_s, 2.f);
-    if (lane == 2) g[0] = sub(g[0], mul(mul(u, z1), inv_s));
-    if (lane == 0)
+    const int d0 = t.base + lane;  // register 0's coordinate
+    if (d0 == 2) g[0] = sub(g[0], mul(mul(u, z1), inv_s));
+    if (d0 == 0)
       g[0] = add(-a, mul(u, add(add(-fdiv(phi, u), mul(phi, z1z1)),
                                 mul(inv_s, s_ih))));
-    if (lane == 1) g[0] = add(add(sub(-b, tf), uz2), s_ii);
+    if (d0 == 1) g[0] = add(add(sub(-b, tf), uz2), s_ii);
     float lp = sub(mul(-0.5f, mul(a, a)), mul(0.5f, mul(b, b)));
     lp = add(lp, mul(0.5f, logf(u)));
     lp = sub(lp, mul(tf, log_s));
@@ -127,5 +141,6 @@ struct StochVol {
 
 // The two launchers (diagonal and dense Minv) of tree::launch_physics with
 // stochastic volatility: row0 r2, row1 h_mask, row2 ar_mask [D]; s0 t; s1,
-// mat and the observation arrays are not read.  D >= 3.
+// mat and the observation arrays are not read.  D >= 3, up to MAX_DIM (the
+// wide form above 256).
 TREE_LAUNCHERS(stoch_vol, tree::StochVol)

@@ -10,10 +10,11 @@ sampled in the centred parameterisation ``q = (raw_phi, log_s, h_1..h_T)``
 with ``phi = tanh(raw_phi)`` and ``s = exp(log_s)``.  Its ``structure``
 names the ``"stoch_vol"`` tile physics (``ops/tile_physics.py``), whose
 hand-written value and gradient the whole-tree kernel runs
-(``csrc/tree_stoch_vol.cu``) where the kernel takes the dimension (``T + 2
-<= 256``).  A wider model (the BASELINE's T = 1,000) runs on autograd and
-the lockstep tree until the kernel takes D above 256 (ROADMAP queue 2 item
-1 (f)).
+(``csrc/tree_stoch_vol.cu``) where the kernel takes the problem
+(``ops.tree.takes``): one warp per chain up to ``T + 2 = 256``, and above
+it, the BASELINE's T = 1,000 among them, one chain per block of warps up to
+``T + 2 = 2,048`` within the kernel's shared-memory bound.  A wider model
+runs on autograd and the lockstep tree.
 
 Not ported yet: ``make_asis_hook`` and its helpers ``_whiten``,
 ``_reconstruct`` and ``_make_anc_logp`` (the ancillary-sufficiency

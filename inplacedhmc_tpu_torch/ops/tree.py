@@ -36,13 +36,19 @@ interpret mode stay as test hooks: momentum ``[K, C, D]``, direction words
 
 On a CUDA tensor :func:`tree_sweep` launches the hand-written kernel of its
 physics and metric form (``csrc/tree_<physics>.cu`` over
-``csrc/tree_kernel.cuh``, one warp per chain; one launcher per metric form);
+``csrc/tree_kernel.cuh``, one launcher per metric form): one warp per chain
+up to ``D = 256``, and above it, for the physics of ``WIDE_PHYSICS``, one
+chain per block of ``ceil(D / 256)`` warps whose row sums, neighbour
+exchanges and ``[D, D]`` products go through shared memory, up to
+``MAX_DIM`` within the shared-memory bound of :func:`takes`;
 on a CPU tensor it runs :func:`tree_sweep_plain`, the lockstep form over all
 chains in plain torch, drawing the same Philox numbers.  There is no other
 path: a CUDA tensor launches the kernel or raises.  The ``gaussian_*``
 functions are these with the Gaussian physics of precision ``lam``.
 
-Not ported yet: bf16 checkpoint stacks and D above 256.
+Not ported yet: bf16 checkpoint stacks, D above 256 for eight schools, the
+funnel and logistic regression (ROADMAP queue 2 item 1 (g)), and D above
+2,048 or past the shared-memory bound (item 1 (h)).
 """
 
 from __future__ import annotations
@@ -85,8 +91,16 @@ PHILOX_DRAWS = CudaKernel(
     [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_int, ctypes.c_int,
                              ctypes.c_int, ctypes.c_void_p])
 
-#: largest dimension the kernel's register tiles take (32 lanes x 8)
-MAX_DIM = 256
+#: largest dimension of the one-warp form (32 lanes x 8 registers)
+WARP_DIM = 256
+#: largest dimension of the wide form (one chain per block of up to 8 warps)
+MAX_DIM = 2048
+#: the physics whose kernels take D above ``WARP_DIM`` (the wide form)
+WIDE_PHYSICS = ("gaussian", "dense_gaussian", "stoch_vol")
+#: dynamic shared memory of one block (``csrc/tree_kernel.cuh``)
+SMEM_LIMIT = 232448
+#: floats of the wide form's row-sum scratch (``WIDE_SCRATCH``)
+_WIDE_SCRATCH = 64
 #: the chain tile of JAX's ``make_logistic_tree_transition`` (its default)
 LOGISTIC_BLOCK_C = 128
 
@@ -128,11 +142,43 @@ def n_uniforms(max_depth: int) -> int:
     return (1 << max_depth) - 1 + max_depth
 
 
-def takes(dim: int) -> bool:
-    """Whether the kernel takes this problem: ``dim <= MAX_DIM``.  Its random
-    numbers are drawn inside it, so the chain count and ``max_depth`` set no
-    bound."""
-    return dim <= MAX_DIM
+def wide_smem_bytes(dim: int, max_depth: int) -> int:
+    """Dynamic shared memory of the wide form's block (one chain of
+    ``ceil(D / 256)`` warps): the two checkpoint stacks ``[md, D]``, the row
+    sums' scratch and the mat-vec's two staging rows ``[D]``, float32
+    (``tree_kernel.cuh::wide_bytes``)."""
+    return 4 * (2 * max_depth * dim + _WIDE_SCRATCH + 2 * dim)
+
+
+def takes(dim: int, max_depth: int, physics: str) -> bool:
+    """Whether the kernel of ``physics`` takes a ``dim``-dimensional problem
+    at ``max_depth``, as its launcher decides: any physics up to
+    ``WARP_DIM`` (one warp per chain); a physics of ``WIDE_PHYSICS`` up to
+    ``MAX_DIM`` where the wide form's block fits the shared memory,
+    ``wide_smem_bytes(dim, max_depth) <= SMEM_LIMIT`` (at D = 2048,
+    ``max_depth <= 13``).  The random numbers are drawn inside the kernel,
+    so the chain count sets no bound."""
+    if dim <= WARP_DIM:
+        return dim >= 1
+    return (physics in WIDE_PHYSICS and dim <= MAX_DIM
+            and wide_smem_bytes(dim, max_depth) <= SMEM_LIMIT)
+
+
+def refusal(dim: int, max_depth: int, physics: str) -> str:
+    """Why :func:`takes` refuses the problem, naming the bound and the
+    ROADMAP item that lifts it."""
+    if physics not in WIDE_PHYSICS:
+        return (f"the {physics} kernel takes D <= {WARP_DIM}, this problem "
+                f"has D = {dim} (its wide form is not ported yet: ROADMAP "
+                f"queue 2 item 1 (g))")
+    if dim > MAX_DIM:
+        return (f"the {physics} kernel takes D <= {MAX_DIM}, this problem "
+                f"has D = {dim} (ROADMAP queue 2 item 1 (h))")
+    return (f"the {physics} kernel's wide form needs "
+            f"{wide_smem_bytes(dim, max_depth)} bytes of shared memory at "
+            f"D = {dim}, max_depth {max_depth}: 4 (2 max_depth D + 2 D + "
+            f"{_WIDE_SCRATCH}) > {SMEM_LIMIT}, the shared-memory bound "
+            f"(ROADMAP queue 2 item 1 (h))")
 
 
 def _check_max_depth(max_depth: int) -> None:
@@ -438,8 +484,9 @@ def _launch(q0, eps, phys, minv, max_depth: int, min_delta: float, k: int,
     if q0.ndim != 2:
         raise ValueError("tree kernel: q0 must be 2-D")
     c, d = q0.shape
-    if not 1 <= d <= MAX_DIM:
-        raise ValueError(f"tree kernel: D={d} outside [1, {MAX_DIM}]")
+    if not takes(d, max_depth, phys.name):
+        raise ValueError(f"tree kernel: {refusal(d, max_depth, phys.name)}"
+                         if d >= 1 else f"tree kernel: D={d} < 1")
     dev = q0.device
     spec = tile_physics.PHYSICS[phys.name]
     rows, mat = phys.rows(), phys.matrix()
@@ -552,7 +599,7 @@ def tree_transition(q0: torch.Tensor, p0, eps: torch.Tensor, dirs, unif,
     the uniforms ``unif [2^md - 1 + md, C]`` or, with ``unif=None``, those
     the generator draws from ``key``; under the physics ``phys``.  CPU
     tensors take the plain version; CUDA tensors launch the physics' kernel
-    (float32 and contiguous, ``D <= 256``) or raise."""
+    (float32 and contiguous, within :func:`takes`) or raise."""
     refresh = _check_draws(p0, dirs, sqrt_mass, unif, key)
     _check_max_depth(max_depth)
     if q0.device.type == "cpu":

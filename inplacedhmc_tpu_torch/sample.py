@@ -43,11 +43,16 @@ checkpoints, sketches and streamed moments, chunked tuning and blocked
 sampling, ``post_step`` hooks, work-sorted scheduling, the options
 ``use_kernels`` and ``fused_opts``, ``use_pallas="interpret"`` (JAX's
 Pallas interpreter: on a CPU tensor the port runs its plain versions
-already), the ``ckpt_bf16`` tree option, the whole tree above D = 256, and
-``tree_opts`` on tile physics without a device function.  The whole-tree
-kernel is ported, with a diagonal and a dense metric, for
-``diag_gaussian``, ``dense_gaussian`` and ``logistic`` models and the
-``"eight_schools"``, ``"funnel"`` and ``"stoch_vol"`` tile physics.
+already), the ``ckpt_bf16`` tree option, the whole tree where its kernel
+does not take the problem (``ops.tree.takes``: above D = 256 for eight
+schools, the funnel and logistic regression, above 2,048 or past the
+shared-memory bound for the others), and ``tree_opts`` on tile physics
+without a device function.  The whole-tree kernel is ported, with a
+diagonal and a dense metric, for ``diag_gaussian``, ``dense_gaussian`` and
+``logistic`` models and the ``"eight_schools"``, ``"funnel"`` and
+``"stoch_vol"`` tile physics; the Gaussian, the dense Gaussian and
+stochastic volatility run it above D = 256 too (one chain per block of
+warps).
 """
 
 from __future__ import annotations
@@ -70,8 +75,8 @@ from .ops.leapfrog import make_fused_gaussian_leapfrog
 from .ops.logistic import make_logistic_potential
 from .ops.tile_physics import PHYSICS, logistic_data
 from .ops.tree import LOGISTIC_BLOCK_C
-from .ops.tree import MAX_DIM as TREE_MAX_DIM
 from .ops.tree import make_tree_transition
+from .ops.tree import refusal as tree_refusal
 from .ops.tree import takes as tree_takes
 
 #: ``tree_opts`` keys of the whole-tree kernel (``inplacedhmc_tpu/sample.py``)
@@ -223,8 +228,10 @@ class NUTSKernel:
     * ``"diag_gaussian"``: with a shared float32 metric (diagonal or
       dense), the whole-tree transition (``ops/tree.py``, Gaussian physics)
       when there are at least ``TREE_MIN_CHAINS`` chains and the kernel
-      takes the dimension (``ops.tree.takes``); else, with a shared float32
-      diagonal metric, the lockstep tree with the fused Gaussian leapfrog
+      takes the problem (``ops.tree.takes``: the dimension, and above
+      D = 256 the shared memory at ``max_depth``); else, with a shared
+      float32 diagonal metric, the lockstep tree with the fused Gaussian
+      leapfrog
       (``ops/leapfrog.py``) as its ``step_fn``, and autograd on the lockstep
       tree otherwise;
     * ``"dense_gaussian"`` (``mvn``), and ``"tile_logp"`` whose ``physics``
@@ -232,7 +239,7 @@ class NUTSKernel:
       funnel, stochastic volatility; ``csrc/tree_<physics>.cu``): with a
       shared float32 metric, diagonal or dense, the whole-tree transition
       with that physics from ``TREE_MIN_CHAINS_BY_PHYSICS[physics]``
-      chains where the kernel takes the dimension, else autograd of
+      chains where the kernel takes the problem, else autograd of
       ``model.logp`` on the lockstep tree;
     * any other model: autograd of ``model.logp``.
 
@@ -240,9 +247,11 @@ class NUTSKernel:
     qualifies (a shared float32 metric), from one chain, for those kinds
     and for ``"logistic"`` (the ``logistic`` physics,
     ``csrc/tree_logistic.cu``), with autograd of ``model.logp`` as the
-    potential of the warmup's other stages, as in JAX; its D bound (256)
-    raises ``NotImplementedError`` above it.  ``"on"``: the fused logistic
-    potential and the fused Gaussian leapfrog, no whole tree.  ``"off"``:
+    potential of the warmup's other stages, as in JAX; a problem its kernel
+    does not take (``ops.tree.takes``) raises ``NotImplementedError``
+    naming the bound and the ROADMAP item that lifts it.  ``"on"``: the
+    fused logistic potential and the fused Gaussian leapfrog, no whole
+    tree.  ``"off"``:
     autograd on the lockstep tree.  ``"interpret"`` (JAX's Pallas
     interpreter) raises ``NotImplementedError``: on a CPU tensor every
     wrapper runs its plain version already.
@@ -294,13 +303,13 @@ class NUTSKernel:
         tree = _tree_physics(st, use_pallas, {
             k: topts.pop(k) for k in LOGISTIC_TREE_OPTS if k in topts})
         forced = use_pallas == "tree"
-        if forced and tree is not None and not tree_takes(model.dim):
-            raise NotImplementedError(
-                f"use_pallas='tree': the whole-tree kernel takes D <= "
-                f"{TREE_MAX_DIM}, this model has D = {model.dim} (D above "
-                f"it is not ported yet: ROADMAP queue 2 item 1 (f))")
         if tree is not None:
             physics, data = tree
+            takes = tree_takes(model.dim, algorithm.max_depth, physics)
+            if forced and not takes:
+                raise NotImplementedError(
+                    "use_pallas='tree': " + tree_refusal(
+                        model.dim, algorithm.max_depth, physics))
             # padded/sweep options drive the sampling loop only (tuning
             # adapts eps per transition, which an in-kernel sweep cannot)
             sweep_k = int(topts.pop("n_sweep", 1))
@@ -316,7 +325,7 @@ class NUTSKernel:
                 if not (_f32_shared(metric)
                         and (forced
                              or n_chains >= self.tree_min_chains(physics))
-                        and tree_takes(model.dim)):
+                        and takes):
                     return None
 
                 def build(**extra):

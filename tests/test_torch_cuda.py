@@ -612,19 +612,29 @@ def _scale(minv):
     return dense_metric(minv).mass_chol.T.contiguous()
 
 
-def _compare_any_field(got, want, c, allowed):
+def _compare_any_field(got, want, c, allowed, lsa_bound=False):
     """At most ``allowed`` chains differ in an integer field or in a float
     field beyond 1e-4 relative: the dense products (the metric's and the
     dense Gaussian's P q) add their D terms in another order than torch's
     matmul, so a proposal's log-uniform test or a U-turn statistic within
-    rounding of its threshold can decide the other way."""
+    rounding of its threshold can decide the other way.  ``lsa_bound``
+    (a log density summed over more than 256 coordinates, whose energies
+    run to thousands): ``log_sum_alpha``, a log of a sum of
+    ``exp(min(delta, 0))`` with each ``delta`` a difference of two joint
+    energies, also agrees within 4 e, e the largest energy difference of
+    the chains that agree in their integer fields (``chip_smoke.py::
+    compare_tree``'s rule)."""
     bad = torch.zeros(c, dtype=torch.bool, device="cuda")
     for f in INT_OUT:
         bad |= (getattr(got, f).reshape(c) != getattr(want, f))
+    e = (got.energy.reshape(c) - want.energy)[~bad].abs()
+    e = e[torch.isfinite(e)]
     for f in ("q", "logp", "energy", "log_sum_alpha"):
         g = getattr(got, f).reshape(c, -1)
         w = getattr(want, f).reshape(c, -1)
         same = (g == w) | ((g - w).abs() <= 1e-4 * (1 + w.abs()))
+        if f == "log_sum_alpha" and lsa_bound and len(e):
+            same |= (g - w).abs() <= 4 * float(e.max())
         bad |= ~same.all(dim=1)
     assert int(bad.sum()) <= allowed, int(bad.sum())
 
@@ -1155,3 +1165,195 @@ def test_cuda_stoch_vol_sample_goes_through_k5():
     assert counts.pop("tree_stoch_vol_dense_launch") == 50 + 25 + 100
     assert not any(counts.values()), counts
     assert bool(torch.isfinite(res.draws).all())
+
+
+# K5's wide form (D above 256: one chain per block of ceil(D / 256) warps):
+# one past each warp's 256 coordinates, within a warp, at a warp's end, one
+# past two warps, BASELINE config 5's T = 1,000 and the largest D
+WIDE_DIMS = [257, 288, 511, 512, 513, 1002, 2048]
+
+
+def _unstable_eps(phys, minv):
+    """Four times the leapfrog's stability limit 2 / sqrt(lambda_max(M^-1
+    P)) of a Gaussian physics: its chains diverge."""
+    prec = phys.matrix() if phys.matrix() is not None \
+        else torch.diag(phys.data["lam"])
+    m = minv if minv.ndim == 2 else torch.diag(minv)
+    lam_max = float(torch.linalg.eigvals((m @ prec).double()).real.max())
+    return 4 * 2.0 / lam_max ** 0.5
+
+
+def _wide_case(q, phys, minv, eps, form, md, seed):
+    """One launch of the kernel of ``phys`` under ``minv`` and its plain
+    version fed its draws: ``prng`` (momentum and directions given, the
+    uniforms drawn) or ``refresh`` (everything drawn, the momentum through
+    the metric's scale).  Returns both outputs."""
+    c, d = q.shape
+    e = torch.full((c,), eps, device="cuda")
+    key = _key(seed)
+    xi, dirs, unif = tree.philox_draws(key, c, d, md)
+    scale = _scale(minv)
+    kern = (tree.TREE_DENSE_KERNELS if minv.ndim == 2
+            else tree.TREE_KERNELS)[phys.name]
+    before = kern.launches
+    if form == "prng":
+        p0 = tree.refresh_momentum(scale, torch.randn(
+            (c, d), generator=torch.Generator(device="cuda").manual_seed(seed),
+            device="cuda")).contiguous()
+        got = tree.tree_transition(q, p0, e, dirs[0], None, phys, minv, md,
+                                   -1000.0, key=key)
+    else:
+        p0 = tree.refresh_momentum(scale, xi[0])
+        got = tree.tree_transition(q, None, e, None, None, phys, minv, md,
+                                   -1000.0, key=key, sqrt_mass=scale)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    want = tree.tree_transition_plain(q, p0, e, dirs[0], unif[0], phys, minv,
+                                      md, -1000.0)
+    return got, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["diag", "dense"])
+@pytest.mark.parametrize("d", WIDE_DIMS)
+@pytest.mark.parametrize("eps,form", [(0.25, "refresh"), ("unstable", "prng")])
+def test_cuda_wide_gaussian_matches_plain_version(metric, d, eps, form):
+    """K5's wide form with the Gaussian physics against its plain version
+    fed the kernel's own draws, at D one past a warp, within one, at a
+    warp's end, one past two warps, 1,002 and 2,048, under a diagonal and a
+    dense metric (the block's mat-vec through shared memory, the refresh's
+    ``xi mass_chol^T`` too), at a mixed step size drawing everything and at
+    four times the stability limit (divergences) with the momentum given
+    (max_depth 6): at most one chain in twenty differs
+    (``_compare_any_field``: the row sums add their terms in another
+    order); every state is finite."""
+    _needs_card()
+    c, md = 40, 6
+    q, phys, minv = _dense(90 + d, c, d, "gaussian", metric)
+    if eps == "unstable":
+        eps = _unstable_eps(phys, minv)
+    got, want = _wide_case(q, phys, minv, eps, form, md, d)
+    _compare_any_field(got, want, c, c // 20, lsa_bound=True)
+    assert bool(torch.isfinite(got.q).all())
+    if eps > 0.25:
+        assert bool((want.term == 1).any())
+    else:
+        assert float(want.depth.double().mean()) >= 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["diag", "dense"])
+@pytest.mark.parametrize("d", [257, 512])
+def test_cuda_wide_dense_gaussian_matches_plain_version(metric, d):
+    """K5's wide form with the dense Gaussian's physics (its ``P q`` a
+    block's mat-vec through shared memory) against its plain version at
+    D = 257 and 512, under a diagonal and a dense metric, everything drawn
+    in the kernel, at a mixed step size: ``_compare_any_field``."""
+    _needs_card()
+    c, md = 40, 6
+    q, phys, minv = _dense(95 + d, c, d, "dense_gaussian", metric)
+    got, want = _wide_case(q, phys, minv, 0.25, "refresh", md, d + 1)
+    _compare_any_field(got, want, c, c // 20, lsa_bound=True)
+    assert bool(torch.isfinite(got.q).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["diag", "dense"])
+@pytest.mark.parametrize("d", WIDE_DIMS)
+@pytest.mark.parametrize("eps", [0.02, 0.4])
+def test_cuda_wide_stoch_vol_matches_plain_version(metric, d, eps):
+    """K5's wide form with stochastic volatility's physics at T = D - 2
+    for each D of ``WIDE_DIMS``: the AR(1) neighbours cross every warp edge
+    through shared memory (h_t from the warp before, innov_{t+1} from the
+    warp after), raw_phi, log_s and h_1 reach every warp from the first,
+    nothing is read past D.  Against its plain version fed the kernel's own
+    draws, under a diagonal and a dense metric, at a deep and a divergent
+    step size (max_depth 6): ``_compare_any_field``; every state finite."""
+    _needs_card()
+    c, md = 40, 6
+    q, phys, minv, _ = _sv(100 + d, c, d - 2, metric)
+    got, want = _wide_case(q, phys, minv, eps, "prng", md, d + 2)
+    _compare_any_field(got, want, c, c // 20, lsa_bound=True)
+    for f in ("q", "logp", "grad", "energy"):
+        assert bool(torch.isfinite(getattr(got, f)).all()), f
+    if eps == 0.4:
+        assert bool((want.term == 1).any())
+    else:
+        assert float(want.depth.double().mean()) >= 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["diag", "dense"])
+def test_cuda_wide_sweep_bit_identical_to_single_launches(metric):
+    """K5's wide form at D = 1,002 (stochastic volatility at T = 1,000):
+    one launch of 16 transitions drawing everything equals 16
+    one-transition launches fed what its generator draws (under a dense
+    metric the momentum ``xi mass_chol^T`` in the kernel's order of
+    operations), bit for bit, every tenth row padded."""
+    _needs_card()
+    c, t, md, k = 40, 1000, 6, 16
+    q, phys, minv, _ = _sv(110, c, t, metric)
+    d = t + 2
+    e = torch.full((c,), 0.02, device="cuda")
+    valid = (torch.arange(c, device="cuda") % 10 != 9).to(torch.int32)
+    key, scale = _key(111), _scale(minv)
+    swept = tree.tree_sweep(q, e, phys, minv, md, -1000.0, k, key=key,
+                            sqrt_mass=scale, valid=valid)
+    xi, dirs, unif = tree.philox_draws(key, c, d, md, k)
+    for s in range(k):
+        if metric == "dense":
+            p = torch.zeros_like(xi[s])
+            for i in range(d):
+                p = p + xi[s][:, i:i + 1] * scale[i]
+        else:
+            p = scale * xi[s]
+        one = tree.tree_sweep(q, e, phys, minv, md, -1000.0,
+                              momentum=p[None], dirs=dirs[s:s + 1],
+                              unif=unif[s:s + 1], valid=valid)
+        for f in tree.TreeOut._fields:
+            if f != "grad":
+                assert torch.equal(getattr(swept, f)[s], getattr(one, f)[0]), \
+                    (s, f)
+        q = one.q[0]
+    assert torch.equal(swept.grad, one.grad)
+    assert int(swept.steps[:, 9::10].sum()) == 0
+
+
+@pytest.mark.cuda
+def test_cuda_wide_wrapper_refuses_what_the_kernel_does_not_take():
+    """Past the wide form's bounds the wrapper raises before anything is
+    launched: D = 2,049; D = 2,048 at max_depth 14, whose stacks pass the
+    shared memory of one block; the funnel's physics at D = 300 (no wide
+    form).  At D = 2,048 and max_depth 13 it launches."""
+    _needs_card()
+    x = _gaussian(120, 4, 2049, 14)
+    e = torch.full((4,), 0.3, device="cuda")
+    before = tree.TREE_GAUSSIAN.launches
+    with pytest.raises(ValueError, match="D <= 2048"):
+        tree.gaussian_tree_transition(
+            x["q"], x["p"], e, tree.direction_words_int32(x["dirs"]),
+            None, x["lam"], x["minv"], 10, -1000.0, key=_key(121))
+    y = {k: v[..., :2048].contiguous() for k, v in x.items()
+         if k in ("q", "p", "lam", "minv")}
+    dirs = tree.direction_words_int32(x["dirs"])
+    with pytest.raises(ValueError, match="shared memory"):
+        tree.gaussian_tree_transition(y["q"], y["p"], e, dirs, None,
+                                      y["lam"], y["minv"], 14, -1000.0,
+                                      key=_key(122))
+    assert tree.TREE_GAUSSIAN.launches == before
+    st = models.funnel(300).structure
+    phys = tp.bind("funnel", {**st["data"], **st["scalars"]})
+    kern = tree.TREE_KERNELS["funnel"]
+    f_before = kern.launches
+    with pytest.raises(ValueError, match="item 1 \\(g\\)"):
+        tree.tree_transition(y["q"][:, :300].contiguous(),
+                             y["p"][:, :300].contiguous(), e, dirs, None,
+                             phys, y["minv"][:300].contiguous(), 6, -1000.0,
+                             key=_key(123))
+    assert kern.launches == f_before
+    out = tree.gaussian_tree_transition(y["q"], y["p"], e, dirs, None,
+                                        y["lam"], y["minv"], 13, -1000.0,
+                                        key=_key(124))
+    torch.cuda.synchronize()
+    assert tree.TREE_GAUSSIAN.launches == before + 1
+    assert bool(torch.isfinite(out.q).all())

@@ -49,12 +49,12 @@ def _torch_port():
     slow every process of the run tenfold."""
     global torch, conv, tp, tree, diag, NUTSKernel, TEval, tnuts, tbl
     global tdense, tdiag, default_warmup_stages, sample, diag_normal, mvn
-    global dense_gaussian_model, eight_schools
+    global dense_gaussian_model, eight_schools, NUTS
     import torch
     import inplacedhmc_tpu_torch.convert as conv
     import inplacedhmc_tpu_torch.ops.tile_physics as tp
     import inplacedhmc_tpu_torch.ops.tree as tree
-    from inplacedhmc_tpu_torch import default_warmup_stages, sample
+    from inplacedhmc_tpu_torch import NUTS, default_warmup_stages, sample
     from inplacedhmc_tpu_torch import diagnostics as diag
     from inplacedhmc_tpu_torch.core.hamiltonian import \
         batched_logdensity_and_grad as tbl
@@ -278,6 +278,38 @@ def test_dense_tree_plain_matches_jax_interpret_kernel(physics, seed, eps):
     assert int(out.steps.sum()) > c
 
 
+def test_dense_gaussian_matches_jax_interpret_kernel_above_one_warp():
+    """Above D = 256, where the card runs K5's wide form (its ``[D, D]``
+    products staged in shared memory), the dense Gaussian's physics under a
+    dense metric at D = 300: the port's plain K5 against
+    ``make_dense_gaussian_tree_transition(..., DenseMetric, interpret=True,
+    block_c=16, max_depth=5)`` on the same inputs, a Wishart precision at
+    600 degrees of freedom and half the leapfrog's stability limit 2 /
+    sqrt(lambda_max(M^-1 P)), with the bounds above."""
+    rng = np.random.default_rng(9)
+    c, d, md = 16, 300, 5
+    prec = np.linalg.inv(_wishart_cov(rng, d, 2 * d))
+    prec = 0.5 * (prec + prec.T)
+    inv = _spd(rng, d)
+    lam_max = float(np.linalg.eigvals(inv @ prec).real.max())
+    eps = 0.5 * 2.0 / lam_max ** 0.5
+    r = dict(prec=prec, inv=inv, q0=rng.normal(size=(c, d))
+             @ np.linalg.cholesky(np.linalg.inv(prec)).T, max_depth=md,
+             p0=rng.normal(size=(c, d))
+             @ np.linalg.cholesky(np.linalg.inv(inv)).T,
+             dirs=rng.integers(0, 2 ** 32, size=c, dtype=np.uint32),
+             unif=rng.uniform(size=((1 << md) - 1 + md, c)))
+    jz2, jst = _jax_interpret("dense_gaussian", r, eps)
+    t = _f32(r)
+    out = tree.tree_transition(
+        t["q0"], t["p0"], torch.full((c,), eps),
+        torch.as_tensor(r["dirs"].astype(np.int64)), t["unif"],
+        tp.bind("dense_gaussian", _data("dense_gaussian", t["prec"])),
+        t["inv"], md, -1000.0)
+    _assert_close_to_jax(out, jz2, jst, f"dense_gaussian D {d} eps {eps}")
+    assert int(out.steps.sum()) > 2 * c
+
+
 def test_eight_schools_dense_metric_matches_jax_interpret_kernel():
     """Eight schools' physics under a dense metric: the port's plain K5
     against JAX's ``make_tree_transition(tile_logp, ..., DenseMetric,
@@ -448,11 +480,15 @@ def test_tree_opts_accepted_on_mvn(monkeypatch):
 
 
 def test_mvn_above_the_tree_bound_takes_the_lockstep_tree():
-    """An ``mvn`` of D = 300 is above K5's D bound (``ops.tree.takes``): its
+    """An ``mvn`` of D = 2,049 is above K5's D bound (``ops.tree.takes``),
+    and one of D = 1,000 at max_depth 29 past its shared-memory bound: their
     route is autograd on the lockstep tree under either metric form, and no
-    fused leapfrog; at D = 256 it takes the whole tree."""
-    for d, tree_route in ((300, False), (256, True)):
-        kern = NUTSKernel(mvn(torch.eye(d), device="cpu"))
+    fused leapfrog; at D = 2,048, and at D = 1,000 with max_depth 28, they
+    take the whole tree (one block of warps per chain)."""
+    for d, md, tree_route in ((2049, 10, False), (2048, 10, True),
+                              (1000, 29, False), (1000, 28, True)):
+        kern = NUTSKernel(mvn(torch.eye(d), device="cpu"),
+                          NUTS(max_depth=md))
         for met in (tdiag(torch.ones(d)), tdense(torch.eye(d))):
             assert (kern.transition_factory(met, 16) is not None) \
                 == tree_route

@@ -225,6 +225,50 @@ def test_tree_plain_matches_jax_kernel_and_oracle(seed, eps, unit_metric):
         assert np.all(out.depth.numpy() == md)
 
 
+@pytest.mark.parametrize("seed,eps", [(20, 0.1), (21, 0.02)])
+def test_tree_plain_matches_jax_kernel_above_one_warp(seed, eps):
+    """Above D = 256, where the card runs K5's wide form (one chain per
+    block of warps), its plain version against
+    ``make_gaussian_tree_transition(..., interpret=True, block_c=16,
+    max_depth=5)`` at D = 300 with the same q0, p0, directions and
+    uniforms: integer fields equal, the float fields to ``F32_RTOL`` and
+    ``F32_ATOL``.  The acceptance is ``exp(min(delta, 0))`` of a difference
+    of two joint energies (about 700 here, a sum of 600 terms), so it is
+    held to that tolerance of the energies carried through ``exp`` (whose
+    slope is at most 1 there): ``2 (F32_ATOL + F32_RTOL |energy|)``."""
+    r = _inputs(seed, c=16, d=300)
+    md = r["max_depth"]
+    _, jz = _jax_point(r["prec"], r["q0"])
+    jz2, jst = jtree(jnp.asarray(r["prec"]), jnp.asarray(r["minv"]),
+                     max_depth=md, block_c=16, interpret=True)(
+        jax.random.PRNGKey(seed), jz, eps, directions=jnp.asarray(r["dirs"]),
+        momentum=jnp.asarray(r["p0"]), _unif=jnp.asarray(r["unif"]))
+    c = r["q0"].shape[0]
+    out = gaussian_tree_transition_plain(
+        torch.as_tensor(r["q0"]), torch.as_tensor(r["p0"]),
+        torch.full((c,), eps, dtype=torch.float32),
+        torch.as_tensor(r["dirs"].astype(np.int64)),
+        torch.as_tensor(r["unif"]), torch.as_tensor(r["prec"]),
+        torch.as_tensor(r["minv"]), md, -1000.0)
+    for f, jf in zip(PLAIN_INT, INT_FIELDS):
+        np.testing.assert_array_equal(getattr(out, f).numpy(),
+                                      np.asarray(getattr(jst, jf)),
+                                      err_msg=f"{f} eps={eps}")
+    accept = torch.clamp(torch.exp(out.log_sum_alpha)
+                         / torch.clamp(out.steps, min=1), max=1.0)
+    energy = np.asarray(jst.energy)
+    np.testing.assert_array_less(
+        np.abs(accept.numpy() - np.asarray(jst.acceptance_rate)),
+        2 * (F32_ATOL + F32_RTOL * np.abs(energy)))
+    np.testing.assert_allclose(out.energy.numpy(), energy, rtol=F32_RTOL,
+                               atol=F32_ATOL)
+    for got, want in ((out.q, jz2.q), (out.logp, jz2.logp),
+                      (out.grad, jz2.grad)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=F32_RTOL, atol=F32_ATOL)
+    assert int(out.steps.sum()) > 2 * c   # several leaves
+
+
 @pytest.mark.parametrize("eps", [0.05, 0.4, 1.3])
 def test_tree_plain_matches_port_lockstep_tree(eps):
     """The whole-tree transition and the port's own ``nuts_transition`` with
@@ -289,17 +333,20 @@ def test_routes_follow_metric_and_chain_count(monkeypatch):
 
 
 @pytest.mark.parametrize("dim, n_chains, max_depth, tree", [
-    (256, 16, 10, True), (257, 16, 10, False),
+    (256, 16, 10, True), (257, 16, 10, True), (2048, 16, 13, True),
+    (2048, 16, 14, False), (2049, 16, 10, False),
     (3, 16_371, 14, True), (3, 16_372, 14, True)])
 def test_route_follows_what_the_tree_kernel_takes(dim, n_chains, max_depth,
                                                   tree, monkeypatch):
-    """The whole-tree route only where its kernel takes the problem: D up to
-    ``ops.tree.MAX_DIM`` (256); elsewhere the lockstep tree with the fused
-    leapfrog, which has no such bound.  The kernel draws its uniforms
-    itself, so neither the chain count nor ``max_depth`` bounds it: the
-    16,372 chains at max_depth 14 whose ``[2^14 - 1 + 14, C]`` uniform array
-    would have passed 1 GiB take the whole tree too.  The choice is made
-    when the route is built, whatever the chain-count threshold."""
+    """The whole-tree route only where its kernel takes the problem: one
+    warp per chain up to D = 256, one block of warps per chain up to
+    ``ops.tree.MAX_DIM`` (2,048) where the checkpoint stacks fit the shared
+    memory (at D = 2,048 up to max_depth 13); elsewhere the lockstep tree
+    with the fused leapfrog, which has no such bound.  The kernel draws its
+    uniforms itself, so the chain count does not bound it: the 16,372
+    chains at max_depth 14 whose ``[2^14 - 1 + 14, C]`` uniform array would
+    have passed 1 GiB take the whole tree too (at D = 3).  The choice is
+    made when the route is built, whatever the chain-count threshold."""
     monkeypatch.setattr(NUTSKernel, "TREE_MIN_CHAINS", 0)
     kern = NUTSKernel(std_normal(dim, device="cpu"), NUTS(max_depth=max_depth))
     f32 = tdiag(torch.ones(dim))

@@ -436,8 +436,8 @@ def test_logistic_tree_opts_are_checked():
     ``ValueError`` (JAX raises on the mode); the ``vjp`` mode builds the
     same physics as the chunked one, and the route's transition is the one
     ``make_logistic_tree_transition`` builds from the model's data; a route
-    without the whole tree ignores ``tree_opts``, as in JAX; above D = 256
-    the forced whole tree is not ported."""
+    without the whole tree ignores ``tree_opts``, as in JAX; above D =
+    2,048 (the wide form's bound) the forced whole tree is not ported."""
     m = _small_logistic()
     for opts in ({"physics_mode": "dense"}, {"block_n": 0}):
         with pytest.raises(ValueError):
@@ -460,10 +460,10 @@ def test_logistic_tree_opts_are_checked():
         assert torch.equal(outs[0][1].steps, out[1].steps)
     ignored = NUTSKernel(m, tree_opts={"n_sweep": 4, "block_n": 96})
     assert ignored.transition_factory is None
-    wide = Model(name="w", dim=257, logp=lambda q: -(q * q).sum(-1),
+    wide = Model(name="w", dim=2049, logp=lambda q: -(q * q).sum(-1),
                  structure={"kind": "diag_gaussian",
-                            "precision": torch.ones(257)})
-    with pytest.raises(NotImplementedError, match="item 1 \\(f\\)"):
+                            "precision": torch.ones(2049)})
+    with pytest.raises(NotImplementedError, match="item 1 \\(h\\)"):
         NUTSKernel(wide, use_pallas="tree")
     assert NUTSKernel(wide).step_factory is not None
 

@@ -43,6 +43,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from inplacedhmc_tpu.core.metric import dense_metric as jdense
 from inplacedhmc_tpu.core.state import EvalPoint as JEval
 from inplacedhmc_tpu.models.stoch_vol import _tile_structure
 from inplacedhmc_tpu.models.stoch_vol import stoch_vol as jstoch_vol
@@ -184,7 +185,10 @@ def test_tile_rows_match_jax_structure(t):
 
 
 def _tree_inputs(seed: int, t: int = 21, c: int = 16, md: int = 6,
-                 saturate: bool = False):
+                 saturate: bool = False, dense: bool = False):
+    """One transition's inputs; the metric ``0.5 + U(0, 1)`` with the
+    hyperparameters' entries a tenth of that, or with ``dense`` that
+    diagonal plus a small symmetric part (the momentum ``N(0, M)``)."""
     h, r, rng = _series(t, seed)
     d = t + 2
     q0 = _positions(h, rng, c).astype(np.float32)
@@ -192,7 +196,15 @@ def _tree_inputs(seed: int, t: int = 21, c: int = 16, md: int = 6,
         q0[::4, 0] = 10.0
     minv = (0.5 + rng.uniform(size=d)).astype(np.float32)
     minv[:2] *= np.float32(0.1)   # the hyperparameters' posterior is narrow
-    p0 = (rng.normal(size=(c, d)) / np.sqrt(minv)).astype(np.float32)
+    xi = rng.normal(size=(c, d))
+    if dense:
+        b = rng.normal(size=(d, d)) * 0.05 / np.sqrt(d)
+        m = np.diag(minv) + 0.5 * (b @ b.T) * np.sqrt(np.outer(minv, minv))
+        minv = (0.5 * (m + m.T)).astype(np.float32)
+        p0 = (xi @ np.linalg.cholesky(np.linalg.inv(
+            minv.astype(np.float64))).T).astype(np.float32)
+    else:
+        p0 = (xi / np.sqrt(minv)).astype(np.float32)
     return dict(r=r.astype(np.float32), q0=q0, p0=p0, minv=minv,
                 dirs=rng.integers(0, 2 ** 32, size=c, dtype=np.uint32),
                 unif=rng.uniform(size=((1 << md) - 1 + md, c))
@@ -207,9 +219,10 @@ def _both_transitions(x, eps):
     c, d = x["q0"].shape
     jz = JEval(q=jnp.asarray(x["q0"]), logp=jnp.zeros(c),
                grad=jnp.zeros_like(jnp.asarray(x["q0"])))
+    minv = jnp.asarray(x["minv"])
     jz2, jst = jtree(jm.structure["tile_logp"], jm.structure["data"], d,
-                     jnp.asarray(x["minv"]), max_depth=x["md"], block_c=16,
-                     interpret=True)(
+                     jdense(minv) if minv.ndim == 2 else minv,
+                     max_depth=x["md"], block_c=16, interpret=True)(
         jax.random.PRNGKey(0), jz, eps, directions=jnp.asarray(x["dirs"]),
         momentum=jnp.asarray(x["p0"]), _unif=jnp.asarray(x["unif"]))
     cm = conv.tile_model_from_numpy("stoch_vol", jm.structure["data"], d,
@@ -313,6 +326,21 @@ def test_tree_plain_matches_jax_kernel(seed, eps):
         assert int(out.steps.sum()) > 4 * len(x["q0"])   # several leaves
 
 
+@pytest.mark.parametrize("metric", ["diag", "dense"])
+def test_tree_plain_matches_jax_kernel_above_one_warp(metric):
+    """Above D = 256, where the card runs K5's wide form (one chain per
+    block of warps, the AR(1) neighbours exchanged across warp edges), its
+    plain version against ``make_tree_transition(tile_logp, ...,
+    interpret=True, block_c=16, max_depth=5)`` at T = 298 (D = 300), under
+    a diagonal and a dense metric, with the same q0, momentum, direction
+    words and uniforms: integer records equal, float fields within the
+    bound of the module docstring."""
+    x = _tree_inputs(10, t=298, md=5, dense=metric == "dense")
+    jz2, jst, out, st = _both_transitions(x, 0.05)
+    _assert_same_transition(jz2, jst, out, st, f"T = 298, {metric}")
+    assert int(out.steps.sum()) > 4 * len(x["q0"])   # several leaves
+
+
 def test_saturated_start_diverges_alike():
     """Every fourth chain starts at ``raw_phi = 10``, where f32 ``tanh`` is
     1: its log density is ``-inf`` and ``d/draw_phi`` NaN on both sides.
@@ -365,9 +393,10 @@ def test_sample_through_the_tree_route(monkeypatch):
 def test_routes_of_the_model():
     """At D <= 256 the model takes the whole-tree route from its chain
     threshold with a float32 metric (diagonal or dense) and autograd on the
-    lockstep tree with a float64 one; above 256 (T = 300) autograd on the
-    lockstep tree, and ``use_pallas="tree"`` refuses it naming the ROADMAP
-    item of D > 256.  ``tree_opts`` are taken."""
+    lockstep tree with a float64 one; so it does up to D = 2,048 (T =
+    2,046: one block of warps per chain); above it (T = 2,047) autograd on
+    the lockstep tree, and ``use_pallas="tree"`` refuses it naming the
+    ROADMAP item that lifts the bound.  ``tree_opts`` are taken."""
     m = stoch_vol(np.ones(100, np.float32), device="cpu")
     kern = NUTSKernel(m)
     thr = kern.tree_min_chains("stoch_vol")
@@ -380,10 +409,13 @@ def test_routes_of_the_model():
     assert kern.step_factory is None
     NUTSKernel(m, tree_opts={"refresh_inside": True, "padded_io": True,
                              "n_sweep": 4})
-    wide = stoch_vol(np.ones(300, np.float32), device="cpu")
-    assert NUTSKernel(wide).transition_factory(tdiag(torch.ones(302)),
+    inside = stoch_vol(np.ones(2046, np.float32), device="cpu")
+    assert NUTSKernel(inside).transition_factory(tdiag(torch.ones(2048)),
+                                                 thr) is not None
+    wide = stoch_vol(np.ones(2047, np.float32), device="cpu")
+    assert NUTSKernel(wide).transition_factory(tdiag(torch.ones(2049)),
                                                thr) is None
-    with pytest.raises(NotImplementedError, match="item 1 \\(f\\)"):
+    with pytest.raises(NotImplementedError, match="item 1 \\(h\\)"):
         NUTSKernel(wide, use_pallas="tree")
 
 

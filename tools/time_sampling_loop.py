@@ -9,8 +9,8 @@ words, one K5 launch, and the statistics.  This script times that loop
 0.3, from the same normal start, at each of ``--chains``: ``--transitions``
 transitions, synchronised at both ends, best of ``--repeats``.  It prints
 the wall per transition and checks that each transition launched K5 once;
-above K5's D bound (256) the route is the lockstep tree with K3, and it
-checks that K3 ran and K5 did not.
+where the route is the lockstep tree with K3 (outside K5's bound,
+``ops.tree.takes``), it checks that K3 ran and K5 did not.
 
 ``--root DIR`` imports ``inplacedhmc_tpu_torch`` from the checkout at
 ``DIR`` instead of this one (for example an earlier commit unpacked with
@@ -41,7 +41,7 @@ def main() -> int:
     ap.add_argument("--repeats", type=int, default=5)
     ap.add_argument("--dim", type=int, default=None,
                     help="the normal's dimension (default chip_smoke's "
-                         "G_DIM, 100); above 256 the lockstep route")
+                         "G_DIM, 100); above 256 K5's wide form")
     args = ap.parse_args()
     sys.path.insert(0, HERE)
     import chip_smoke
