@@ -48,7 +48,13 @@ Phases, each printed with its wall time:
    dense metric, stochastic volatility at T = 1,000 (D = 1,002) at 1,024
    and 10,240 chains under a diagonal metric and at 1,024 under a dense
    one, every 16th chain saturated, and a sweep of 16 against 16 launches
-   at D = 1,002;
+   at D = 1,002; K5 with bfloat16 checkpoint stacks (``ckpt_bf16``)
+   against its plain version with them, the Gaussian at 10,240 x 100 and
+   stochastic volatility at 1,024 x 102 under a dense metric, each also
+   launched with float32 stacks (the share of chains whose termination
+   agrees, both timed in alternating pairs, both occupancies), the
+   Gaussian at D = 2,048 and max_depth 20, which float32 stacks cannot
+   take, and the blocks per SM of both stack types at D = 1,002;
 3. ``sample()`` on BASELINE config 3 (logistic regression, 10,000 x 50 data
    from a seed, 8192 chains, dense metric, a short warmup schedule, 128
    draws) through K1; then the same through K5-logistic
@@ -82,10 +88,14 @@ Phases, each printed with its wall time:
    recursion, the true latents kept), config 5's recipe (delta 0.9, dense
    windows, 4 doubling windows, no L-BFGS start) at 1,024 chains, 200
    draws, through K5-stoch_vol, and its two launchers timed at the tuned
-   state; then config 5's own T = 1,000 (D = 1,002) through K5-stoch_vol's
-   wide form, the full warmup of the same recipe at 1,024 chains, 64
-   consecutive draws (split R-hat printed, not gated), and its two
-   launchers timed at the tuned state;
+   state; then config 5's own T = 1,000 (D = 1,002) with config 5's whole
+   recipe at 1,024 chains: streamed dense windows in chunks of 50
+   transitions, the per-coordinate ASIS hook (10 sub-steps) after every
+   transition, 50 draws in blocks of 25 with split moments over every
+   coordinate (R-hat from them held to R-hat of the stored draws; R-hat
+   printed, not gated), through K5-stoch_vol's wide form with bfloat16
+   checkpoint stacks, and its two launchers at the tuned state against
+   their plain versions, timed with both stack types;
 10. ``sample()`` on the 250-D multivariate normal of Hoffman and Gelman
    (2014) with a Wishart precision of 300 degrees of freedom (``mvn``) at
    1,024 chains, 4 dense windows, 300 draws: K5 with the dense Gaussian's
@@ -261,16 +271,16 @@ LOGISTIC_CROSSOVER_CHAINS = (1, 64, 1024, C)
 # K5 with its AR(1) physics (csrc/tree_stoch_vol.cu), with the recipe of
 # :144-153 (delta 0.9, dense windows, doubling_stages 4, no L-BFGS start)
 # at the examples' full-scale 1,024 chains and 200 draws, the draws stored
-# (the port has neither streamed moments nor chunked tuning yet); the
+# (the T = 1,000 phase runs the streamed, chunked, hooked recipe); the
 # kernel checks also at config 5's 10,240 chains
 SV_T, SV_PHI, SV_S = 100, 0.97, 0.15
 SV_CHAINS, SV_BIG, SV_DRAWS = 1024, 10_240, 200
 # every SV_THIN-th transition is recorded: the centred posterior mixes
-# slowly without ASIS (not ported), in JAX too; on an H100 200 consecutive
-# draws of converged chains read a split R-hat of 1.27 on log_s (its
-# autocorrelation time about 69 transitions), 16 transitions apart 1.042
-# on an h_t (the slowest coordinate, about 235); 32 apart halves that
-# excess (PERF.md section 6)
+# slowly without ASIS (this phase runs none), in JAX too; on an H100 200
+# consecutive draws of converged chains read a split R-hat of 1.27 on
+# log_s (its autocorrelation time about 69 transitions), 16 transitions
+# apart 1.042 on an h_t (the slowest coordinate, about 235); 32 apart
+# halves that excess (PERF.md section 6)
 SV_THIN = 32
 # the kernel checks' step sizes under 0.5 + U(0, 1) or _spd's M^-1 from
 # tile_start: trees of depth about 6.7, 4.3 and 0.3 (almost every chain
@@ -284,11 +294,44 @@ SV_COVERAGE = 70                  # percent of the true h_t in their central
                                   # 90 % intervals
 SV_CROSSOVER_CHAINS = (1, 64, 1024, SV_BIG)
 # config 5's own T = 1,000 (D = 1,002: K5's wide form, one chain per block
-# of 4 warps) at the examples' 1,024 chains (examples/baseline_configs.py:
-# 136-161), the full warmup of its recipe, then SV_WIDE_DRAWS consecutive
-# draws; its split R-hat is printed, not gated: without ASIS (not ported)
-# the centred model needs thousands of transitions at this T
-SV_WIDE_T, SV_WIDE_DRAWS = 1000, 64
+# of 4 warps) at the examples' 1,024 chains with its whole recipe
+# (examples/baseline_configs.py:136-161: streamed dense windows, chunks of
+# 50 tuning transitions, blocks of 25 draws, a fence after each, split
+# moments over every coordinate) and the round-5 headline's per-coordinate
+# ASIS hook after every transition, 10 sub-steps
+# (examples/results_round5.jsonl), on bfloat16 checkpoint stacks; then
+# SV_WIDE_DRAWS consecutive draws (the recipe's 1,250 draws thinned by 4
+# cut to fit the budget; keep_dims=range(10) dropped, so that the coverage
+# gate sees every h_t).  Its split R-hat is printed, not gated: ASIS
+# shortens log_s's autocorrelation (tau about 148 transitions at 10,240
+# chains in round 5), still far beyond these draws
+SV_WIDE_T, SV_WIDE_DRAWS = 1000, 50
+# the default route at that D (float32 stacks, no hook, stored draws):
+# sample() from the recipe's tuned state, without warmup, under its dense
+# M^-1 and under that M^-1's diagonal, this many draws each
+SV_DEFAULT_DRAWS = 25
+SV_RECIPE = dict(tuning_chunk=50, draw_block=25, sync_blocks=True,
+                 collect_moments=True)
+# K5's bfloat16 checkpoint stacks (ckpt_bf16): the TPU code they replace
+# (the stores of _make_kernel, tree_pallas.py:317-321), the share of
+# chains whose termination must agree with float32 stacks
+# (tests/test_tree_pallas.py asks 0.9), the alternating pairs that time the
+# two, the dimension above the one-warp form, and the wide check that only
+# bfloat16 stacks fit: D = 2,048 at max_depth 20 (float32 stacks take 13)
+BF16_REPLACES = "317"
+BF16_AGREE = 0.9
+BF16_PAIRS = 3
+BF16_WIDE_MD = 20
+# inputs on which the rounding decides turns (tests/test_torch_ckpt_bf16.py):
+# the Gaussian at max_depth 8 and eps 0.005 (deep trees of small subtrees,
+# whose checks subtract large checkpoint sums), M^-1 1e-6 past coordinate 0
+# and standard normal momenta so that coordinate 0 decides, at these D (one
+# warp, a block of two)
+BF16_FLIP_DIMS, BF16_FLIP_MD, BF16_FLIP_EPS = (100, 300), 8, 0.005
+SV_ASIS_STEPS = 10
+# R-hat from float32 split moments against R-hat of the stored draws
+# (moment_rhat_check)
+MOMENT_RHAT_K = 4.0
 # the dense Gaussian above D = 256: a Wishart-precision mvn at D = 512 with
 # the 250-D target's ratio of degrees of freedom to D (300 / 250), 256 chains
 MVN_WIDE_DIM, MVN_WIDE_DF, MVN_WIDE_CHAINS = 512, 614, 256
@@ -862,6 +905,15 @@ def compare_tree(got, want, label: str, bound=None, grad_q=None,
     return max(err.values())
 
 
+def ints_differ(a, b):
+    """The chains whose integer records (termination, its two ends, depth,
+    steps) differ between two transitions' outputs."""
+    bad = a.term != b.term
+    for f in ("term_left", "term_right", "depth", "steps"):
+        bad |= getattr(a, f) != getattr(b, f)
+    return bad
+
+
 def same_value(g, w):
     """Equal, or NaN on both sides."""
     import torch
@@ -891,7 +943,7 @@ def _physics(name: str, data: dict):
 
 
 def tree_form(form: str, q0, p0, e, d32, unif, phys, minv, key, md: int,
-              scale=None):
+              scale=None, bf16: bool = False):
     """``(launch, plain)``: K5 with the physics ``phys`` in one of its forms
     and its plain version fed the same numbers.  ``array``: the explicit
     uniform array; ``prng``: the given momentum and directions, the
@@ -901,7 +953,7 @@ def tree_form(form: str, q0, p0, e, d32, unif, phys, minv, key, md: int,
     The plain version gets what the kernel's generator draws for ``key``
     (``ops.tree.philox_draws``); ``plain(rows, shift)`` runs it on those
     chains with every uniform times exp(shift) (``compare_tree``'s
-    replay)."""
+    replay).  ``bf16``: both with bfloat16 checkpoint stacks."""
     import torch
 
     from inplacedhmc_tpu_torch.ops.tree import (
@@ -921,17 +973,19 @@ def tree_form(form: str, q0, p0, e, d32, unif, phys, minv, key, md: int,
         r = slice(None) if rows is None else rows
         return tree_transition_plain(
             q0[r], p0[r], e[r], d32[r], u_plain[:, r] * math.exp(shift),
-            phys, minv, md, -1000.0)
+            phys, minv, md, -1000.0, ckpt_bf16=bf16)
 
     if form == "array":
         return (lambda: tree_transition(
-            q0, p0, e, d32, unif, phys, minv, md, -1000.0), plain)
+            q0, p0, e, d32, unif, phys, minv, md, -1000.0,
+            ckpt_bf16=bf16), plain)
     if form == "prng":
         return (lambda: tree_transition(
-            q0, p0, e, d32, None, phys, minv, md, -1000.0, key=key), plain)
+            q0, p0, e, d32, None, phys, minv, md, -1000.0, key=key,
+            ckpt_bf16=bf16), plain)
     return (lambda: _first(tree_sweep(
-        q0, e, phys, minv, md, -1000.0, key=key, sqrt_mass=sqrt_mass)),
-        plain)
+        q0, e, phys, minv, md, -1000.0, key=key, sqrt_mass=sqrt_mass,
+        ckpt_bf16=bf16)), plain)
 
 
 def check_tree_kernel(card: str, c: int = G_CHAINS, d: int = G_DIM,
@@ -1050,7 +1104,8 @@ def sv_problem(t_len: int = SV_T):
     (``synthetic_returns``' recipe, kept here so that the true latents are
     known): innovations ``eps ~ N(0, SV_S^2)``, ``h_1 = eps_1 / sqrt(1 -
     SV_PHI^2)``, ``h_t = SV_PHI h_{t-1} + eps_t``, returns ``z exp(h / 2)``.
-    Returns the model (``stoch_vol(returns)``) and the true ``h [T]``."""
+    Returns the model (``stoch_vol(returns)``), the true ``h [T]`` and the
+    returns ``[T]``."""
     import torch
 
     from inplacedhmc_tpu_torch.models import stoch_vol
@@ -1063,7 +1118,7 @@ def sv_problem(t_len: int = SV_T):
         h[t] = SV_PHI * h[t - 1] + eps[t]
     r = torch.randn((t_len,), generator=gen, device="cuda") \
         * torch.exp(0.5 * h)
-    return stoch_vol(r, device="cuda"), h
+    return stoch_vol(r, device="cuda"), h, r
 
 
 #: coordinate 0's value at which a model's density is not finite (the
@@ -1532,6 +1587,207 @@ def check_wide_kernels(card: str) -> None:
     print(f"[k5-wide] stochastic volatility's long sums: the largest K "
           f"needed by field {LONG_SUM_NEED} (LONG_SUM_K {LONG_SUM_K})")
     print(f"[k5-wide] checks {time.perf_counter() - t:.2f} s")
+
+
+def bf16_case(card: str, label: str, physics: str, phys, q0, p0, e, d32,
+              minv, key, md: int = MAX_DEPTH, with_f32: bool = True,
+              name: Optional[str] = None, flips: bool = False) -> dict:
+    """K5 with bfloat16 checkpoint stacks (``ckpt_bf16``) against its plain
+    version with them, on the same q0, momentum, directions and the
+    kernel's own uniforms (the default route's form), by ``compare_tree``'s
+    rule; timed beside its bound.  With ``with_f32`` the same launch with
+    float32 stacks too: the chains whose integer records differ between
+    the two stack types, and how many of those differ from the plain
+    version with bfloat16 stacks; the share of chains whose termination and
+    depth agree between the two (JAX's own check asks ``BF16_AGREE``,
+    ``tests/test_tree_pallas.py``); the two timed in ``BF16_PAIRS``
+    alternating pairs, f32 first then bf16 first, by CUDA events; and the
+    blocks per SM of each (``ops.tree.blocks_per_sm``).  ``flips``: inputs
+    chosen so that the rounding decides turns (``BF16_FLIP_DIMS``); then,
+    in place of the agreement, at least one chain must end otherwise than
+    with float32 stacks, and every such chain as the plain version with
+    bfloat16 stacks ends it (a kernel that skipped the rounding, or cut
+    the mantissa, ends them otherwise).  Returns the kernels line's entry
+    of the bfloat16 launch."""
+    import statistics
+
+    import torch
+
+    from inplacedhmc_tpu_torch.ops.tree import (CKPT_BF16_LAUNCHES,
+                                                TREE_DENSE_KERNELS,
+                                                TREE_KERNELS, blocks_per_sm)
+    c, d = q0.shape
+    dense = minv.ndim == 2
+    kern = (TREE_DENSE_KERNELS if dense else TREE_KERNELS)[physics]
+    launch, plain = tree_form("prng", q0, p0, e, d32, None, phys, minv, key,
+                              md, bf16=True)
+    before = CKPT_BF16_LAUNCHES.get(kern.symbol, 0)
+    got = launch()
+    torch.cuda.synchronize()
+    if CKPT_BF16_LAUNCHES.get(kern.symbol, 0) != before + 1:
+        raise RuntimeError(f"{kern.symbol} did not launch with bfloat16 "
+                           f"stacks")
+    want, plain_ms = timed(plain)
+    err = compare_tree(got, want, f"{label}, bfloat16 stacks",
+                       grad_bound(phys), None, plain,
+                       lsa_bound=_long_sums(phys, d),
+                       terms=_terms_of(phys, d))
+    slow = dense or d > 256 or float(want.depth.double().mean()) > 7
+    reps = (3, 1) if slow else (20, 3)
+    bound_ms, bound_by, steps = tree_bound(c, d, want, "prng", physics,
+                                           dense, _n_obs(phys))
+    note = ""
+    if with_f32:
+        launch32, _ = tree_form("prng", q0, p0, e, d32, None, phys, minv,
+                                key, md)
+        got32 = launch32()
+        flip = ints_differ(got, got32)
+        n_flip = int(flip.sum())
+        off = int((flip & ints_differ(got, want)).sum())
+        agree = float(((got.term == got32.term)
+                       & (got.depth == got32.depth)).double().mean())
+        same = float((got.q == got32.q).all(dim=1).double().mean())
+        t32, t16 = [], []
+        for i in range(BF16_PAIRS):
+            for side in ((t32, launch32), (t16, launch))[::1 - 2 * (i % 2)]:
+                side[0].append(cuda_time_ms(side[1], *reps))
+        ms = statistics.median(t16)
+        ms32 = statistics.median(t32)
+        ratio = statistics.median(b / a for a, b in zip(t32, t16))
+        occ = [blocks_per_sm(physics, d, md, dense, b) for b in (False, True)]
+        note = (f"; {n_flip} chains end otherwise than with float32 "
+                f"stacks, {off} of them otherwise than the plain version "
+                f"with bfloat16 stacks"
+                f"; float32 stacks {ms32:.4f} ms, bf16 / f32 median "
+                f"{ratio:.4f} over {BF16_PAIRS} pairs (f32 "
+                f"{min(t32):.4f}-{max(t32):.4f}, bf16 "
+                f"{min(t16):.4f}-{max(t16):.4f}); termination and depth "
+                f"agree with float32 stacks on {agree:.4f} of chains "
+                f"(proposal equal on {same:.4f}); blocks per SM "
+                f"{occ[0]} (f32), {occ[1]} (bf16)")
+        if flips and (n_flip == 0 or off):
+            raise RuntimeError(f"{label}: {n_flip} chains end otherwise "
+                               f"with bfloat16 stacks than with float32 "
+                               f"ones, {off} of them otherwise than the "
+                               f"plain version with bfloat16 stacks")
+        if not flips and agree < BF16_AGREE:
+            raise RuntimeError(f"{label}: bfloat16 and float32 stacks agree "
+                               f"in termination on {agree} < {BF16_AGREE}")
+    else:
+        ms = cuda_time_ms(launch, *reps)
+    print(f"[k5-bf16] {label} on {card}: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.2f} ms (wall), bound {bound_ms:.4g} ms ({bound_by}), "
+          f"{bound_ms / ms:.4f} of it; {steps:.0f} steps{note}")
+    return {"name": name or f"tree_{physics}_ckpt_bf16", "route": "cuda",
+            "source": f"inplacedhmc_tpu_torch/csrc/{kern.source}",
+            "replaces": f"inplacedhmc_tpu/ops/tree_pallas.py:{BF16_REPLACES}",
+            "launches": None, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
+
+
+def bf16_at_state(card: str, ws, physics: str, data: dict, label: str,
+                  name: str) -> dict:
+    """``bf16_case`` on the state a run ended in: its q, tuned eps and
+    metric (diagonal or dense), a fresh momentum and directions."""
+    import torch
+
+    from inplacedhmc_tpu_torch.core.metric import sample_momentum
+    from inplacedhmc_tpu_torch.ops.tree import direction_words_int32
+
+    q0 = ws.z.q.contiguous()
+    c = q0.shape[0]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    p0 = sample_momentum(ws.metric, gen, q0.shape, q0.dtype).contiguous()
+    d32 = direction_words_int32(torch.randint(
+        0, 2 ** 32, (c,), generator=gen, dtype=torch.int64, device="cuda"))
+    e = torch.exp(ws.log_eps).expand(c).contiguous()
+    return bf16_case(card, label, physics, _physics(physics, data), q0, p0, e,
+                     d32, ws.metric.inv.contiguous(), _key(SEED + 5),
+                     name=name)
+
+
+def check_ckpt_bf16(card: str) -> None:
+    """K5 with bfloat16 checkpoint stacks (``bf16_case``) in the one-warp
+    form, the Gaussian at 10,240 x 100 (eps 0.3, M^-1 0.5 + U(0, 1)) and
+    stochastic volatility at 1,024 x 102 under a dense M^-1 (``_spd``, eps
+    0.02); in the wide form the Gaussian at D = 2,048 and max_depth
+    ``BF16_WIDE_MD`` (64 chains, eps 0.3), which float32 stacks cannot take
+    (``ops.tree.takes``); the Gaussian at 1,024 chains on inputs where the
+    rounding decides turns (``BF16_FLIP_DIMS``, ``bf16_case``'s
+    ``flips``), in both forms; and the blocks per SM of both stack types at
+    config 5's D = 1,002 (the wide form, max_depth 10)."""
+    import torch
+
+    from inplacedhmc_tpu_torch.core.metric import dense_metric
+    from inplacedhmc_tpu_torch.ops.tree import (MAX_DIM, blocks_per_sm,
+                                                direction_words_int32, takes)
+
+    t = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 80)
+
+    def draws(c, d, minv):
+        xi = torch.randn((c, d), generator=gen, device="cuda")
+        p0 = (xi @ dense_metric(minv).mass_chol.T if minv.ndim == 2
+              else xi / minv.sqrt()).contiguous()
+        d32 = direction_words_int32(torch.randint(
+            0, 2 ** 32, (c,), generator=gen, dtype=torch.int64,
+            device="cuda"))
+        return p0, d32
+
+    c, d = G_CHAINS, G_DIM
+    minv = 0.5 + torch.rand((d,), generator=gen, device="cuda")
+    q0 = torch.randn((c, d), generator=gen, device="cuda")
+    p0, d32 = draws(c, d, minv)
+    bf16_case(card, f"gaussian, {c} x {d}, eps 0.3", "gaussian",
+              _physics("gaussian", {"lam": torch.ones((d,), device="cuda")}),
+              q0, p0, torch.full((c,), 0.3, device="cuda"), d32, minv,
+              _key(SEED + 81))
+    st = tile_model("stoch_vol").structure
+    q0 = tile_start("stoch_vol", SV_CHAINS, gen)
+    c, d = q0.shape
+    minv = _spd(d, gen)
+    p0, d32 = draws(c, d, minv)
+    bf16_case(card, f"stoch_vol, dense metric, {c} x {d}, eps 0.02",
+              "stoch_vol", _physics("stoch_vol", {**st["data"],
+                                                  **st["scalars"]}),
+              q0, p0, torch.full((c,), 0.02, device="cuda"), d32, minv,
+              _key(SEED + 82))
+    c, d, md = S_CHAINS, MAX_DIM, BF16_WIDE_MD
+    if takes(d, md, "gaussian") or not takes(d, md, "gaussian", True):
+        raise RuntimeError(f"ops.tree.takes at D = {d}, max_depth {md}")
+    minv = 0.5 + torch.rand((d,), generator=gen, device="cuda")
+    q0 = torch.randn((c, d), generator=gen, device="cuda")
+    p0, d32 = draws(c, d, minv)
+    bf16_case(card, f"gaussian, {c} x {d}, max_depth {md}, eps 0.3 "
+              f"(float32 stacks do not fit)", "gaussian",
+              _physics("gaussian", {"lam": torch.ones((d,), device="cuda")}),
+              q0, p0, torch.full((c,), 0.3, device="cuda"), d32, minv,
+              _key(SEED + 83), md=md, with_f32=False)
+    c, md = SV_CHAINS, BF16_FLIP_MD
+    for d in BF16_FLIP_DIMS:
+        minv = torch.full((d,), 1e-6, device="cuda")
+        minv[0] = 0.5 + torch.rand((), generator=gen, device="cuda")
+        lam = 0.5 + torch.rand((d,), generator=gen, device="cuda")
+        q0 = torch.randn((c, d), generator=gen, device="cuda")
+        # standard normal momenta: coordinates past 0 then add 1e-6 of
+        # coordinate 0's share to the turn checks' sums
+        _, d32 = draws(c, d, minv)
+        p0 = torch.randn((c, d), generator=gen, device="cuda")
+        bf16_case(card, f"gaussian, {c} x {d}, max_depth {md}, eps "
+                  f"{BF16_FLIP_EPS}, M^-1 1e-6 past coordinate 0 (the "
+                  f"rounding decides turns)", "gaussian",
+                  _physics("gaussian", {"lam": lam}), q0, p0,
+                  torch.full((c,), BF16_FLIP_EPS, device="cuda"), d32, minv,
+                  _key(SEED + 84 + d), md=md, flips=True)
+    for dense in (False, True):
+        occ = [blocks_per_sm("stoch_vol", SV_WIDE_T + 2, MAX_DEPTH, dense, b)
+               for b in (False, True)]
+        print(f"[k5-bf16] stoch_vol, D = {SV_WIDE_T + 2}, max_depth "
+              f"{MAX_DEPTH}, {'dense' if dense else 'diagonal'} metric: "
+              f"blocks per SM {occ[0]} with float32 stacks, {occ[1]} with "
+              f"bfloat16 stacks")
+    print(f"[k5-bf16] checks {time.perf_counter() - t:.2f} s")
 
 
 def sweep_case(card: str, label: str, phys, q0, minv, eps: float,
@@ -2210,50 +2466,82 @@ def run_tile_sample(card: str, kernels, name: str):
 
 def run_sv_sample(card: str, kernels, t_len: int = SV_T,
                   n_draws: int = SV_DRAWS, thin: int = SV_THIN,
-                  gate_rhat: bool = True):
+                  recipe: bool = False):
     """``sample()`` on stochastic volatility at T = ``t_len``
     (``sv_problem``) through K5 with its physics: config 5's recipe (delta
     0.9, dense windows, ``doubling_stages`` 4, no L-BFGS start),
     ``SV_CHAINS`` chains, ``n_draws`` draws, every ``thin``-th transition
     recorded; the diagonal launcher until the first dense window closes and
     the dense one after (``tree_launches``), once per transition, and no
-    other kernel: no transition ran the lockstep tree.  Gates: finite draws,
-    split R-hat max over every coordinate < 1.05 (with ``gate_rhat``; else
-    printed only), mean acceptance in ``SV_ACCEPT_BAND``, divergent
-    fraction below ``SV_DIV_MAX``, at least ``SV_COVERAGE`` percent of the
-    true h_t inside their central 90 % posterior intervals.  Prints phi's
-    and s's posterior means beside the truth.  Returns the result, the
-    launch counts and the sampling wall."""
+    other kernel: no transition ran the lockstep tree.  With ``recipe``
+    the whole of config 5's recipe (``SV_RECIPE``: streamed dense windows,
+    ``tuning_chunk``, ``draw_block``, ``sync_blocks``, ``collect_moments``)
+    with the per-coordinate ASIS hook after every transition and bfloat16
+    checkpoint stacks: every launch then has bfloat16 stacks
+    (``ops.tree.CKPT_BF16_LAUNCHES``) and the hook runs once per
+    transition.  Gates: finite draws, split R-hat max over every coordinate
+    < 1.05 (without ``recipe``; with it printed beside the 2.26 this phase
+    read without ASIS, PERF.md section 6, and R-hat from the run's split
+    moments held to that of the stored
+    draws, ``moment_rhat_check``), mean acceptance in ``SV_ACCEPT_BAND``,
+    divergent fraction below ``SV_DIV_MAX``, at least ``SV_COVERAGE``
+    percent of the true h_t inside their central 90 % posterior intervals.
+    Prints phi's and s's posterior means beside the truth.  Returns the
+    result, the launch counts and the sampling wall."""
     import torch
 
     from inplacedhmc_tpu_torch import (DualAveraging, default_warmup_stages,
                                        sample)
     from inplacedhmc_tpu_torch import diagnostics as diag
+    from inplacedhmc_tpu_torch.models.stoch_vol import make_asis_hook
+    from inplacedhmc_tpu_torch.ops import tree as tree_ops
 
-    model, h_true = sv_problem(t_len)
+    model, h_true, returns = sv_problem(t_len)
     stages = default_warmup_stages(
         local_optimization=None,
         stepsize_adaptation=DualAveraging(delta=0.9), doubling_stages=4,
-        metric="dense")
+        metric="dense", stream=recipe)
     mine = tree_launches("stoch_vol", stages, n_draws * thin)
+    n_trans = sum(mine.values())
+    opts, hooks = {}, []
+    if recipe:
+        asis = make_asis_hook(returns, per_coord=True,
+                              n_steps=SV_ASIS_STEPS)
+
+        def counted_asis(gen, z):
+            hooks.append(1)
+            return asis(gen, z)
+
+        opts = dict(SV_RECIPE, post_step=counted_asis,
+                    tree_opts={"ckpt_bf16": True})
     timer = StageTimer()
     for k in kernels:
         k.launches = 0
+    tree_ops.CKPT_BF16_LAUNCHES.clear()
     t0 = time.perf_counter()
     res = sample(SEED, model, n_draws, SV_CHAINS, warmup_stages=stages,
-                 reporter=timer, device="cuda", thin=thin)
+                 reporter=timer, device="cuda", thin=thin, **opts)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = launch_counts(kernels)
-    tag = f"[stoch_vol {SV_CHAINS} x {model.dim}]"
+    bf16 = dict(tree_ops.CKPT_BF16_LAUNCHES)
+    tag = f"[stoch_vol {SV_CHAINS} x {model.dim}" \
+        + (", config 5's recipe]" if recipe else "]")
     for stage, sec in timer.stages:
         print(f"{tag} {stage}: {sec:.2f} s on {card}")
     print(f"{tag} total {wall:.2f} s on {card}; launches "
-          f"{ {k: v for k, v in launches.items() if v} }, expected {mine}")
+          f"{ {k: v for k, v in launches.items() if v} }, expected {mine}"
+          + (f"; with bfloat16 stacks {bf16}; ASIS hook calls "
+             f"{len(hooks)} of {n_trans} transitions" if recipe else ""))
     if any(launches[k] != v for k, v in mine.items()) or any(
             v for k, v in launches.items() if k not in mine):
         raise RuntimeError(f"the stoch_vol path did not go through "
                            f"K5-stoch_vol alone: {launches}")
+    if recipe and (bf16 != {k: v for k, v in mine.items() if v}
+                   or len(hooks) != n_trans):
+        raise RuntimeError(f"the recipe's transitions did not all run K5 "
+                           f"with bfloat16 stacks and the hook: {bf16}, "
+                           f"{len(hooks)} hook calls")
     sample_s = timer.stages[-1][1]
     draws, stats = res.draws, res.stats
     if tuple(draws.shape) != (n_draws, SV_CHAINS, model.dim) \
@@ -2275,8 +2563,11 @@ def run_sv_sample(card: str, kernels, t_len: int = SV_T,
     print(f"{tag} eps {torch.exp(res.warmup_state.log_eps).item():.5g}, "
           f"split R-hat max {rhat.max().item():.4f} (coordinate "
           f"{int(rhat.argmax())}; raw_phi {rhat[0].item():.4f}, log_s "
-          f"{rhat[1].item():.4f}; {'gated' if gate_rhat else 'not gated'}), "
-          f"acceptance mean {accept:.4f}, divergent "
+          f"{rhat[1].item():.4f}; "
+          + ("not gated; 2.26 on log_s over 64 draws without ASIS, "
+             "PERF.md section 6"
+             if recipe else "gated")
+          + f"), acceptance mean {accept:.4f}, divergent "
           f"fraction {div:.5f}; {covered} of {t_len} true h_t in their "
           f"central 90 % intervals (at least {need}); posterior means phi "
           f"{post['phi'].mean().item():.4f} (truth {SV_PHI}), s "
@@ -2288,7 +2579,9 @@ def run_sv_sample(card: str, kernels, t_len: int = SV_T,
           f"{ess.min().item() / sample_s:.4g} ESS/s")
     print(diag.summarize_tree_statistics(stats))
     fails = []
-    if gate_rhat and not rhat.max().item() < 1.05:
+    if recipe:
+        fails += moment_rhat_check(tag, res.sample_moments, rhat)
+    elif not rhat.max().item() < 1.05:
         fails.append(f"split R-hat {rhat.max().item()} >= 1.05")
     lo_a, hi_a = SV_ACCEPT_BAND
     if not lo_a <= accept <= hi_a:
@@ -2300,6 +2593,91 @@ def run_sv_sample(card: str, kernels, t_len: int = SV_T,
     if fails:
         raise RuntimeError("stoch_vol: " + "; ".join(fails))
     return res, launches, sample_s
+
+
+def run_sv_wide_default(card: str, kernels, ws):
+    """The default route at config 5's D = 1,002: ``sample()`` with the
+    default tree options (float32 stacks, no hook, stored draws, one
+    block), no warmup, from the state ``ws`` (the recipe's tuned q, eps and
+    M^-1, dense or diagonal), ``SV_DEFAULT_DRAWS`` draws.  Every transition
+    goes through K5-stoch_vol's launcher of that metric form, none with
+    bfloat16 stacks and no other kernel; the draws are finite.  Returns the
+    result and the launch counts."""
+    import torch
+
+    from inplacedhmc_tpu_torch import sample
+    from inplacedhmc_tpu_torch.core.metric import DenseMetric
+    from inplacedhmc_tpu_torch.ops import tree as tree_ops
+
+    model, _, _ = sv_problem(SV_WIDE_T)
+    dense = isinstance(ws.metric, DenseMetric)
+    sym = f"tree_stoch_vol{'_dense' if dense else ''}_launch"
+    for k in kernels:
+        k.launches = 0
+    tree_ops.CKPT_BF16_LAUNCHES.clear()
+    t0 = time.perf_counter()
+    res = sample(SEED + 6, model, SV_DEFAULT_DRAWS, SV_CHAINS,
+                 warmup_stages=(), q=ws.z.q, metric=ws.metric,
+                 eps=float(torch.exp(ws.log_eps)), device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts(kernels)
+    bf16 = dict(tree_ops.CKPT_BF16_LAUNCHES)
+    stats = res.stats
+    print(f"[stoch_vol {SV_CHAINS} x {model.dim}, default options, "
+          f"{'dense' if dense else 'diagonal'} metric] {SV_DEFAULT_DRAWS} "
+          f"draws from the recipe's tuned state in {wall:.2f} s on {card}; "
+          f"launches { {k: v for k, v in launches.items() if v} }, with "
+          f"bfloat16 stacks {bf16}; acceptance mean "
+          f"{stats.acceptance_rate.double().mean().item():.4f}, depth mean "
+          f"{stats.depth.double().mean().item():.3f}")
+    if launches[sym] != SV_DEFAULT_DRAWS or bf16 or any(
+            v for k, v in launches.items() if k != sym):
+        raise RuntimeError(f"the default stoch_vol route at D = "
+                           f"{model.dim} did not go through {sym} alone "
+                           f"with float32 stacks: {launches}, {bf16}")
+    if tuple(res.draws.shape) != (SV_DEFAULT_DRAWS, SV_CHAINS, model.dim) \
+            or not bool(torch.isfinite(res.draws).all()):
+        raise RuntimeError("default-route draws are not finite or not "
+                           "[n_draws, C, D]")
+    return res, launches
+
+
+def moment_rhat_check(tag: str, mom, rhat) -> list:
+    """R-hat from the run's float32 split moments
+    (``diagnostics.split_rhat_from_moments``) against ``rhat``, split R-hat
+    of the stored draws in float64, on every coordinate.  Each half's
+    within variance is a one-pass ``(s2 - s1^2 / n) / (n - 1)`` of n draws
+    centred on the chain's start: its float32 error is within ``3 gamma_n
+    s2`` (the two sums' rounding, Higham section 3.1), relative to the
+    variance ``3 gamma_n s2 / ((n - 1) var)``; averaged over the chains'
+    halves, ``W`` is within ``3 gamma_n`` times ``r = mean(s2) / ((n - 1)
+    W)`` of itself, and the half means' spread ``B`` far less (their
+    errors are ``gamma_n`` of ``|mean - start|``, the spread is the
+    posterior's).  R-hat, ``sqrt(((n - 1) / n W + B / n) / W)``, moves by
+    at most half of W's relative error, so the bound is
+    ``MOMENT_RHAT_K gamma_n r`` of R-hat, ``MOMENT_RHAT_K`` = 4 leaving a
+    third over the 3 of the argument.  Returns the failures."""
+    import torch
+
+    from inplacedhmc_tpu_torch import diagnostics as diag
+    got = diag.split_rhat_from_moments(mom).double()
+    n = float(mom.cnt.min())
+    w_mom = ((mom.s2 - mom.s1 * mom.s1 / n) / (n - 1)).double() \
+        .reshape(-1, got.shape[0]).mean(0)
+    r = (mom.s2.double().reshape(-1, got.shape[0]).mean(0) / (n - 1)) \
+        / torch.clamp(w_mom, min=1e-300)
+    bound = MOMENT_RHAT_K * _gamma(int(n)) * r * rhat
+    diff = (got - rhat).abs()
+    used = float((diff / bound).max())
+    print(f"{tag} split R-hat from the moments (halves "
+          f"{mom.cnt.tolist()}) against the stored draws': max difference "
+          f"{float(diff.max()):.3e} (coordinate {int(diff.argmax())}), "
+          f"{used:.3g} of its bound (MOMENT_RHAT_K {MOMENT_RHAT_K} gamma_n "
+          f"r, r up to {float(r.max()):.3g}); moment R-hat max "
+          f"{float(got.max()):.4f}, log_s {float(got[1]):.4f}")
+    return [] if used <= 1.0 else [f"R-hat from the moments differs from "
+                                   f"the draws' by {used:.3g} of its bound"]
 
 
 def bench_flagship(card: str) -> int:
@@ -2495,6 +2873,7 @@ def main() -> int:
     check_sweep(card, "stoch_vol", SV_SWEEP_EPS)
     print(f"[k5-stoch_vol] checks {time.perf_counter() - t_sv:.2f} s")
     check_wide_kernels(card)
+    check_ckpt_bf16(card)
     k5d_diag = check_dense_tree_kernel(card)
     check_dense_sweep(card)
     k5l_diag = check_logistic_tree_kernel(card)
@@ -2621,29 +3000,42 @@ def main() -> int:
     sv[0]["launches"] = launches["tree_stoch_vol_launch"]
     del res
     print(f"[phase] stoch_vol sample {time.perf_counter() - t:.2f} s")
-    # config 5's T = 1,000 through K5-stoch_vol's wide form: the full
-    # warmup, SV_WIDE_DRAWS consecutive draws, R-hat printed; then each
-    # launcher timed at the tuned state
+    # config 5's T = 1,000 through K5-stoch_vol's wide form with its whole
+    # recipe (ASIS, streamed moments, chunks, blocks) on bfloat16 stacks;
+    # then each launcher timed at the tuned state with both stack types
     t = time.perf_counter()
     res, launches, sample_s = run_sv_sample(
-        card, kernels, SV_WIDE_T, SV_WIDE_DRAWS, 1, gate_rhat=False)
+        card, kernels, SV_WIDE_T, SV_WIDE_DRAWS, 1, recipe=True)
     st = tile_model("stoch_vol", SV_WIDE_T).structure
     svw_data = {**st["data"], **st["scalars"]}
     svw_state = res.warmup_state
-    svw = [tree_at_state(card, res, physics="stoch_vol", data=svw_data,
-                         name="tree_stoch_vol_wide_dense")]
-    svw[0]["launches"] = launches["tree_stoch_vol_dense_launch"]
-    print(f"[stoch_vol {SV_WIDE_T}] K5-stoch_vol (wide) device time "
-          f"{SV_WIDE_DRAWS} x {svw[0]['ms']:.4f} ms = "
-          f"{SV_WIDE_DRAWS * svw[0]['ms'] / 1e3:.3f} s of the "
-          f"{sample_s:.3f} s sampling wall")
-    svw_diag = svw_state._replace(metric=diag_metric(
-        torch.diagonal(svw_state.metric.inv).contiguous()))
-    svw.insert(0, tree_at_state(card, res._replace(warmup_state=svw_diag),
-                                physics="stoch_vol", data=svw_data,
-                                name="tree_stoch_vol_wide"))
-    svw[0]["launches"] = launches["tree_stoch_vol_launch"]
     del res
+    svw, svw32 = [], []
+    for dense in (False, True):
+        ws = svw_state if dense else svw_state._replace(metric=diag_metric(
+            torch.diagonal(svw_state.metric.inv).contiguous()))
+        form = "dense" if dense else "diagonal"
+        name = "tree_stoch_vol_wide" + ("_dense" if dense else "")
+        entry = bf16_at_state(
+            card, ws, "stoch_vol", svw_data,
+            f"stoch_vol, {SV_CHAINS} x {SV_WIDE_T + 2}, the recipe's tuned "
+            f"state, {form} metric", name + "_ckpt_bf16")
+        sym = f"tree_stoch_vol{'_dense' if dense else ''}_launch"
+        entry["launches"] = launches[sym]
+        svw.append(entry)
+        # the default route (float32 stacks) from the same state, and its
+        # launcher timed there on bf16_at_state's inputs
+        res_d, launches_d = run_sv_wide_default(card, kernels, ws)
+        entry = tree_at_state(card, res_d._replace(warmup_state=ws),
+                              physics="stoch_vol", data=svw_data, name=name)
+        entry["launches"] = launches_d[sym]
+        svw32.append(entry)
+        del res_d
+    svw += svw32
+    print(f"[stoch_vol {SV_WIDE_T}] K5-stoch_vol (wide, bfloat16 stacks) "
+          f"device time {SV_WIDE_DRAWS} x {svw[1]['ms']:.4f} ms = "
+          f"{SV_WIDE_DRAWS * svw[1]['ms'] / 1e3:.3f} s of the "
+          f"{sample_s:.3f} s sampling wall")
     print(f"[phase] wide stoch_vol sample {time.perf_counter() - t:.2f} s")
     # the dense metric: the 250-D Wishart-precision mvn at 1,024 chains on
     # the default route and with the flagship options, the 100-D normal at

@@ -14,9 +14,18 @@ leapfrog ``step_fn`` for the lockstep tree (or ``None``).  Each factory is
 called once per window with the window's metric, so a metric re-estimate
 rebuilds the closure.  A whole-tree transition built with ``padded_io``
 carries a :class:`SweepRunner`, and the sampling loop then runs its kernel's
-persistent padded loop, ``n_sweep`` transitions per launch.  Not ported
-yet: streamed metric moments, chunked tuning windows, work-sorted
-scheduling and split-moment sampling.
+persistent padded loop, ``n_sweep`` transitions per launch.
+
+A ``post_step(gen, z) -> z`` hook (a posterior-invariant kernel such as
+``models/stoch_vol.py::make_asis_hook``) runs after every transition of the
+tuning and sampling loops.  A window with ``TuningNUTS.stream`` carries
+:class:`StreamMoments` instead of its draws; :func:`run_tuning_chunk` runs
+part of a window with the dual-averaging and moment carries passed in and
+out (``sample.py``'s ``tuning_chunk``), and :func:`finalize_tuning`
+closes it.  The sampling loop can accumulate :class:`SplitMoments`, each
+chain's two halves' sums over every coordinate, for split R-hat without
+stored draws.
+Not ported yet: work-sorted scheduling.
 """
 
 from __future__ import annotations
@@ -28,8 +37,10 @@ import torch
 from ..config import (DualAveraging, FindLocalOptimum, InitialStepsizeSearch,
                       NUTS, TuningNUTS)
 from ..core.hamiltonian import evaluate
-from ..core.metric import (Metric, estimate_dense_metric, estimate_diag_metric,
-                           identity_metric, sample_momentum)
+from ..core.metric import (Metric, dense_metric, diag_metric,
+                           estimate_dense_metric, estimate_diag_metric,
+                           identity_metric, moments_cov, moments_variance,
+                           sample_momentum)
 from ..core.state import EvalPoint, PhasePoint, TreeStats, WarmupState
 from ..nuts.tree import nuts_transition
 from ..ops.common import chain_tiles
@@ -120,16 +131,22 @@ def run_stepsize_search(gen: torch.Generator, potential: Callable,
 def _one_transition(gen: torch.Generator, z: EvalPoint, eps, *,
                     metric: Metric, potential: Callable, algorithm: NUTS,
                     fused_trans: Optional[Callable],
-                    fused_step: Optional[Callable]):
+                    fused_step: Optional[Callable],
+                    post_step: Optional[Callable] = None):
     """One NUTS transition: through the whole-tree transition when there is
     one, else the lockstep tree (with the fused leapfrog as its ``step_fn``
-    when there is one).  The single definition shared by the tuning and the
-    sampling loops."""
+    when there is one); then the ``post_step`` hook, on the same generator.
+    The single definition shared by the tuning and the sampling loops."""
     if fused_trans is not None:
-        return fused_trans(gen, z, eps)
-    return nuts_transition(gen, potential, metric, z, eps,
-                           max_depth=algorithm.max_depth,
-                           min_delta=algorithm.min_delta, step_fn=fused_step)
+        z2, stats = fused_trans(gen, z, eps)
+    else:
+        z2, stats = nuts_transition(gen, potential, metric, z, eps,
+                                    max_depth=algorithm.max_depth,
+                                    min_delta=algorithm.min_delta,
+                                    step_fn=fused_step)
+    if post_step is not None:
+        z2 = post_step(gen, z2)
+    return z2, stats
 
 
 def _fused(state: WarmupState, step_factory: Optional[Callable],
@@ -144,58 +161,138 @@ def _fused(state: WarmupState, step_factory: Optional[Callable],
                 fused_trans=fused_trans)
 
 
-class TuningResult(NamedTuple):
-    state: WarmupState
-    draws: torch.Tensor    # [N, C, D]
-    stats: TreeStats       # [N, C] fields
-    eps_log: torch.Tensor  # [N] or [N, C] step sizes used
+class StreamMoments(NamedTuple):
+    """Running moments of a tuning window, centred on the window-start mean
+    position so that the one-pass form stays safe
+    (``core/metric.py::moments_variance``)."""
+
+    qref: torch.Tensor   # [D] centre
+    cnt: torch.Tensor    # scalar: draws so far
+    s1: torch.Tensor     # [D] sum of the centred draws
+    s2: torch.Tensor     # [D] (diag) or [D, D] (dense) sums of squares
+
+
+def _streams(stage: TuningNUTS) -> bool:
+    return bool(stage.stream and stage.metric is not None)
+
+
+def init_stream_moments(stage: TuningNUTS,
+                        z: EvalPoint) -> Optional[StreamMoments]:
+    """Empty moments centred on the mean of ``z.q``, or ``None`` when the
+    window does not stream."""
+    if not _streams(stage):
+        return None
+    q = z.q
+    d = q.shape[-1]
+    kw = dict(dtype=q.dtype, device=q.device)
+    s2 = torch.zeros((d,) if stage.metric == "diag" else (d, d), **kw)
+    return StreamMoments(qref=torch.mean(q, dim=0), cnt=torch.zeros((), **kw),
+                         s1=torch.zeros((d,), **kw), s2=s2)
+
+
+def _update_moments(mom: Optional[StreamMoments], stage: TuningNUTS,
+                    q: torch.Tensor) -> Optional[StreamMoments]:
+    """The moments with the draws ``q [C, D]`` added.  The dense Gram
+    ``c^T c`` is one plain product (IEEE float32 under the entry points'
+    ``f32_matmuls``)."""
+    if mom is None:
+        return None
+    c = q - mom.qref
+    s1 = mom.s1 + torch.sum(c, dim=0)
+    if stage.metric == "diag":
+        s2 = mom.s2 + torch.sum(c * c, dim=0)
+    else:
+        s2 = mom.s2 + c.transpose(0, 1) @ c
+    return mom._replace(cnt=mom.cnt + q.shape[0], s1=s1, s2=s2)
+
+
+def _metric_from_moments(stage: TuningNUTS, mom: StreamMoments,
+                         lam=None) -> Metric:
+    """The window's metric from its moments; ``lam`` overrides
+    ``stage.lam_value``."""
+    lam = stage.lam_value if lam is None else lam
+    if stage.metric == "diag":
+        return diag_metric(moments_variance(mom.cnt, mom.s1, mom.s2, lam))
+    return dense_metric(moments_cov(mom.cnt, mom.s1, mom.s2, lam))
+
+
+class TuningChunkResult(NamedTuple):
+    z: EvalPoint
+    da: Optional[tuple]            # dual-averaging carry (None: not adapting)
+    draws: Optional[torch.Tensor]  # [n, C, D]; None when the window streams
+    stats: TreeStats
+    eps_log: torch.Tensor
+    mom: Optional[StreamMoments] = None   # streamed-moment carry
 
 
 def _stack_stats(stats) -> TreeStats:
     return TreeStats(*(torch.stack(f) for f in zip(*stats)))
 
 
-def run_tuning(gen: torch.Generator, potential: Callable, stage: TuningNUTS,
-               algorithm: NUTS, state: WarmupState,
-               pooled: bool = False,
-               step_factory: Optional[Callable] = None,
-               transition_factory: Optional[Callable] = None) -> TuningResult:
-    """One tuning window: ``stage.n`` NUTS transitions with a dual-averaging
-    update after each, then the optional metric re-estimate from the
-    window's draws."""
+def cat_stats(parts) -> TreeStats:
+    """Tree statistics of consecutive parts, joined along the draws."""
+    return TreeStats(*(torch.cat(f, dim=0) for f in zip(*parts)))
+
+
+def init_dual_averaging(stage: TuningNUTS, state: WarmupState):
+    """The window's dual-averaging carry, or ``None`` when it does not
+    adapt the step size."""
     if state.log_eps is None:
         raise ValueError("TuningNUTS requires an initial eps")
-    n = stage.n
-    adapting = isinstance(stage.stepsize_adaptation, DualAveraging)
+    if not isinstance(stage.stepsize_adaptation, DualAveraging):
+        return None
+    return da_init(stage.stepsize_adaptation, torch.exp(state.log_eps))
+
+
+def run_tuning_chunk(gen: torch.Generator, potential: Callable,
+                     stage: TuningNUTS, algorithm: NUTS, state: WarmupState,
+                     da, n: int, pooled: bool = False,
+                     step_factory: Optional[Callable] = None,
+                     transition_factory: Optional[Callable] = None,
+                     mom: Optional[StreamMoments] = None,
+                     post_step: Optional[Callable] = None
+                     ) -> TuningChunkResult:
+    """``n`` transitions of a tuning window from ``state.z``, with the
+    dual-averaging carry ``da`` (``init_dual_averaging``) and, for a
+    streaming window, the moments ``mom`` passed in and out; each
+    transition is followed by ``post_step``.  The window's metric is
+    estimated once, by :func:`finalize_tuning`.  One generator drawn in
+    order: a window run in chunks draws what it draws in one piece."""
     eps0 = torch.exp(state.log_eps)
-    da = da_init(stage.stepsize_adaptation, eps0) if adapting else None
     z = state.z
-    draws = torch.empty((n,) + tuple(z.q.shape), dtype=z.q.dtype,
-                        device=z.q.device)
+    draws = None if _streams(stage) else torch.empty(
+        (n,) + tuple(z.q.shape), dtype=z.q.dtype, device=z.q.device)
     stats, eps_log = [], []
     kw = _fused(state, step_factory, transition_factory)
     for i in range(n):
-        eps = da_current_eps(da) if adapting else eps0
+        eps = da_current_eps(da) if da is not None else eps0
         z, st = _one_transition(gen, z, eps, potential=potential,
-                                algorithm=algorithm, **kw)
-        if adapting:
+                                algorithm=algorithm, post_step=post_step,
+                                **kw)
+        if da is not None:
             a = st.acceptance_rate
             da = da_update(stage.stepsize_adaptation, da,
                            torch.mean(a) if pooled else a)
-        draws[i] = z.q
+        mom = _update_moments(mom, stage, z.q)
+        if draws is not None:
+            draws[i] = z.q
         stats.append(st)
         eps_log.append(eps)
-    return TuningResult(
-        state=finalize_tuning(stage, state, z, da, draws, pooled),
-        draws=draws, stats=_stack_stats(stats), eps_log=torch.stack(eps_log))
+    return TuningChunkResult(z=z, da=da, draws=draws,
+                             stats=_stack_stats(stats),
+                             eps_log=torch.stack(eps_log), mom=mom)
 
 
 def finalize_tuning(stage: TuningNUTS, state: WarmupState, z: EvalPoint, da,
-                    draws: torch.Tensor, pooled: bool = False) -> WarmupState:
+                    draws: Optional[torch.Tensor], pooled: bool = False,
+                    mom: Optional[StreamMoments] = None) -> WarmupState:
     """Close a tuning window: the final eps from the dual-averaging state and
-    the metric re-estimate over the window's draws ``[N, C, D]``."""
+    the metric re-estimate over the window's draws ``[N, C, D]``, or for a
+    streaming window from its moments ``mom``."""
     metric = state.metric
-    if stage.metric == "diag":
+    if _streams(stage):
+        metric = _metric_from_moments(stage, mom)
+    elif stage.metric == "diag":
         metric = estimate_diag_metric(draws, stage.lam_value, pooled=pooled)
     elif stage.metric == "dense":
         metric = estimate_dense_metric(draws, stage.lam_value, pooled=pooled)
@@ -203,10 +300,54 @@ def finalize_tuning(stage: TuningNUTS, state: WarmupState, z: EvalPoint, da,
     return WarmupState(z=z, metric=metric, log_eps=log_eps)
 
 
+class SplitMoments(NamedTuple):
+    """Split-chain moments accumulated while sampling: enough for split
+    R-hat over every coordinate without the ``[N, C, D]`` draws.  Each
+    half's sums are centred on the chain's sampling-start position."""
+
+    qref: torch.Tensor   # [C, D] per-chain centre
+    cnt: torch.Tensor    # [2] draws per half
+    s1: torch.Tensor     # [2, C, D] sum (q - qref)
+    s2: torch.Tensor     # [2, C, D] sum (q - qref)^2
+
+
+def init_split_moments(q: torch.Tensor) -> SplitMoments:
+    c, d = q.shape
+    kw = dict(dtype=q.dtype, device=q.device)
+    return SplitMoments(qref=q.clone(), cnt=torch.zeros((2,), **kw),
+                        s1=torch.zeros((2, c, d), **kw),
+                        s2=torch.zeros((2, c, d), **kw))
+
+
+def _copy_split(mom: Optional[SplitMoments]) -> Optional[SplitMoments]:
+    """The moments' sums copied, for a loop that adds to them in place (the
+    centre is shared)."""
+    if mom is None:
+        return None
+    return mom._replace(cnt=mom.cnt.clone(), s1=mom.s1.clone(),
+                        s2=mom.s2.clone())
+
+
+def _add_split_(mom: SplitMoments, rec: torch.Tensor, first: int,
+                total: int) -> None:
+    """Add the recorded draws ``rec [n, C, D]`` to ``mom`` in place: the
+    draw of index ``first + i`` of the run (of ``total`` draws) goes to the
+    second half when ``first + i >= total // 2``."""
+    n = rec.shape[0]
+    n_lo = min(max(total // 2 - first, 0), n)
+    c = rec.to(mom.qref.dtype) - mom.qref
+    for half, part in ((0, c[:n_lo]), (1, c[n_lo:])):
+        if part.shape[0]:
+            mom.cnt[half] += part.shape[0]
+            mom.s1[half] += torch.sum(part, dim=0)
+            mom.s2[half] += torch.sum(part * part, dim=0)
+
+
 class SamplingResult(NamedTuple):
     z: EvalPoint
     draws: torch.Tensor   # [N, C, D] (or [N, C, len(keep_dims)])
     stats: TreeStats      # [N, C]
+    moments: Optional[SplitMoments] = None
 
 
 class SweepRunner(NamedTuple):
@@ -222,15 +363,18 @@ class SweepRunner(NamedTuple):
 
 def _run_sampling_swept(gen: torch.Generator, potential: Callable,
                         state: WarmupState, n_draws: int, sweep: SweepRunner,
-                        thin: int, kd: Optional[torch.Tensor]
-                        ) -> SamplingResult:
+                        thin: int, kd: Optional[torch.Tensor],
+                        mom: Optional[SplitMoments], moment_offset: int,
+                        total: int) -> SamplingResult:
     """Sampling through the kernel's padded persistent loop: the state is one
     ``[cpad, D]`` block, and each launch runs ``n_sweep`` sequential
     transitions from it; the last transition of its draws is the next
     launch's start.  Semantics match the per-transition path: with
-    ``thin``, every ``thin``-th transition's draw and stats are recorded.
-    Between launches the loop only copies the recorded rows out of the
-    launch's buffers."""
+    ``thin``, every ``thin``-th transition's draw and stats are recorded,
+    and split moments ``mom`` (a copy, added to in place) take every
+    recorded draw over all coordinates, in the same halves.  Between
+    launches the loop only copies the recorded rows out of the launch's
+    buffers."""
     q = state.z.q
     c, dim = q.shape
     dev = q.device
@@ -258,11 +402,13 @@ def _run_sampling_swept(gen: torch.Generator, potential: Callable,
         draws[rows] = rec if kd is None else rec.index_select(2, kd)
         for dst, src in zip(stats, st):
             dst[rows] = src[thin - 1::thin, :c]
+        if mom is not None:
+            _add_split_(mom, rec, moment_offset + i * kr, total)
         q_pad = q_draws[-1]
     # logp and grad of the final state, once: the loop carries q only (a
     # copy: q_pad is a view of the runner's buffers)
     z = evaluate(potential, q_pad[:c].to(q.dtype, copy=True))
-    return SamplingResult(z=z, draws=draws, stats=stats)
+    return SamplingResult(z=z, draws=draws, stats=stats, moments=mom)
 
 
 def run_sampling(gen: torch.Generator, potential: Callable, algorithm: NUTS,
@@ -270,29 +416,40 @@ def run_sampling(gen: torch.Generator, potential: Callable, algorithm: NUTS,
                  step_factory: Optional[Callable] = None,
                  transition_factory: Optional[Callable] = None,
                  thin: int = 1,
-                 keep_dims: Optional[Sequence[int]] = None
-                 ) -> SamplingResult:
+                 keep_dims: Optional[Sequence[int]] = None,
+                 post_step: Optional[Callable] = None,
+                 moments0: Optional[SplitMoments] = None,
+                 moment_offset: int = 0,
+                 moment_total: Optional[int] = None) -> SamplingResult:
     """The post-warmup loop: fixed eps and metric, ``n_draws`` recorded
-    transitions.  ``thin > 1`` runs ``thin`` transitions per recorded draw
-    (keeping the last, with its statistics); ``keep_dims`` records only
-    those coordinates (the state still advances in every one).
+    transitions, each followed by ``post_step``.  ``thin > 1`` runs
+    ``thin`` transitions per recorded draw (keeping the last, with its
+    statistics); ``keep_dims`` records only those coordinates (the state
+    still advances in every one).  ``moments0`` (:class:`SplitMoments`)
+    accumulates every recorded draw over all coordinates into the returned
+    ``moments``; ``moment_offset`` and ``moment_total`` (default
+    ``n_draws``) place this call's draws inside the whole run, so that a
+    run sampled in blocks splits its halves where one piece would.
 
-    When the whole-tree transition carries a :class:`SweepRunner` and the
-    loop divides evenly (``n_sweep % thin == 0`` and ``n_draws * thin %
-    n_sweep == 0``), the loop runs ``n_sweep`` transitions per launch on a
-    padded persistent state; otherwise one transition at a time."""
+    When the whole-tree transition carries a :class:`SweepRunner`, there is
+    no ``post_step`` (a hook acts between transitions) and the loop divides
+    evenly (``n_sweep % thin == 0`` and ``n_draws * thin % n_sweep == 0``),
+    the loop runs ``n_sweep`` transitions per launch on a padded persistent
+    state; otherwise one transition at a time."""
     if thin < 1:
         raise ValueError(f"thin must be >= 1, got {thin}")
     eps = torch.exp(state.log_eps)
     z = state.z
+    total = n_draws if moment_total is None else moment_total
+    mom = _copy_split(moments0)
     kd = None if keep_dims is None else torch.as_tensor(
         list(keep_dims), dtype=torch.int64, device=z.q.device)
     kw = _fused(state, step_factory, transition_factory)
     sweep = getattr(kw["fused_trans"], "_sweep", None)
-    if (sweep is not None and sweep.n_sweep % thin == 0
+    if (sweep is not None and post_step is None and sweep.n_sweep % thin == 0
             and (n_draws * thin) % sweep.n_sweep == 0):
         return _run_sampling_swept(gen, potential, state, n_draws, sweep,
-                                   thin, kd)
+                                   thin, kd, mom, moment_offset, total)
     n_rec = z.q.shape[1] if kd is None else kd.numel()
     draws = torch.empty((n_draws, z.q.shape[0], n_rec), dtype=z.q.dtype,
                         device=z.q.device)
@@ -300,7 +457,11 @@ def run_sampling(gen: torch.Generator, potential: Callable, algorithm: NUTS,
     for i in range(n_draws):
         for _ in range(thin):
             z, st = _one_transition(gen, z, eps, potential=potential,
-                                    algorithm=algorithm, **kw)
+                                    algorithm=algorithm, post_step=post_step,
+                                    **kw)
         draws[i] = z.q if kd is None else z.q.index_select(1, kd)
+        if mom is not None:
+            _add_split_(mom, z.q[None], moment_offset + i, total)
         stats.append(st)
-    return SamplingResult(z=z, draws=draws, stats=_stack_stats(stats))
+    return SamplingResult(z=z, draws=draws, stats=_stack_stats(stats),
+                          moments=mom)

@@ -5,8 +5,10 @@ Frozen dataclasses with the same fields and defaults as the JAX package's
 ``FindLocalOptimum`` and ``TuningNUTS``, plus ``default_warmup_stages``.
 The port keeps its own copy so that it never imports the JAX package.
 
-Not ported yet: the low-rank metric and the streamed-moment windows
-(``TuningNUTS.rank`` / ``TuningNUTS.stream``), and the fixed-step schedule.
+``TuningNUTS.stream`` estimates a window's metric from streamed moments
+(``adapt/warmup.py::StreamMoments``) instead of its stored draws.  Not
+ported yet: the low-rank metric (``TuningNUTS.rank``) and the fixed-step
+schedule.
 """
 
 from __future__ import annotations
@@ -86,13 +88,16 @@ class TuningNUTS:
 
     ``metric`` selects the end-of-window re-estimate: ``"diag"``, ``"dense"``
     or ``None`` (unchanged).  ``lam`` is the shrinkage regularizer, ``5/n``
-    by default.
+    by default.  ``stream`` estimates the metric from moments streamed over
+    the window (O(D) or O(D^2) memory) instead of its stored ``[N, C, D]``
+    draws: the memory-bounded mode of large chain counts times dimensions.
     """
 
     n: int
     stepsize_adaptation: Union[DualAveraging, FixedStepsize] = DualAveraging()
     metric: Optional[str] = "diag"
     lam: Optional[float] = None
+    stream: bool = False
 
     def __post_init__(self):
         if self.metric == "low_rank":
@@ -126,13 +131,15 @@ def default_warmup_stages(
     middle_steps: int = 25,
     doubling_stages: int = 5,
     terminating_steps: int = 50,
+    stream: bool = False,
 ) -> Tuple[WarmupStage, ...]:
     """The default windowed schedule: optimum, step-size search, 75, then
     (25, 50, 100, 200, 400) with metric re-estimates, then 50: 900 warmup
-    transitions by default."""
+    transitions by default.  ``stream=True`` estimates the metrics from
+    streamed moments instead of the windows' stored draws."""
     middle = tuple(
         TuningNUTS(n=middle_steps << i, stepsize_adaptation=stepsize_adaptation,
-                   metric=metric)
+                   metric=metric, stream=stream)
         for i in range(doubling_stages)
     )
     return tuple(

@@ -9,7 +9,9 @@ entry points switch TF32 off (see :func:`inplacedhmc_tpu_torch.sample.f32_matmul
 so on the card they run in IEEE f32, the f32-grade class the JAX package
 asks of the q-update, the kinetic energy and the momentum refresh.
 
-Not ported yet: the low-rank metric and the streamed-moment forms.
+The streamed-moment forms (:func:`moments_variance`, :func:`moments_cov`)
+estimate the same regularized variance and covariance from one-pass sums
+centred on a reference position.  Not ported yet: the low-rank metric.
 """
 
 from __future__ import annotations
@@ -152,3 +154,37 @@ def estimate_dense_metric(draws: torch.Tensor, lam,
                           pooled: bool = True) -> DenseMetric:
     return dense_metric(regularized_cov(draws, lam, pooled))
 
+
+
+def moments_variance(cnt, s1, s2, lam) -> torch.Tensor:
+    """Regularized variance from streamed moments centred on a reference
+    position: ``s1 = sum (q - qref)``, ``s2 = sum (q - qref)^2`` over
+    ``cnt`` draws (an O(D) carry instead of the ``[N, C, D]`` window).  The
+    centre keeps the one-pass cancellation harmless: its error is relative
+    to ``|mean - qref| / sd``, of order 1 for a window-start centre.  The
+    variance is clamped at 1e-10 before the shrinkage."""
+    mu = s1 / cnt
+    var = torch.clamp((s2 - cnt * mu * mu) / (cnt - 1), min=1e-10)
+    return _regularize(var, cnt, lam)
+
+
+def moments_cov(cnt, s1, gram, lam) -> torch.Tensor:
+    """Regularized covariance from streamed moments (see
+    :func:`moments_variance`); ``gram = sum (q - qref)(q - qref)^T``."""
+    cov = _cov_from_moments(cnt, s1, gram)
+    eye = torch.eye(s1.shape[0], dtype=s1.dtype, device=s1.device)
+    return _regularize(cov, cnt, lam, target=1e-3 * eye)
+
+
+def _cov_from_moments(cnt, s1, gram) -> torch.Tensor:
+    """The centred covariance from one-pass moments, with the cancellation
+    guards: a clamp of the diagonal at 1e-10 and a relative jitter (1e-6 of
+    the mean variance) on it, so that rounding noise off the diagonal
+    cannot leave the matrix indefinite (``dense_metric`` factors it)."""
+    mu = s1 / cnt
+    cov = (gram - cnt * torch.outer(mu, mu)) / (cnt - 1)
+    diag = torch.diagonal(cov)
+    cov = cov + torch.diag(torch.clamp(1e-10 - diag, min=0.0))
+    jitter = 1e-6 * torch.mean(torch.diagonal(cov))
+    eye = torch.eye(cov.shape[-1], dtype=cov.dtype, device=cov.device)
+    return cov + jitter * eye

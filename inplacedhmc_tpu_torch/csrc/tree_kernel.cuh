@@ -114,14 +114,25 @@
 //    m < trailing_ones(n) read slot popcount(n >> 1) - m.  The TPU kernel's
 //    odd-leaf stores go to a dummy slot that nothing reads; here they are
 //    skipped.  The stacks ([md, D] floats each, 8 KB per chain at D = 100,
-//    md = 10) live in dynamic shared memory, one region per chain; the
-//    position, momentum and gradient vectors of the tree (15 of them) live
-//    in registers, NV floats per lane.  Lanes past D hold zeros (minv and
-//    the momentum scale read as 0), so nothing of them reaches a row sum.
-//    The wide form needs 4 (2 md D + 2 D + WIDE_SCRATCH) bytes of a block's
-//    SMEM_LIMIT (wide_bytes: the stacks, the mat-vec's two staging rows, the
-//    row sums' partials): at D = 2048, md <= 13; at D = 1002 and md = 10,
-//    88 KB, two blocks an SM.
+//    md = 10) live in dynamic shared memory, one region per chain of
+//    stack_bytes, rounded up to STACK_ALIGN; the position, momentum and
+//    gradient vectors of the tree (15 of them) live in registers, NV floats
+//    per lane.  Lanes past D hold zeros (minv and the momentum scale read
+//    as 0), so nothing of them reaches a row sum.  The wide form needs
+//    stack_bytes + 4 (2 D + WIDE_SCRATCH) bytes of a block's SMEM_LIMIT
+//    (wide_bytes: the stacks, the mat-vec's two staging rows, the row sums'
+//    partials): at D = 2048, md <= 13; at D = 1002 and md = 10, 88 KB.
+//    Registers, not shared memory, hold the wide form to two blocks an SM:
+//    its instantiations take 253-255 registers a thread.
+//  * bfloat16 stacks (ckpt_bf16, JAX's _make_kernel option of that name):
+//    a store rounds the momentum sum and p# to bfloat16, to nearest even
+//    (__float2bfloat16_rn, as astype(bfloat16)), and the turn checks widen
+//    them back (__bfloat162float), so both directions of a check use the
+//    rounded values; everything else stays float32.  It halves the stacks
+//    (at D = 2048, md <= 26).  The element size is a flag of the launch,
+//    the same for every thread, not a template parameter, which would
+//    double the instantiations and their build time; the stacks are
+//    addressed as bytes.
 //  * Arithmetic: the operations of each leaf are those of the TPU kernel and
 //    of the plain torch version (ops/tree.py, ops/tile_physics.py), each
 //    rounded on its own (__fmul_rn, __fadd_rn: no FMA contraction); only the
@@ -161,6 +172,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -177,6 +189,7 @@ constexpr int MAX_WIDE_WARPS = MAX_DIM / WARP_DIM;
 constexpr int WIDE_SCRATCH = 64;      // floats: two buffers of 32
 constexpr int MATVEC_ROWS = 4;        // rows of the wide mat-vec's batch
 constexpr int SMEM_LIMIT = 232448;    // dynamic shared memory of one block
+constexpr int STACK_ALIGN = 16;       // bytes: a chain's stacks rounded up
 constexpr unsigned FULL = 0xffffffffu;
 
 // utils/philox.py: streams, constants
@@ -469,6 +482,24 @@ __device__ __forceinline__ float dot(T& t, const float (&a)[NV],
   return t.sum(s);
 }
 
+// One chain's two checkpoint stacks [md, D] in bytes, float32 or (bf16)
+// bfloat16, rounded up to STACK_ALIGN so that what follows stays aligned
+__host__ __device__ constexpr int64_t stack_bytes(int D, int md, bool bf16) {
+  return (2 * (int64_t)md * D * (bf16 ? 2 : 4) + STACK_ALIGN - 1) /
+         STACK_ALIGN * STACK_ALIGN;
+}
+
+// A stack entry's store (a bfloat16 one rounds to nearest even) and load
+// (a bfloat16 one widens back), by the entry's type
+__device__ __forceinline__ void store_as(float& dst, float v) { dst = v; }
+__device__ __forceinline__ void store_as(__nv_bfloat16& dst, float v) {
+  dst = __float2bfloat16_rn(v);
+}
+__device__ __forceinline__ float load_as(float v) { return v; }
+__device__ __forceinline__ float load_as(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
 // A physics' data: up to three [D] rows, two scalars, a [D, D] matrix, an
 // [n_obs, D] observation matrix (row-major: observation-major) and two
 // [n_obs] observation rows, in the order of ops/tile_physics.py's Spec
@@ -507,6 +538,7 @@ struct Args {
   int32_t* steps_out;
   int64_t C;
   int D, md, n_sweep, refresh;
+  int ckpt_bf16;         // 1: bfloat16 checkpoint stacks
   float min_delta;
 };
 
@@ -520,7 +552,7 @@ __global__ void __launch_bounds__(T::kWide ? 32 * MAX_WIDE_WARPS
                                   T::kWide || P::kNV > 4 ? 1 : 4)
 tree_kernel(const Args a) {
   constexpr int NV = P::kNV;
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int64_t c = T::kWide ? (int64_t)blockIdx.x
@@ -532,10 +564,11 @@ tree_kernel(const Args a) {
 
   // the team's stacks: one region per warp of the block, or the block's
   // one region followed by its scratch
-  const int64_t stack_len = 2 * (int64_t)md * D;
-  float* stk_s = smem + (T::kWide ? 0 : warp * stack_len);
-  float* stk_ps = stk_s + (int64_t)md * D;
-  T team(smem + stack_len);
+  const bool bf16 = a.ckpt_bf16 != 0;
+  const int64_t stack_len = stack_bytes(D, md, bf16);
+  unsigned char* stk_s = smem + (T::kWide ? 0 : warp * stack_len);
+  unsigned char* stk_ps = stk_s + (int64_t)md * D * (bf16 ? 2 : 4);
+  T team(reinterpret_cast<float*>(smem + stack_len));
   const int base = team.base;
 
   const Key key = a.key ? Key{(uint32_t)a.key[0], (uint32_t)a.key[1]}
@@ -707,15 +740,25 @@ tree_kernel(const Args a) {
         steps += 1;
 
         // even leaves open nodes: store the pre-leaf momentum sum and p#
+        // (the stack type's branch outside the loop over registers: the
+        // float32 loop is the one it always was)
         if ((n & 1) == 0) {
           const int slot = __popc(n >> 1);
+          auto store = [&](auto* s_stk, auto* ps_stk) {
 #pragma unroll
-          for (int k = 0; k < NV; ++k) {
-            if (in[k]) {
-              stk_s[slot * D + base + lane + 32 * k] = scum[k];
-              stk_ps[slot * D + base + lane + 32 * k] = psn[k];
+            for (int k = 0; k < NV; ++k) {
+              if (in[k]) {
+                store_as(s_stk[slot * D + base + lane + 32 * k], scum[k]);
+                store_as(ps_stk[slot * D + base + lane + 32 * k], psn[k]);
+              }
             }
-          }
+          };
+          if (bf16)
+            store(reinterpret_cast<__nv_bfloat16*>(stk_s),
+                  reinterpret_cast<__nv_bfloat16*>(stk_ps));
+          else
+            store(reinterpret_cast<float*>(stk_s),
+                  reinterpret_cast<float*>(stk_ps));
         }
 #pragma unroll
         for (int k = 0; k < NV; ++k) scum[k] = add(scum[k], pn[k]);
@@ -728,16 +771,24 @@ tree_kernel(const Args a) {
         for (int m = 0; m < t_ones; ++m) {
           const int j = idx_max - m;
           float ta = 0.f, tb = 0.f;
+          auto terms = [&](const auto* s_stk, const auto* ps_stk) {
 #pragma unroll
-          for (int k = 0; k < NV; ++k) {
-            const float sv =
-                in[k] ? stk_s[j * D + base + lane + 32 * k] : 0.f;
-            const float ps =
-                in[k] ? stk_ps[j * D + base + lane + 32 * k] : 0.f;
-            const float rn = sub(scum[k], sv);
-            ta = add(ta, mul(rn, ps));
-            tb = add(tb, mul(rn, psn[k]));
-          }
+            for (int k = 0; k < NV; ++k) {
+              const float sv =
+                  in[k] ? load_as(s_stk[j * D + base + lane + 32 * k]) : 0.f;
+              const float ps =
+                  in[k] ? load_as(ps_stk[j * D + base + lane + 32 * k]) : 0.f;
+              const float rn = sub(scum[k], sv);
+              ta = add(ta, mul(rn, ps));
+              tb = add(tb, mul(rn, psn[k]));
+            }
+          };
+          if (bf16)
+            terms(reinterpret_cast<const __nv_bfloat16*>(stk_s),
+                  reinterpret_cast<const __nv_bfloat16*>(stk_ps));
+          else
+            terms(reinterpret_cast<const float*>(stk_s),
+                  reinterpret_cast<const float*>(stk_ps));
           team.sum2(ta, tb);
           if (ta < 0.f || tb < 0.f) {
             turning = true;
@@ -848,44 +899,70 @@ tree_kernel(const Args a) {
     if (in[k]) a.grad_out[row + base + lane + 32 * k] = lg[k];
 }
 
-template <class P, bool kDense>
-cudaError_t launch(const Args& a, cudaStream_t stream) {
-  const int per_warp = 2 * a.md * a.D * (int)sizeof(float);
+// Chains a block of the one-warp form holds: MAX_WARPS, fewer where their
+// stacks would pass SMEM_LIMIT
+inline int narrow_warps(int64_t per_warp) {
   int warps = MAX_WARPS;
   while (warps > 1 && warps * per_warp > SMEM_LIMIT) --warps;
-  const int bytes = warps * per_warp;
-  if (bytes > SMEM_LIMIT) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      tree_kernel<Warp, P, kDense>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return err;
-  const int64_t blocks = (a.C + warps - 1) / warps;
-  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
-  tree_kernel<Warp, P, kDense>
-      <<<(unsigned)blocks, 32 * warps, bytes, stream>>>(a);
-  return cudaGetLastError();
+  return warps;
 }
 
 // The wide form's dynamic shared memory (its bound, ops/tree.py::takes):
 // the stacks, the scratch of the row sums, the mat-vec's two staging rows
-__host__ __device__ constexpr int64_t wide_bytes(int D, int md) {
-  return (int64_t)sizeof(float) *
-         (2 * (int64_t)md * D + WIDE_SCRATCH + 2 * (int64_t)D);
+__host__ __device__ constexpr int64_t wide_bytes(int D, int md, bool bf16) {
+  return stack_bytes(D, md, bf16) +
+         (int64_t)sizeof(float) * (WIDE_SCRATCH + 2 * (int64_t)D);
 }
 
-// One chain per block of ceil(D / 256) warps
-template <class P, bool kDense>
-cudaError_t launch_wide(const Args& a, cudaStream_t stream) {
-  const int64_t bytes = wide_bytes(a.D, a.md);
-  if (bytes > SMEM_LIMIT || a.C > 0x7fffffff) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      tree_kernel<Block, P, kDense>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return err;
-  const int warps = (a.D + WARP_DIM - 1) / WARP_DIM;
-  tree_kernel<Block, P, kDense>
-      <<<(unsigned)a.C, 32 * warps, (int)bytes, stream>>>(a);
-  return cudaGetLastError();
+// The launch launch_physics makes: the instantiation, its grid, threads
+// and dynamic shared memory
+struct Shape {
+  void (*kernel)(const Args);
+  int64_t grid;
+  int threads;
+  int64_t bytes;
+};
+
+// The one dispatch by D, md and the stack type, for C chains: the one-warp
+// form (D <= 256, NV by D) puts up to MAX_WARPS chains in a block, the wide
+// form (P::kWide, 256 < D <= MAX_DIM) one chain in a block of ceil(D / 256)
+// warps.  cudaErrorInvalidValue where neither takes the shape.
+template <template <int> class P, bool kDense>
+cudaError_t shape_of(int64_t C, int D, int md, bool bf16, Shape* s) {
+  if (D <= WARP_DIM) {
+    const int64_t per_warp = stack_bytes(D, md, bf16);
+    const int warps = narrow_warps(per_warp);
+    void (*kernel)(const Args) = D <= 32    ? tree_kernel<Warp, P<1>, kDense>
+                                 : D <= 64  ? tree_kernel<Warp, P<2>, kDense>
+                                 : D <= 128 ? tree_kernel<Warp, P<4>, kDense>
+                                            : tree_kernel<Warp, P<8>, kDense>;
+    *s = {kernel, (C + warps - 1) / warps, 32 * warps, warps * per_warp};
+  } else if constexpr (P<8>::kWide) {
+    if (D > MAX_DIM) return cudaErrorInvalidValue;
+    *s = {tree_kernel<Block, P<8>, kDense>, C,
+          32 * ((D + WARP_DIM - 1) / WARP_DIM), wide_bytes(D, md, bf16)};
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  if (s->bytes > SMEM_LIMIT || s->grid > 0x7fffffff)
+    return cudaErrorInvalidValue;
+  return cudaFuncSetAttribute(s->kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)s->bytes);
+}
+
+// The blocks per SM of the launch launch_physics makes for D, md and the
+// stack type (TREE_LAUNCHERS' tree_<name>_occupancy; the CUDA occupancy
+// calculator: registers, shared memory, threads)
+template <template <int> class P, bool kDense>
+int occupancy_physics(int D, int md, int ckpt_bf16, int* blocks) {
+  if (!blocks || D < P<1>::kMinDim || md < 1 || md > 30)
+    return (int)cudaErrorInvalidValue;
+  Shape sh;
+  cudaError_t err = shape_of<P, kDense>(1, D, md, ckpt_bf16 != 0, &sh);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, sh.kernel, sh.threads, (size_t)sh.bytes);
 }
 
 // The body of every physics' extern "C" launchers (TREE_LAUNCHERS), with a
@@ -904,11 +981,12 @@ cudaError_t launch_wide(const Args& a, cudaStream_t stream) {
 // [D, D] matrix (null where it has none), obs_mat its [n_obs, D]
 // observation matrix and obs_row0, obs_row1 its [n_obs] observation rows
 // (null and n_obs 0 where it has none), s0, s1 its scalars; minv [D], or
-// [D, D] dense.  Outputs: q [K, C, D] (q[K - 1] the final carry); logp,
-// energy, log_sum_alpha [K, C]; term, term_left, term_right, depth, steps
-// [K, C] int32; grad [C, D] of the final carry.  D must be in [P's least
+// [D, D] dense; ckpt_bf16 1 for bfloat16 checkpoint stacks.  Outputs: q
+// [K, C, D] (q[K - 1] the final carry); logp, energy, log_sum_alpha [K,
+// C]; term, term_left, term_right, depth, steps [K, C] int32; grad [C, D]
+// of the final carry.  D must be in [P's least
 // D, 256], or for a physics with a wide form (P::kWide) in (256, MAX_DIM]
-// with wide_bytes(D, md) <= SMEM_LIMIT; md in [1, 30], K >= 1.
+// with wide_bytes(D, md, ckpt_bf16) <= SMEM_LIMIT; md in [1, 30], K >= 1.
 #define TREE_LAUNCH_PARAMS                                                  \
   const float *q0, const float *p0, const float *eps, const int32_t *dirs, \
       const int32_t *valid, const int64_t *key, const float *unif,          \
@@ -919,12 +997,13 @@ cudaError_t launch_wide(const Args& a, cudaStream_t stream) {
       float *q_out, float *logp_out, float *grad_out, float *energy_out,    \
       float *lsa_out, int32_t *term, int32_t *tl, int32_t *tr,              \
       int32_t *depth, int32_t *steps, int64_t C, int D, int md,             \
-      int n_sweep, int refresh, float min_delta, void *stream
+      int n_sweep, int refresh, int ckpt_bf16, float min_delta,             \
+      void *stream
 #define TREE_LAUNCH_ARGS                                                    \
   q0, p0, eps, dirs, valid, key, unif, row0, row1, row2, mat, obs_mat,     \
       obs_row0, obs_row1, n_obs, s0, s1, minv, q_out, logp_out, grad_out,   \
       energy_out, lsa_out, term, tl, tr, depth, steps, C, D, md, n_sweep,   \
-      refresh, min_delta, stream
+      refresh, ckpt_bf16, min_delta, stream
 
 template <template <int> class P, bool kDense>
 int launch_physics(TREE_LAUNCH_PARAMS) {
@@ -942,26 +1021,36 @@ int launch_physics(TREE_LAUNCH_PARAMS) {
                key,     unif,     pd,         minv,    q_out,
                logp_out, grad_out, energy_out, lsa_out, term,
                tl,      tr,       depth,      steps,   C,
-               D,       md,       n_sweep,    refresh, min_delta};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D <= 32) return (int)launch<P<1>, kDense>(a, s);
-  if (D <= 64) return (int)launch<P<2>, kDense>(a, s);
-  if (D <= 128) return (int)launch<P<4>, kDense>(a, s);
-  if (D <= WARP_DIM) return (int)launch<P<8>, kDense>(a, s);
-  if constexpr (P<8>::kWide)
-    if (D <= MAX_DIM) return (int)launch_wide<P<8>, kDense>(a, s);
-  return (int)cudaErrorInvalidValue;
+               D,       md,       n_sweep,    refresh, ckpt_bf16,
+               min_delta};
+  Shape sh;
+  cudaError_t err = shape_of<P, kDense>(C, D, md, ckpt_bf16 != 0, &sh);
+  if (err != cudaSuccess) return (int)err;
+  void* args[] = {(void*)&a};
+  return (int)cudaLaunchKernel((const void*)sh.kernel, dim3((unsigned)sh.grid),
+                               dim3(sh.threads), args, (size_t)sh.bytes,
+                               static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace tree
 
 // A physics source's two extern "C" launchers: tree_<name>_launch with a
 // diagonal Minv [D] and tree_<name>_dense_launch with a dense Minv [D, D],
-// each tree::launch_physics<PHYS> with TREE_LAUNCH_PARAMS.
-#define TREE_LAUNCHERS(name, PHYS)                                  \
-  extern "C" int tree_##name##_launch(TREE_LAUNCH_PARAMS) {         \
-    return tree::launch_physics<PHYS, false>(TREE_LAUNCH_ARGS);     \
-  }                                                                 \
-  extern "C" int tree_##name##_dense_launch(TREE_LAUNCH_PARAMS) {   \
-    return tree::launch_physics<PHYS, true>(TREE_LAUNCH_ARGS);      \
+// each tree::launch_physics<PHYS> with TREE_LAUNCH_PARAMS; and
+// tree_<name>_occupancy(D, md, ckpt_bf16, dense, &blocks), the blocks per
+// SM of the launch either would make (tree::occupancy_physics; it
+// launches nothing).
+#define TREE_LAUNCHERS(name, PHYS)                                      \
+  extern "C" int tree_##name##_launch(TREE_LAUNCH_PARAMS) {             \
+    return tree::launch_physics<PHYS, false>(TREE_LAUNCH_ARGS);         \
+  }                                                                     \
+  extern "C" int tree_##name##_dense_launch(TREE_LAUNCH_PARAMS) {       \
+    return tree::launch_physics<PHYS, true>(TREE_LAUNCH_ARGS);          \
+  }                                                                     \
+  extern "C" int tree_##name##_occupancy(int D, int md, int ckpt_bf16,  \
+                                         int dense, int* blocks) {      \
+    return dense ? tree::occupancy_physics<PHYS, true>(D, md, ckpt_bf16, \
+                                                       blocks)          \
+                 : tree::occupancy_physics<PHYS, false>(D, md,          \
+                                                        ckpt_bf16, blocks); \
   }

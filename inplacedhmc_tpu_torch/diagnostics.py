@@ -3,8 +3,10 @@ summaries.
 
 The port's counterpart of ``inplacedhmc_tpu/diagnostics.py``; R-hat and ESS
 run in torch on the draws' device (FFT autocovariances), the summary on the
-host.  Not ported yet: the moment- and sketch-based estimators, rank R-hat,
-tail ESS, utilization telemetry and the trajectory explorers.
+host; :func:`split_rhat_from_moments` takes the split-chain moments a run
+collects (``collect_moments``) instead of its draws.  Not ported yet: the
+sketch-based estimators, rank R-hat, tail ESS, utilization telemetry and
+the trajectory explorers.
 """
 
 from __future__ import annotations
@@ -83,6 +85,29 @@ def split_rhat(draws: torch.Tensor) -> torch.Tensor:
     b = half * torch.var(torch.mean(x, dim=0), dim=0, correction=1)
     var_plus = (half - 1) / half * w + b / half
     return torch.sqrt(var_plus / w)
+
+
+def split_rhat_from_moments(mom) -> torch.Tensor:
+    """Split R-hat from the split-chain moments of a sampling run
+    (``adapt/warmup.py::SplitMoments``, ``MCMCResult.sample_moments``): the
+    statistic of :func:`split_rhat` over every coordinate, each chain's two
+    halves as two sequences, in O(C D) memory.  The sums are centred per
+    chain on ``qref``, which enters the means (R-hat is invariant under one
+    shift per coordinate, not one per chain).  Halves that differ by one
+    draw (an odd total: the second half takes it) use the mean half length.
+    NaN while the second half holds fewer than two draws.  ``[D]``."""
+    cnt = torch.clamp(mom.cnt, min=2.0)[:, None, None]     # [2, 1, 1]
+    mean = mom.qref[None] + mom.s1 / cnt                   # [2, C, D]
+    var = torch.clamp((mom.s2 - mom.s1 * mom.s1 / cnt) / (cnt - 1.0),
+                      min=0.0)
+    nbar = torch.mean(torch.clamp(mom.cnt, min=2.0))
+    d = mean.shape[-1]
+    w = torch.mean(var.reshape(-1, d), dim=0)
+    b = nbar * torch.var(mean.reshape(-1, d), dim=0, correction=1)
+    var_plus = (nbar - 1.0) / nbar * w + b / nbar
+    rhat = torch.sqrt(var_plus / w)
+    return torch.where(mom.cnt[1] > 1.0, rhat,
+                       torch.full_like(rhat, float("nan")))
 
 
 def _autocov_fft(x: torch.Tensor) -> torch.Tensor:

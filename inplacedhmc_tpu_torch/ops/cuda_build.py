@@ -125,6 +125,13 @@ class CudaKernel:
             self._fn = fn
         return self._fn
 
+    def call(self, *args) -> None:
+        """Call the C entry point without counting a launch (a query, such
+        as an occupancy); raises on a non-zero return."""
+        rc = self._function()(*args)
+        if rc != 0:
+            raise RuntimeError(f"{self.symbol} failed with cudaError_t {rc}")
+
     def launch(self, *args) -> None:
         """Launch through the C entry point; raises on a non-zero
         ``cudaError_t`` (a refused launch never runs, and a later

@@ -46,9 +46,16 @@ chains in plain torch, drawing the same Philox numbers.  There is no other
 path: a CUDA tensor launches the kernel or raises.  The ``gaussian_*``
 functions are these with the Gaussian physics of precision ``lam``.
 
-Not ported yet: bf16 checkpoint stacks, D above 256 for eight schools, the
-funnel and logistic regression (ROADMAP queue 2 item 1 (g)), and D above
-2,048 or past the shared-memory bound (item 1 (h)).
+``ckpt_bf16`` stores the two checkpoint stacks in bfloat16, as JAX's
+kernel can (``_make_kernel``'s ``ckpt_bf16``): each store rounds the
+momentum sum and ``p#`` to bfloat16 (round to nearest even) and the turn
+checks widen them back, so both directions of a U-turn check use the
+rounded values; everything else stays float32.  On the card it halves the
+stacks' shared memory (:func:`takes`).
+
+Not ported yet: D above 256 for eight schools, the funnel and logistic
+regression (ROADMAP queue 2 item 1 (g)), and D above 2,048 or past the
+shared-memory bound (item 1 (h)).
 """
 
 from __future__ import annotations
@@ -71,7 +78,7 @@ _P = ctypes.c_void_p
 _TREE_ARGS = ([_P] * 14 + [ctypes.c_int64] + [ctypes.c_float] * 2
               + [_P] * 11
               + [ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                 ctypes.c_int, ctypes.c_float, _P])
+                 ctypes.c_int, ctypes.c_int, ctypes.c_float, _P])
 #: the whole-tree kernel of each physics with a diagonal metric,
 #: ``csrc/tree_<physics>.cu``; its ``launches`` counts its launches
 TREE_KERNELS = {
@@ -84,6 +91,16 @@ TREE_DENSE_KERNELS = {
                      _TREE_ARGS)
     for name in tile_physics.PHYSICS}
 TREE_GAUSSIAN = TREE_KERNELS["gaussian"]
+#: launches with bfloat16 checkpoint stacks, by launcher symbol: a subset of
+#: that launcher's ``launches`` (the stack type is an argument of the one
+#: kernel), counted where it launches
+CKPT_BF16_LAUNCHES: dict = {}
+#: each source's occupancy query (``tree_<physics>_occupancy``: it launches
+#: nothing), read by :func:`blocks_per_sm`
+TREE_OCCUPANCY = {
+    name: CudaKernel(f"tree_{name}.cu", f"tree_{name}_occupancy",
+                     [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    for name in tile_physics.PHYSICS}
 #: the Gaussian source's second launcher: it writes what the kernel's generator
 #: draws (the check of the generator against ``utils/philox.py``)
 PHILOX_DRAWS = CudaKernel(
@@ -101,6 +118,9 @@ WIDE_PHYSICS = ("gaussian", "dense_gaussian", "stoch_vol")
 SMEM_LIMIT = 232448
 #: floats of the wide form's row-sum scratch (``WIDE_SCRATCH``)
 _WIDE_SCRATCH = 64
+#: bytes the checkpoint stacks' region is rounded up to
+#: (``tree_kernel.cuh::STACK_ALIGN``)
+_STACK_ALIGN = 16
 #: the chain tile of JAX's ``make_logistic_tree_transition`` (its default)
 LOGISTIC_BLOCK_C = 128
 
@@ -142,29 +162,42 @@ def n_uniforms(max_depth: int) -> int:
     return (1 << max_depth) - 1 + max_depth
 
 
-def wide_smem_bytes(dim: int, max_depth: int) -> int:
+def stack_bytes(dim: int, max_depth: int, ckpt_bf16: bool = False) -> int:
+    """Bytes of one chain's two checkpoint stacks ``[md, D]`` (float32, or
+    bfloat16 under ``ckpt_bf16``), rounded up to ``_STACK_ALIGN``
+    (``tree_kernel.cuh::stack_bytes``)."""
+    raw = 2 * max_depth * dim * (2 if ckpt_bf16 else 4)
+    return -(-raw // _STACK_ALIGN) * _STACK_ALIGN
+
+
+def wide_smem_bytes(dim: int, max_depth: int,
+                    ckpt_bf16: bool = False) -> int:
     """Dynamic shared memory of the wide form's block (one chain of
-    ``ceil(D / 256)`` warps): the two checkpoint stacks ``[md, D]``, the row
-    sums' scratch and the mat-vec's two staging rows ``[D]``, float32
-    (``tree_kernel.cuh::wide_bytes``)."""
-    return 4 * (2 * max_depth * dim + _WIDE_SCRATCH + 2 * dim)
+    ``ceil(D / 256)`` warps): the two checkpoint stacks
+    (:func:`stack_bytes`), then the row sums' scratch and the mat-vec's two
+    staging rows ``[D]``, float32 (``tree_kernel.cuh::wide_bytes``)."""
+    return stack_bytes(dim, max_depth, ckpt_bf16) \
+        + 4 * (_WIDE_SCRATCH + 2 * dim)
 
 
-def takes(dim: int, max_depth: int, physics: str) -> bool:
+def takes(dim: int, max_depth: int, physics: str,
+          ckpt_bf16: bool = False) -> bool:
     """Whether the kernel of ``physics`` takes a ``dim``-dimensional problem
     at ``max_depth``, as its launcher decides: any physics up to
     ``WARP_DIM`` (one warp per chain); a physics of ``WIDE_PHYSICS`` up to
     ``MAX_DIM`` where the wide form's block fits the shared memory,
-    ``wide_smem_bytes(dim, max_depth) <= SMEM_LIMIT`` (at D = 2048,
-    ``max_depth <= 13``).  The random numbers are drawn inside the kernel,
-    so the chain count sets no bound."""
+    ``wide_smem_bytes(dim, max_depth, ckpt_bf16) <= SMEM_LIMIT`` (at D =
+    2048, ``max_depth <= 13`` with float32 stacks, ``<= 26`` with bfloat16
+    ones).  The random numbers are drawn inside the kernel, so the chain
+    count sets no bound."""
     if dim <= WARP_DIM:
         return dim >= 1
     return (physics in WIDE_PHYSICS and dim <= MAX_DIM
-            and wide_smem_bytes(dim, max_depth) <= SMEM_LIMIT)
+            and wide_smem_bytes(dim, max_depth, ckpt_bf16) <= SMEM_LIMIT)
 
 
-def refusal(dim: int, max_depth: int, physics: str) -> str:
+def refusal(dim: int, max_depth: int, physics: str,
+            ckpt_bf16: bool = False) -> str:
     """Why :func:`takes` refuses the problem, naming the bound and the
     ROADMAP item that lifts it."""
     if physics not in WIDE_PHYSICS:
@@ -174,11 +207,27 @@ def refusal(dim: int, max_depth: int, physics: str) -> str:
     if dim > MAX_DIM:
         return (f"the {physics} kernel takes D <= {MAX_DIM}, this problem "
                 f"has D = {dim} (ROADMAP queue 2 item 1 (h))")
+    elem = 2 if ckpt_bf16 else 4
     return (f"the {physics} kernel's wide form needs "
-            f"{wide_smem_bytes(dim, max_depth)} bytes of shared memory at "
-            f"D = {dim}, max_depth {max_depth}: 4 (2 max_depth D + 2 D + "
+            f"{wide_smem_bytes(dim, max_depth, ckpt_bf16)} bytes of shared "
+            f"memory at D = {dim}, max_depth {max_depth} ("
+            f"{'bfloat16' if ckpt_bf16 else 'float32'} stacks): {elem} 2 "
+            f"max_depth D (rounded up to {_STACK_ALIGN}) + 4 (2 D + "
             f"{_WIDE_SCRATCH}) > {SMEM_LIMIT}, the shared-memory bound "
             f"(ROADMAP queue 2 item 1 (h))")
+
+
+def blocks_per_sm(physics: str, dim: int, max_depth: int,
+                  dense: bool = False, ckpt_bf16: bool = False) -> int:
+    """Blocks of the launch :func:`tree_sweep` would make for ``physics`` at
+    ``dim`` and ``max_depth`` that one SM holds at once, by the CUDA
+    occupancy calculator (registers, shared memory, threads): a block is up
+    to 4 chains of the one-warp form, or one chain of the wide form.  Needs
+    the card."""
+    out = ctypes.c_int(0)
+    TREE_OCCUPANCY[physics].call(dim, max_depth, int(ckpt_bf16), int(dense),
+                                 ctypes.byref(out))
+    return out.value
 
 
 def _check_max_depth(max_depth: int) -> None:
@@ -206,9 +255,16 @@ def refresh_momentum(scale: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
     return scale * xi if scale.ndim == 1 else matvec(scale.T, xi)
 
 
+def stack_store(t: torch.Tensor, ckpt_bf16: bool) -> torch.Tensor:
+    """What a checkpoint stack holds of ``t`` when read back: ``t`` itself,
+    or under ``ckpt_bf16`` ``t`` rounded to bfloat16 (to nearest, ties to
+    even, as the kernel's ``__float2bfloat16_rn``) and widened back."""
+    return t.to(torch.bfloat16).to(t.dtype) if ckpt_bf16 else t
+
+
 def tree_transition_plain(q0, p0, eps, dirs, unif, phys, minv,
                           max_depth: int, min_delta: float,
-                          valid=None) -> TreeOut:
+                          valid=None, ckpt_bf16: bool = False) -> TreeOut:
     """Plain torch version of one transition of the kernel, in ``q0``'s
     dtype and on its device: every chain in lockstep, each update masked by
     the chain's own state.  ``q0, p0 [C, D]``; ``eps [C]``; ``dirs [C]``
@@ -220,7 +276,9 @@ def tree_transition_plain(q0, p0, eps, dirs, unif, phys, minv,
     at the start, at every leaf and on the proposal; ``minv`` the diagonal
     ``[D]`` or the dense ``[D, D]`` ``M^-1`` (:func:`psharp`; the kinetic
     energy is ``0.5 sum(p * p#)``); ``valid [C]`` (default all): rows with 0
-    start inactive and keep the records of an empty tree."""
+    start inactive and keep the records of an empty tree; ``ckpt_bf16``
+    rounds every checkpoint store to bfloat16 (round to nearest even) and
+    the turn checks read the rounded values."""
     _check_max_depth(max_depth)
     rows = unif if callable(unif) else (lambda slots: unif[slots])
     c, dim = q0.shape
@@ -306,8 +364,8 @@ def tree_transition_plain(q0, p0, eps, dirs, unif, phys, minv,
             steps = steps + mask.to(torch.int32)
             if n % 2 == 0:
                 slot = checkpoint_slot(n)
-                ckpt_s[:, slot] = s_cum
-                ckpt_ps[:, slot] = ps_new
+                ckpt_s[:, slot] = stack_store(s_cum, ckpt_bf16)
+                ckpt_ps[:, slot] = stack_store(ps_new, ckpt_bf16)
             s_cum = where(mask, s_cum + p_new, s_cum)
 
             turning = torch.zeros_like(active)
@@ -410,7 +468,8 @@ def _draws_at(s: int, rows, dim: int, dt, p_stack, dirs, unif, key,
 
 def tree_sweep_plain(q0, eps, phys, minv, max_depth: int, min_delta: float,
                      n_sweep: int = 1, *, momentum=None, dirs=None, unif=None,
-                     key=None, sqrt_mass=None, valid=None) -> TreeOut:
+                     key=None, sqrt_mass=None, valid=None,
+                     ckpt_bf16: bool = False) -> TreeOut:
     """Plain torch version of one launch: ``n_sweep`` transitions from
     ``q0 [C, D]``, each starting from the last one's proposal.  Either
     ``momentum [K, C, D]`` and ``dirs [K, C]`` are given, or they are drawn
@@ -427,7 +486,7 @@ def tree_sweep_plain(q0, eps, phys, minv, max_depth: int, min_delta: float,
         p0, d_s, u_s = _draws_at(s, rows, dim, q0.dtype, momentum, dirs,
                                  unif, key, sqrt_mass)
         out = tree_transition_plain(q, p0, eps, d_s, u_s, phys, minv,
-                                    max_depth, min_delta, valid)
+                                    max_depth, min_delta, valid, ckpt_bf16)
         outs.append(out)
         q = out.q
     return TreeOut(*(out.grad if f == "grad" else
@@ -474,7 +533,7 @@ def _check_draws(momentum, dirs, sqrt_mass, unif, key) -> bool:
 
 def _launch(q0, eps, phys, minv, max_depth: int, min_delta: float, k: int,
             lead: tuple, momentum, dirs, unif, key, sqrt_mass, valid, out,
-            refresh: bool) -> TreeOut:
+            refresh: bool, ckpt_bf16: bool) -> TreeOut:
     """Check what the physics' kernel (``csrc/tree_<physics>.cu``, its
     diagonal or dense launcher by ``minv``'s shape) reads through raw
     pointers and launch it on the current stream.  ``lead`` is ``(k,)`` for
@@ -484,9 +543,10 @@ def _launch(q0, eps, phys, minv, max_depth: int, min_delta: float, k: int,
     if q0.ndim != 2:
         raise ValueError("tree kernel: q0 must be 2-D")
     c, d = q0.shape
-    if not takes(d, max_depth, phys.name):
-        raise ValueError(f"tree kernel: {refusal(d, max_depth, phys.name)}"
-                         if d >= 1 else f"tree kernel: D={d} < 1")
+    if not takes(d, max_depth, phys.name, ckpt_bf16):
+        raise ValueError(
+            f"tree kernel: {refusal(d, max_depth, phys.name, ckpt_bf16)}"
+            if d >= 1 else f"tree kernel: D={d} < 1")
     dev = q0.device
     spec = tile_physics.PHYSICS[phys.name]
     rows, mat = phys.rows(), phys.matrix()
@@ -543,14 +603,19 @@ def _launch(q0, eps, phys, minv, max_depth: int, min_delta: float, k: int,
             *row_ptrs, ptr(mat), ptr(obs_mat), *obs_ptrs, n_obs, *scalars,
             minv.data_ptr(),
             *(t.data_ptr() for t in out),
-            c, d, max_depth, k, int(refresh), float(min_delta), stream)
+            c, d, max_depth, k, int(refresh), int(ckpt_bf16),
+            float(min_delta), stream)
+    if ckpt_bf16:
+        CKPT_BF16_LAUNCHES[kernel.symbol] = \
+            CKPT_BF16_LAUNCHES.get(kernel.symbol, 0) + 1
     return out
 
 
 def tree_sweep(q0: torch.Tensor, eps: torch.Tensor, phys,
                minv: torch.Tensor, max_depth: int, min_delta: float,
                n_sweep: int = 1, *, momentum=None, dirs=None, unif=None,
-               key=None, sqrt_mass=None, valid=None, out=None) -> TreeOut:
+               key=None, sqrt_mass=None, valid=None, out=None,
+               ckpt_bf16: bool = False) -> TreeOut:
     """``n_sweep`` transitions of every chain in one launch, from
     ``q0 [C, D]``, which is only read (on the card it may be the last
     transition of ``out.q``: the previous launch's carry), under the physics
@@ -566,7 +631,7 @@ def tree_sweep(q0: torch.Tensor, eps: torch.Tensor, phys,
     int32 or none (every row valid).  ``out``: a :class:`TreeOut` of
     buffers to write into (a sampling loop's, allocated once); the returned
     tensors are those buffers, so the next call with them overwrites
-    them."""
+    them.  ``ckpt_bf16``: bfloat16 checkpoint stacks."""
     refresh = _check_draws(momentum, dirs, sqrt_mass, unif, key)
     _check_max_depth(max_depth)
     if n_sweep < 1:
@@ -575,10 +640,10 @@ def tree_sweep(q0: torch.Tensor, eps: torch.Tensor, phys,
         return tree_sweep_plain(
             q0, eps, phys, minv, max_depth, min_delta, n_sweep,
             momentum=momentum, dirs=dirs, unif=unif, key=key,
-            sqrt_mass=sqrt_mass, valid=valid)
+            sqrt_mass=sqrt_mass, valid=valid, ckpt_bf16=ckpt_bf16)
     return _launch(q0, eps, phys, minv, max_depth, min_delta, n_sweep,
                    (n_sweep,), momentum, dirs, unif, key, sqrt_mass, valid,
-                   out, refresh)
+                   out, refresh, ckpt_bf16)
 
 
 def gaussian_tree_sweep(q0, eps, lam, minv, *args, **kw) -> TreeOut:
@@ -590,16 +655,17 @@ def gaussian_tree_sweep(q0, eps, lam, minv, *args, **kw) -> TreeOut:
 def tree_transition(q0: torch.Tensor, p0, eps: torch.Tensor, dirs, unif,
                     phys, minv: torch.Tensor, max_depth: int,
                     min_delta: float, *, key=None, valid=None,
-                    sqrt_mass=None) -> TreeOut:
+                    sqrt_mass=None, ckpt_bf16: bool = False) -> TreeOut:
     """One transition for every chain, with no sweep axis: with the given
     momentum ``p0 [C, D]`` and direction words ``dirs [C]`` (int32 on the
     card), or with ``p0 = dirs = None`` and the momentum's scale
     ``sqrt_mass`` (``[D]``, or ``[D, D]`` with a dense ``minv``: see
     :func:`tree_sweep`) both drawn from ``key`` (``refresh_inside``); with
     the uniforms ``unif [2^md - 1 + md, C]`` or, with ``unif=None``, those
-    the generator draws from ``key``; under the physics ``phys``.  CPU
-    tensors take the plain version; CUDA tensors launch the physics' kernel
-    (float32 and contiguous, within :func:`takes`) or raise."""
+    the generator draws from ``key``; under the physics ``phys``;
+    ``ckpt_bf16``: bfloat16 checkpoint stacks.  CPU tensors take the plain
+    version; CUDA tensors launch the physics' kernel (float32 and
+    contiguous, within :func:`takes`) or raise."""
     refresh = _check_draws(p0, dirs, sqrt_mass, unif, key)
     _check_max_depth(max_depth)
     if q0.device.type == "cpu":
@@ -607,7 +673,7 @@ def tree_transition(q0: torch.Tensor, p0, eps: torch.Tensor, dirs, unif,
             out = tree_sweep_plain(
                 q0, eps, phys, minv, max_depth, min_delta, key=key,
                 sqrt_mass=sqrt_mass, unif=None if unif is None
-                else unif[None], valid=valid)
+                else unif[None], valid=valid, ckpt_bf16=ckpt_bf16)
             return TreeOut(*(t if f == "grad" else t[0]
                              for f, t in zip(TreeOut._fields, out)))
         if unif is None:
@@ -615,9 +681,10 @@ def tree_transition(q0: torch.Tensor, p0, eps: torch.Tensor, dirs, unif,
             unif = lambda slots: philox.uniforms(  # noqa: E731
                 key, rows, 0, slots, q0.dtype)
         return tree_transition_plain(
-            q0, p0, eps, dirs, unif, phys, minv, max_depth, min_delta, valid)
+            q0, p0, eps, dirs, unif, phys, minv, max_depth, min_delta, valid,
+            ckpt_bf16)
     return _launch(q0, eps, phys, minv, max_depth, min_delta, 1, (), p0, dirs,
-                   unif, key, sqrt_mass, valid, None, refresh)
+                   unif, key, sqrt_mass, valid, None, refresh, ckpt_bf16)
 
 
 def gaussian_tree_transition(q0, p0, eps, dirs, unif, lam, minv, *args,
@@ -679,7 +746,8 @@ def _stats(out: TreeOut, dtype) -> TreeStats:
 def make_tree_transition(physics: str, data: dict, dim: int, metric_inv, *,
                          max_depth: int = 10, min_delta: float = -1000.0,
                          block_c: int = 512, refresh_inside: bool = False,
-                         padded_io: bool = False, n_sweep: int = 1):
+                         padded_io: bool = False, n_sweep: int = 1,
+                         ckpt_bf16: bool = False):
     """The whole-tree transition for the tile physics named ``physics``
     (``ops/tile_physics.py``) on ``data`` (its rows ``[dim]``, matrix
     ``[dim, dim]``, observation matrix ``[npad, dim]`` and rows ``[npad]``,
@@ -712,6 +780,7 @@ def make_tree_transition(physics: str, data: dict, dim: int, metric_inv, *,
     Between launches it draws the key and nothing else: the outputs are
     buffers allocated at the first call and overwritten by the next one.
     ``run_padded`` carries ``block_c``, ``n_sweep`` and ``dim``.
+    ``ckpt_bf16`` stores the checkpoint stacks in bfloat16.
 
     The transition runs on ``z.q``'s device, in float32 on the card and in
     its dtype on the CPU."""
@@ -777,7 +846,8 @@ def make_tree_transition(physics: str, data: dict, dim: int, metric_inv, *,
         q_in = cast(q)
         eps_c = torch.as_tensor(eps, dtype=dt, device=dev).expand(c) \
             .contiguous()
-        draws = dict(key=key, sqrt_mass=sqrt_mass if refresh_inside else None)
+        draws = dict(key=key, sqrt_mass=sqrt_mass if refresh_inside else None,
+                     ckpt_bf16=ckpt_bf16)
         mom = None if momentum is None else cast(momentum)
         d32 = None if directions is None else direction_words_int32(
             torch.as_tensor(directions, device=dev))
@@ -814,7 +884,7 @@ def make_tree_transition(physics: str, data: dict, dim: int, metric_inv, *,
         out = tree_sweep(
             q_state, eps_col, phys, minv, max_depth, min_delta, n_sweep,
             key=philox.draw_key(gen), sqrt_mass=sqrt_mass, valid=valid_col,
-            out=buf)
+            out=buf, ckpt_bf16=ckpt_bf16)
         return out.q, out.logp, out.grad, _stats(out, dt)
 
     run_padded.block_c = block_c

@@ -38,16 +38,28 @@ JAX) and ``block_n``
 (``ops/tree.py::make_logistic_tree_transition``).  A route that runs no
 whole tree ignores them, as in JAX.
 
+``ckpt_bf16`` stores the kernel's two checkpoint stacks in bfloat16 (the
+turn checks read the rounded values), halving their shared memory.
+
+``post_step(gen, z) -> z`` runs after every transition of the warmup and
+sampling loops (``models/stoch_vol.py::make_asis_hook``);
+``tuning_chunk`` runs each tuning window in pieces of at most that many
+transitions (the metric estimated once per window, from its draws or from
+its streamed moments under ``TuningNUTS.stream``); ``draw_block`` samples
+in blocks of at most that many draws; ``collect_moments`` accumulates
+split-chain moments over every coordinate (``MCMCResult.sample_moments``,
+for ``diagnostics.split_rhat_from_moments``); ``sync_blocks`` fetches one
+small value after every chunk and block (:func:`value_fence`).
+
 Not ported yet, and refused with ``NotImplementedError``: meshes,
-checkpoints, sketches and streamed moments, chunked tuning and blocked
-sampling, ``post_step`` hooks, work-sorted scheduling, the options
-``use_kernels`` and ``fused_opts``, ``use_pallas="interpret"`` (JAX's
-Pallas interpreter: on a CPU tensor the port runs its plain versions
-already), the ``ckpt_bf16`` tree option, the whole tree where its kernel
-does not take the problem (``ops.tree.takes``: above D = 256 for eight
-schools, the funnel and logistic regression, above 2,048 or past the
-shared-memory bound for the others), and ``tree_opts`` on tile physics
-without a device function.  The whole-tree kernel is ported, with a
+checkpoints, sketches, ``store_draws``, work-sorted scheduling, the
+options ``use_kernels`` and ``fused_opts``, ``use_pallas="interpret"``
+(JAX's Pallas interpreter: on a CPU tensor the port runs its plain
+versions already), the whole tree where its kernel does not take the
+problem (``ops.tree.takes``: above D = 256 for eight schools, the funnel
+and logistic regression, above 2,048 or past the shared-memory bound for
+the others), and ``tree_opts`` on tile physics without a device
+function.  The whole-tree kernel is ported, with a
 diagonal and a dense metric, for ``diag_gaussian``, ``dense_gaussian`` and
 ``logistic`` models and the ``"eight_schools"``, ``"funnel"`` and
 ``"stoch_vol"`` tile physics; the Gaussian, the dense Gaussian and
@@ -59,7 +71,7 @@ from __future__ import annotations
 
 import contextlib
 import math
-from typing import NamedTuple, Optional, Sequence, Tuple, Union
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -102,12 +114,15 @@ _TREE_NOT_PORTED = {"tile_logp": "the port has no hand-written device "
 class MCMCResult(NamedTuple):
     """Chain output: ``draws`` is ``[n_draws, n_chains, dim]``; ``stats`` are
     per-transition :class:`TreeStats` (``[n_draws, n_chains]`` fields);
-    ``warmup_state`` holds the adapted metric and eps."""
+    ``warmup_state`` holds the adapted metric and eps; ``sample_moments``
+    the split-chain moments over every coordinate when the run asked for
+    ``collect_moments`` (for ``diagnostics.split_rhat_from_moments``)."""
 
     draws: torch.Tensor
     stats: TreeStats
     warmup_state: WarmupState
     warmup_stats: Optional[TreeStats] = None
+    sample_moments: Optional[W.SplitMoments] = None
 
 
 class NoProgressReport:
@@ -120,6 +135,14 @@ class NoProgressReport:
 
     def end_stage(self, **info):
         pass
+
+
+def value_fence(x) -> float:
+    """Wait for ``x`` (a tensor, or an ``EvalPoint``: its ``logp``) by
+    fetching its sum: the fence of ``sync_blocks``, one small copy to the
+    host, so that at most one block's work is queued at a time."""
+    x = getattr(x, "logp", x)
+    return float(torch.sum(x))
 
 
 @contextlib.contextmanager
@@ -256,11 +279,13 @@ class NUTSKernel:
     interpreter) raises ``NotImplementedError``: on a CPU tensor every
     wrapper runs its plain version already.
 
-    The factories are called once per tuning window and for the sampling
-    loop, with that stage's metric.  ``tree_opts`` configure the whole-tree
-    kernel; with ``padded_io`` the factory builds an ``n_sweep = 1``
-    transition for the tuning windows and attaches a
-    :class:`~.adapt.warmup.SweepRunner` to it for the sampling loop.
+    The factories are called once per tuning window (or chunk of one) and
+    for the sampling loop (or block of it), with that stage's metric.
+    ``tree_opts`` configure the whole-tree kernel; with ``padded_io`` the
+    factory builds an ``n_sweep = 1`` transition for the tuning windows and
+    attaches a :class:`~.adapt.warmup.SweepRunner` to it for the sampling
+    loop.  ``post_step(gen, z) -> z`` runs after every transition (the
+    sampling loop then takes one transition at a time).
     """
 
     #: chains from which a ``diag_gaussian`` model runs the whole-tree
@@ -275,7 +300,8 @@ class NUTSKernel:
 
     def __init__(self, model: Model, algorithm: NUTS = NUTS(),
                  pooled: bool = True, tree_opts: Optional[dict] = None,
-                 use_pallas: str = "auto"):
+                 use_pallas: str = "auto",
+                 post_step: Optional[Callable] = None):
         if use_pallas == "interpret":
             raise NotImplementedError(
                 "use_pallas='interpret' runs the JAX package's Pallas "
@@ -289,6 +315,7 @@ class NUTSKernel:
         self.algorithm = algorithm
         self.pooled = pooled
         self.use_pallas = use_pallas
+        self.post_step = post_step
         self.step_factory = None
         self.transition_factory = None
         st = model.structure
@@ -305,11 +332,12 @@ class NUTSKernel:
         forced = use_pallas == "tree"
         if tree is not None:
             physics, data = tree
-            takes = tree_takes(model.dim, algorithm.max_depth, physics)
+            bf16 = bool(topts.get("ckpt_bf16", False))
+            takes = tree_takes(model.dim, algorithm.max_depth, physics, bf16)
             if forced and not takes:
                 raise NotImplementedError(
                     "use_pallas='tree': " + tree_refusal(
-                        model.dim, algorithm.max_depth, physics))
+                        model.dim, algorithm.max_depth, physics, bf16))
             # padded/sweep options drive the sampling loop only (tuning
             # adapts eps per transition, which an in-kernel sweep cannot)
             sweep_k = int(topts.pop("n_sweep", 1))
@@ -363,9 +391,22 @@ class NUTSKernel:
                                                    self.TREE_MIN_CHAINS)
 
     def warmup(self, gen: torch.Generator, state: WarmupState,
-               stages: Sequence, reporter=None) -> Tuple[WarmupState, list]:
+               stages: Sequence, reporter=None,
+               tuning_chunk: Optional[int] = None, sync_blocks: bool = False,
+               chunk_hook: Optional[Callable] = None
+               ) -> Tuple[WarmupState, list]:
         """Run the stage sequence; returns the adapted state and the tuning
-        windows' tree statistics."""
+        windows' tree statistics.
+
+        ``tuning_chunk`` runs each tuning window in chunks of at most that
+        many transitions, with a check of the step size after each; the
+        dual-averaging and streamed-moment carries thread across the
+        chunks, and the metric is estimated once per window.
+        ``chunk_hook(gen, z) -> z``, a posterior-invariant kernel, runs
+        after every chunk (after every window without ``tuning_chunk``).
+        ``sync_blocks`` fetches a small value after every chunk."""
+        if tuning_chunk is not None and tuning_chunk < 1:
+            raise ValueError(f"tuning_chunk must be >= 1, got {tuning_chunk}")
         reporter = reporter or NoProgressReport()
         warmup_stats = []
         for stage in stages:
@@ -391,19 +432,51 @@ class NUTSKernel:
                     raise ValueError(
                         "TuningNUTS stage needs an eps: provide `eps=` or "
                         "keep InitialStepsizeSearch in the schedule")
-                res = W.run_tuning(
-                    gen, self.potential, stage, self.algorithm, state,
-                    pooled=self.pooled, step_factory=self.step_factory,
-                    transition_factory=self.transition_factory)
-                state = res.state
-                warmup_stats.append(res.stats)
+                state, stats = self._tuning_window(
+                    gen, stage, state, tuning_chunk, sync_blocks, chunk_hook)
+                warmup_stats.append(stats)
                 _check_eps_sane(state.log_eps, f"tuning window ({stage.n})",
-                                res.stats)
+                                stats)
                 reporter.end_stage(
                     eps=float(torch.exp(torch.atleast_1d(state.log_eps))[0]))
             else:
                 raise TypeError(f"unknown warmup stage {stage!r}")
         return state, warmup_stats
+
+    def _tuning_window(self, gen: torch.Generator, stage: TuningNUTS,
+                       state: WarmupState, tuning_chunk, sync_blocks: bool,
+                       chunk_hook):
+        """One tuning window in chunks of ``tuning_chunk`` transitions (one
+        chunk of ``stage.n`` without it); returns the closed window's state
+        and its tree statistics."""
+        fused = dict(pooled=self.pooled, step_factory=self.step_factory,
+                     transition_factory=self.transition_factory,
+                     post_step=self.post_step)
+        step = tuning_chunk or stage.n
+        da = W.init_dual_averaging(stage, state)
+        mom = W.init_stream_moments(stage, state.z)
+        z, done, parts = state.z, 0, []
+        while done < stage.n:
+            nb = min(step, stage.n - done)
+            res = W.run_tuning_chunk(gen, self.potential, stage,
+                                     self.algorithm, state._replace(z=z), da,
+                                     nb, mom=mom, **fused)
+            z, da, mom = res.z, res.da, res.mom
+            if chunk_hook is not None:
+                z = chunk_hook(gen, z)
+            parts.append(res)
+            done += nb
+            if da is not None:
+                # the step size checked once per chunk inside the window
+                _check_eps_sane(torch.log(W.da_current_eps(da)),
+                                f"tuning chunk {done}/{stage.n}", res.stats)
+            if sync_blocks:
+                value_fence(z)
+        draws = None if parts[0].draws is None else _cat0(
+            [r.draws for r in parts])
+        state = W.finalize_tuning(stage, state, z, da, draws, self.pooled,
+                                  mom)
+        return state, W.cat_stats([r.stats for r in parts])
 
     def run(self, gen: torch.Generator, n_draws: int, n_chains: int = 1, *,
             warmup_stages: Optional[Sequence] = None,
@@ -414,9 +487,20 @@ class NUTSKernel:
             device="cuda",
             reporter=None,
             thin: int = 1,
-            keep_dims: Optional[Sequence[int]] = None) -> MCMCResult:
+            keep_dims: Optional[Sequence[int]] = None,
+            draw_block: Optional[int] = None,
+            tuning_chunk: Optional[int] = None,
+            collect_moments: bool = False,
+            sync_blocks: bool = False) -> MCMCResult:
         """Warmup, then ``n_draws`` recorded draws, ``thin`` transitions
-        each; ``keep_dims`` records only those coordinates."""
+        each; ``keep_dims`` records only those coordinates.  ``draw_block``
+        samples in blocks of at most that many draws (the state, and the
+        moments, carried from block to block); ``tuning_chunk`` runs the
+        tuning windows in chunks (:meth:`warmup`); ``collect_moments``
+        accumulates split-chain
+        moments over every coordinate into ``sample_moments``;
+        ``sync_blocks`` fetches a small value after every chunk and
+        block."""
         reporter = reporter or NoProgressReport()
         if warmup_stages is None:
             warmup_stages = default_warmup_stages()
@@ -424,33 +508,59 @@ class NUTSKernel:
             state = W.init_warmup_state(gen, self.potential, self.model.dim,
                                         n_chains, dtype, device, q=q,
                                         metric=metric, eps=eps)
-            state, warmup_stats = self.warmup(gen, state, warmup_stages,
-                                              reporter)
+            state, warmup_stats = self.warmup(
+                gen, state, warmup_stages, reporter,
+                tuning_chunk=tuning_chunk, sync_blocks=sync_blocks)
             reporter.start_stage(f"sampling {n_draws} draws x "
                                  f"{state.z.q.shape[0]} chains", n_draws)
-            out = W.run_sampling(
-                gen, self.potential, self.algorithm, state, n_draws,
-                step_factory=self.step_factory,
-                transition_factory=self.transition_factory, thin=thin,
-                keep_dims=keep_dims)
+            out = self._sample(gen, state, n_draws, thin, keep_dims,
+                               draw_block, collect_moments, sync_blocks)
             reporter.end_stage()
-        ws = None
-        if warmup_stats:
-            ws = TreeStats(*(torch.cat(f, dim=0)
-                             for f in zip(*warmup_stats)))
+        ws = W.cat_stats(warmup_stats) if warmup_stats else None
         return MCMCResult(
             draws=out.draws, stats=out.stats,
             warmup_state=WarmupState(z=out.z, metric=state.metric,
                                      log_eps=state.log_eps),
-            warmup_stats=ws)
+            warmup_stats=ws, sample_moments=out.moments)
+
+    def _sample(self, gen: torch.Generator, state: WarmupState,
+                n_draws: int, thin: int, keep_dims, draw_block,
+                collect_moments: bool, sync_blocks: bool):
+        """The sampling loop in blocks of ``draw_block`` draws (one block of
+        ``n_draws`` without it)."""
+        if draw_block is not None and draw_block < 1:
+            raise ValueError(f"draw_block must be >= 1, got {draw_block}")
+        mom = W.init_split_moments(state.z.q) if collect_moments else None
+        kw = dict(step_factory=self.step_factory,
+                  transition_factory=self.transition_factory, thin=thin,
+                  keep_dims=keep_dims, post_step=self.post_step)
+        block = draw_block or n_draws
+        blocks, done, z = [], 0, state.z
+        while done < n_draws:
+            nb = min(block, n_draws - done)
+            blk = W.run_sampling(gen, self.potential, self.algorithm,
+                                 state._replace(z=z), nb, moments0=mom,
+                                 moment_offset=done, moment_total=n_draws,
+                                 **kw)
+            z, mom = blk.z, blk.moments
+            blocks.append(blk)
+            done += nb
+            if sync_blocks:
+                value_fence(z)
+        return W.SamplingResult(
+            z=z, draws=_cat0([b.draws for b in blocks]),
+            stats=W.cat_stats([b.stats for b in blocks]), moments=mom)
+
+
+def _cat0(parts):
+    """Consecutive parts joined along the draws (the one part itself)."""
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
 
 
 #: options of the JAX drivers that the port does not run yet
-_NOT_PORTED = ("draw_block", "tuning_chunk", "warmup_checkpoint_path",
-               "sample_checkpoint_path", "collect_moments",
-               "collect_sketch", "store_draws", "sync_blocks",
-               "checkpoint_throttle_s", "fused_opts", "post_step",
-               "schedule", "use_kernels")
+_NOT_PORTED = ("warmup_checkpoint_path", "sample_checkpoint_path",
+               "collect_sketch", "store_draws", "checkpoint_throttle_s",
+               "fused_opts", "schedule", "use_kernels")
 
 
 def _tree_options(st: Optional[dict], use_pallas: str,
@@ -476,10 +586,6 @@ def _tree_options(st: Optional[dict], use_pallas: str,
         raise ValueError(
             f"tree_opts {sorted(unknown)} not supported for model kind "
             f"{kind!r} (allowed: {sorted(allowed)})")
-    if topts.pop("ckpt_bf16", False):
-        raise NotImplementedError(
-            "tree_opts ckpt_bf16 (bf16 checkpoint stacks) is not ported to "
-            "inplacedhmc_tpu_torch yet (ROADMAP queue 2 item 1 (e))")
     return topts
 
 
@@ -507,13 +613,19 @@ def mcmc_with_warmup(seed: Union[int, torch.Generator], model: Model,
                      keep_dims: Optional[Sequence[int]] = None,
                      tree_opts: Optional[dict] = None,
                      use_pallas: str = "auto",
+                     post_step: Optional[Callable] = None,
+                     draw_block: Optional[int] = None,
+                     tuning_chunk: Optional[int] = None,
+                     collect_moments: bool = False,
+                     sync_blocks: bool = False,
                      **not_ported) -> MCMCResult:
     """NUTS with the default windowed warmup on ``device``.  ``delta`` is the
     dual-averaging target acceptance rate; ``pooled`` defaults to
     ``n_chains > 1``; ``seed`` is an int or a ``torch.Generator`` on
-    ``device``; ``thin``, ``keep_dims``, ``tree_opts`` and ``use_pallas``
-    as in the JAX package (see the module docstring and
-    :class:`NUTSKernel`)."""
+    ``device``; ``thin``, ``keep_dims``, ``tree_opts``, ``use_pallas``,
+    ``post_step``, ``draw_block``, ``tuning_chunk``, ``collect_moments``
+    and ``sync_blocks`` as in the JAX package (see the module docstring,
+    :class:`NUTSKernel` and :meth:`NUTSKernel.run`)."""
     _refuse(not_ported)
     if pooled is None:
         pooled = n_chains > 1
@@ -521,11 +633,13 @@ def mcmc_with_warmup(seed: Union[int, torch.Generator], model: Model,
         warmup_stages = default_warmup_stages(
             stepsize_adaptation=DualAveraging(delta=delta))
     kern = NUTSKernel(model, algorithm, pooled, tree_opts=tree_opts,
-                      use_pallas=use_pallas)
+                      use_pallas=use_pallas, post_step=post_step)
     return kern.run(make_generator(seed, device), n_draws, n_chains,
                     warmup_stages=warmup_stages, q=q, metric=metric, eps=eps,
                     dtype=dtype, device=device, reporter=reporter, thin=thin,
-                    keep_dims=keep_dims)
+                    keep_dims=keep_dims, draw_block=draw_block,
+                    tuning_chunk=tuning_chunk,
+                    collect_moments=collect_moments, sync_blocks=sync_blocks)
 
 
 def sample(seed: Union[int, torch.Generator], model: Model, n_draws: int,

@@ -1357,3 +1357,119 @@ def test_cuda_wide_wrapper_refuses_what_the_kernel_does_not_take():
     torch.cuda.synchronize()
     assert tree.TREE_GAUSSIAN.launches == before + 1
     assert bool(torch.isfinite(out.q).all())
+
+
+# K5's bfloat16 checkpoint stacks (ckpt_bf16): inside one register, one
+# warp's fourth, one past a warp (the wide form), config 5's T = 1,000 and
+# the largest D
+BF16_DIMS = [32, 100, 257, 1002, 2048]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["diag", "dense"])
+@pytest.mark.parametrize("d", BF16_DIMS)
+def test_cuda_ckpt_bf16_matches_plain_version(metric, d):
+    """K5 with bfloat16 checkpoint stacks against its plain version with
+    them (each store rounded to bfloat16, to nearest even, the turn checks
+    on the rounded values), stochastic volatility at T = D - 2 under a
+    diagonal and a dense metric, at a deep step size (max_depth 7), the
+    uniforms drawn in the kernel: ``_compare_any_field`` (a rounding of the
+    same float32 value is the same on both sides; the row sums differ as
+    with float32 stacks); every launch counted as a bfloat16 one; the
+    termination agrees with float32 stacks on at least 90 % of chains
+    (``tests/test_tree_pallas.py``'s check of the JAX kernel)."""
+    _needs_card()
+    c, md = 40, 7
+    q, phys, minv, _ = _sv(130 + d, c, d - 2, metric)
+    e = torch.full((c,), 0.02, device="cuda")
+    key = _key(d + 131)
+    xi, dirs, unif = tree.philox_draws(key, c, d, md)
+    p0 = tree.refresh_momentum(_scale(minv), xi[0]).contiguous()
+    kern = (tree.TREE_DENSE_KERNELS if metric == "dense"
+            else tree.TREE_KERNELS)["stoch_vol"]
+    before = tree.CKPT_BF16_LAUNCHES.get(kern.symbol, 0)
+    got = tree.tree_transition(q, p0, e, dirs[0], None, phys, minv, md,
+                               -1000.0, key=key, ckpt_bf16=True)
+    torch.cuda.synchronize()
+    assert tree.CKPT_BF16_LAUNCHES[kern.symbol] == before + 1
+    want = tree.tree_transition_plain(q, p0, e, dirs[0], unif[0], phys, minv,
+                                      md, -1000.0, ckpt_bf16=True)
+    _compare_any_field(got, want, c, c // 20, lsa_bound=d > 256)
+    for f in ("q", "logp", "grad", "energy"):
+        assert bool(torch.isfinite(getattr(got, f)).all()), f
+    assert float(want.depth.double().mean()) >= 3
+    f32 = tree.tree_transition(q, p0, e, dirs[0], None, phys, minv, md,
+                               -1000.0, key=key)
+    agree = ((got.term == f32.term) & (got.depth == f32.depth)).double()
+    assert float(agree.mean()) >= 0.9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 100, 300])
+def test_cuda_ckpt_bf16_rounding_decides_turns(d):
+    """On inputs where the rounding decides turns (those of
+    ``tests/test_torch_ckpt_bf16.py``: max_depth 8, eps 0.005, M^-1 1e-6
+    past coordinate 0, standard normal momenta), 1,024 chains in the
+    one-warp form (D = 1, 100) and the wide form (D = 300): the kernel's
+    integer records with bfloat16 stacks differ from its float32 ones on
+    some chains, and on each of those equal the plain version's with
+    bfloat16 stacks; the launch agrees with that plain version by
+    ``_compare_any_field``.  A kernel that skipped the rounding, or cut the
+    mantissa, ends those chains otherwise."""
+    _needs_card()
+    c, md = 1024, 8
+    x = _gaussian(150 + d, c, d, md)
+    x["minv"][1:] = 1e-6
+    e = torch.full((c,), 0.005, device="cuda")
+    dirs = tree.direction_words_int32(x["dirs"])
+    args = (x["q"], x["p"], e, dirs, x["unif"], x["lam"], x["minv"], md,
+            -1000.0)
+    got = tree.gaussian_tree_transition(*args, ckpt_bf16=True)
+    got32 = tree.gaussian_tree_transition(*args)
+    want = tree.gaussian_tree_transition_plain(*args, ckpt_bf16=True)
+
+    def ints_differ(a, b):
+        bad = torch.zeros((c,), dtype=torch.bool, device="cuda")
+        for f in INT_OUT:
+            bad |= getattr(a, f) != getattr(b, f)
+        return bad
+
+    flip = ints_differ(got, got32)
+    assert int(flip.sum()) >= 1
+    assert int((flip & ints_differ(got, want)).sum()) == 0
+    _compare_any_field(got, want, c, c // 100, lsa_bound=d > 256)
+
+
+@pytest.mark.cuda
+def test_cuda_ckpt_bf16_lifts_the_wide_bound():
+    """At D = 2,048 the wrapper refuses max_depth 14 with float32 stacks
+    and launches it, and max_depth 26, with bfloat16 ones (half the
+    shared memory); max_depth 27 is refused with both.  The bfloat16
+    launch at max_depth 14 agrees with its plain version.  The occupancy
+    query answers for both stack types at config 5's D = 1,002."""
+    _needs_card()
+    x = _gaussian(140, 16, 2048, 14)
+    e = torch.full((16,), 0.3, device="cuda")
+    dirs = tree.direction_words_int32(x["dirs"])
+    key = _key(141)
+    args = (x["q"], x["p"], e, dirs, None, x["lam"], x["minv"])
+    with pytest.raises(ValueError, match="shared memory"):
+        tree.gaussian_tree_transition(*args, 14, -1000.0, key=key)
+    with pytest.raises(ValueError, match="shared memory"):
+        tree.gaussian_tree_transition(*args, 27, -1000.0, key=key,
+                                      ckpt_bf16=True)
+    got = tree.gaussian_tree_transition(*args, 14, -1000.0, key=key,
+                                        ckpt_bf16=True)
+    _, _, unif = tree.philox_draws(key, 16, 2048, 14)
+    want = tree.gaussian_tree_transition_plain(
+        x["q"], x["p"], e, dirs, unif[0], x["lam"], x["minv"], 14, -1000.0,
+        ckpt_bf16=True)
+    _compare_any_field(got, want, 16, 0, lsa_bound=True)
+    deep = tree.gaussian_tree_transition(*args, 26, -1000.0, key=key,
+                                         ckpt_bf16=True)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(deep.q).all())
+    for dense in (False, True):
+        blocks = [tree.blocks_per_sm("stoch_vol", 1002, 10, dense, b)
+                  for b in (False, True)]
+        assert min(blocks) >= 1, blocks

@@ -97,8 +97,8 @@ def test_sample_dense_schedule_recovers_coefficients():
 
 @pytest.mark.parametrize("option", [
     {"mesh": object()}, {"warmup_checkpoint_path": "x"},
-    {"collect_sketch": object()}, {"tuning_chunk": 5}, {"draw_block": 4},
-    {"use_kernels": "tree"}])
+    {"collect_sketch": object()}, {"sample_checkpoint_path": "x"},
+    {"store_draws": False}, {"use_kernels": "tree"}])
 def test_options_not_ported_are_refused(option):
     model = logistic_regression(np.zeros((4, 2), np.float32),
                                 np.zeros(4, np.float32), device="cpu")

@@ -265,8 +265,8 @@ def test_swept_run_sampling_matches_hand_loop():
     ``SweepRunner``) is exactly the hand loop over ``run_padded`` with the
     same generator: thinning of draws and stats, ``keep_dims``, the padding
     of 21 chains to 24 by ``block_c = 8``, and the final state recomputed
-    from the carried position (``tests/test_tree_pallas.py``'s counterpart,
-    without the split moments, which the port has not ported)."""
+    from the carried position (``tests/test_tree_pallas.py``'s counterpart;
+    its split moments: ``tests/test_torch_stream.py``)."""
     k, thin, n_draws, c, dim = 4, 2, 8, 21, 6
     kern = NUTSKernel(std_normal(dim, device="cpu"), NUTS(max_depth=5),
                       tree_opts={"block_c": 8, "n_sweep": k,
@@ -379,12 +379,14 @@ def test_sample_flagship_options_on_the_cpu():
 @pytest.mark.parametrize("opts,error", [
     ({"nsweep": 4}, ValueError),
     ({"n_sweep": 4, "padded_io": False}, ValueError),
-    ({"ckpt_bf16": True}, NotImplementedError),
+    ({"ckpt_bf16": True, "grad_bf16": True}, ValueError),
     ({"block_c": 12, "padded_io": True}, ValueError)])
 def test_tree_opts_are_checked(opts, error):
     """Unknown keys and ``n_sweep > 1`` without ``padded_io`` raise
-    ``ValueError`` as in JAX; ``ckpt_bf16`` is not ported; a ``block_c``
-    that is not a multiple of 8 is refused when the route is built."""
+    ``ValueError`` as in JAX; beside ``ckpt_bf16``, which the port takes, a
+    key of logistic regression's alone is refused for a Gaussian; a
+    ``block_c`` that is not a multiple of 8 is refused when the route is
+    built."""
     model = std_normal(3, device="cpu")
     with pytest.raises(error):
         kern = NUTSKernel(model, tree_opts=opts)

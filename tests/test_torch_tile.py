@@ -416,10 +416,11 @@ def test_routes_of_tile_models(monkeypatch):
 @pytest.mark.parametrize("opts,error,match", [
     ({"n_sweep": 2, "padded_io": False}, ValueError, "padded_io"),
     ({"nsweep": 2}, ValueError, "not supported"),
-    ({"ckpt_bf16": True}, NotImplementedError, "item 1 \\(e\\)")])
+    ({"ckpt_bf16": True, "grad_bf16": True}, ValueError, "not supported")])
 def test_tree_opts_on_tile_models(opts, error, match):
     """``tree_opts`` on a tile model with a device physics are checked as
-    for Gaussians; on one without, refused, saying what it lacks."""
+    for Gaussians (``ckpt_bf16`` taken, a key of logistic regression's alone
+    refused); on one without, refused, saying what it lacks."""
     with pytest.raises(error, match=match):
         NUTSKernel(eight_schools(device="cpu"), tree_opts=opts)
     other = Model(name="t", dim=2, logp=lambda q: -(q * q).sum(-1),

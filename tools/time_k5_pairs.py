@@ -2,7 +2,9 @@
 """Time K5's launchers of two checkouts against each other on one card.
 
 Builds ``tree_<physics>.cu`` of this checkout and of the checkout
-``--old`` (the same C interface, ``TREE_LAUNCH_PARAMS``), then for each
+``--old`` (the C interface ``TREE_LAUNCH_PARAMS``; an older checkout whose
+launchers take no ``ckpt_bf16`` argument is called without it, and this
+checkout's launches then run float32 stacks as it does), then for each
 case launches both on the same inputs (the same key: their outputs must be
 equal bit for bit) in ``--pairs`` alternating pairs, old then new, new
 then old, each side timed with CUDA events as the mean of ``--reps``
@@ -77,6 +79,12 @@ def main() -> int:
     from inplacedhmc_tpu_torch.ops.cuda_build import CudaKernel, build_all
 
     old_dir = os.path.abspath(args.old)
+    with open(os.path.join(old_dir, "inplacedhmc_tpu_torch", "csrc",
+                           "tree_kernel.cuh")) as f:
+        old_takes_bf16 = "ckpt_bf16" in f.read()
+    # the ckpt_bf16 argument's place among the launcher's arguments: before
+    # min_delta and the stream
+    at = len(tree.TREE_DENSE_KERNELS["stoch_vol"].argtypes) - 3
 
     class OldKernel(CudaKernel):
         @property
@@ -84,10 +92,19 @@ def main() -> int:
             return os.path.join(old_dir, "inplacedhmc_tpu_torch", "csrc",
                                 self.source)
 
+        def launch(self, *a):
+            if not old_takes_bf16:
+                if a[at]:
+                    raise ValueError("the old checkout has no bf16 stacks")
+                a = a[:at] + a[at + 1:]
+            super().launch(*a)
+
     physics = sorted({"logistic" if c == "logistic" else "stoch_vol"
                       for c in args.cases})
     new = {p: tree.TREE_DENSE_KERNELS[p] for p in physics}
-    old = {p: OldKernel(k.source, k.symbol, k.argtypes)
+    old = {p: OldKernel(k.source, k.symbol,
+                        k.argtypes if old_takes_bf16
+                        else k.argtypes[:at] + k.argtypes[at + 1:])
            for p, k in new.items()}
     build_all(list(new.values()))   # one nvcc per source and checkout
     build_all(list(old.values()))
