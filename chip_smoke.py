@@ -14,9 +14,18 @@ Phases, each printed with its wall time:
 2. hold each kernel against its plain PyTorch version at its main path's
    full width and time the kernel, the plain version and, where there is
    one, a library composition of the same function, beside the card's
-   bound: K1 (logistic value and gradient, 8192 x 10,000 x 50), K3 (the
+   bound: K1 (logistic value and gradient, 8192 x 10,000 x 50, and with
+   ``grad_bf16``, five times nearer its plain version than the float32
+   backward), K2 (the packed split-bf16 forward on the tensor cores, at
+   8192 x 10,000 x 50, nearer its plain version than K1, and at D = 1, 17
+   and 64 with C and N off the tiles, then on inputs whose dropped lo.lo
+   terms add up: ten times nearer its plain version than K1), K3 (the
    fused Gaussian leapfrog, at 64 x 1000 as the lockstep run of phase 7
-   gives it, and at 10,240 x 100) and K5 (the whole-tree NUTS transition,
+   gives it, and at 10,240 x 100), K4 (the multi-step leapfrog, 10,240 x
+   100 at k = 64 and 64 x 1000 at k = 7, against its plain version and
+   against k chained K3 launches), then ``tools/roofline_torch.py
+   --quick``, K4's own path (K3, K4, K1 against the card's peaks), and K5
+   (the whole-tree NUTS transition,
    10,240 x 100, max_depth 10, at three step sizes, in each of its three
    forms: the explicit uniform array, the uniforms drawn in the kernel, and
    everything drawn in the kernel, each against the plain version fed the
@@ -57,7 +66,10 @@ Phases, each printed with its wall time:
    take, and the blocks per SM of both stack types at D = 1,002;
 3. ``sample()`` on BASELINE config 3 (logistic regression, 10,000 x 50 data
    from a seed, 8192 chains, dense metric, a short warmup schedule, 128
-   draws) through K1; then the same through K5-logistic
+   draws) through K1; the same with ``fused_opts={"fwd_precision":
+   "packed"}`` through K2 (no K1 launch), its acceptance beside K1's; 128
+   draws with ``fused_opts={"grad_bf16": True}`` from K1's tuned state
+   (K1 with the option at every launch); then the same through K5-logistic
    (``use_pallas="tree"``), no K1 launch, and with the flagship
    ``tree_opts`` from its tuned state; the crossover of K5-logistic
    against the lockstep tree with K1 at 1, 64, 1,024 and 8192 chains at
@@ -142,6 +154,10 @@ import sys
 import time
 from typing import Optional
 
+# the card's line and the H100's peaks, shared with tools/roofline_torch.py
+from tools.card import (PEAK_BF16_TC, PEAK_BYTES, PEAK_FP32_FLOPS,  # noqa
+                        PEAK_SFU, card_line)
+
 SEED = 20261017
 C, N, D = 8192, 10_000, 50        # chains, observations, features
 N_DRAWS = 128
@@ -202,13 +218,6 @@ LONG_SUM_NEED: dict = {}   # the largest K each field needed in this run
 # max |grad| with ten times the room.
 LOGP_TOL = 1e-5   # |logp - ref| / sum_n |term_n|
 GRAD_TOL = 1e-4   # |grad - ref| / max |ref grad|
-PEAK_FP32_FLOPS = 67e12           # H100 SXM, fp32 outside the tensor cores
-PEAK_BYTES = 3.35e12              # H100 SXM HBM3
-# special functions (expf, logf, log1pf, cosf, sqrtf: one MUFU instruction
-# each at the core of each) on an H100 SXM: 16 results per clock per SM
-# (CUDA C Programming Guide, throughput table, compute capability 9.0),
-# 132 SMs at the 1,980 MHz boost clock
-PEAK_SFU = 132 * 16 * 1.98e9
 # the tree's own per leaf: log of the proposal uniform, exp(min(delta, 0)),
 # and the exp and log1p of the progressive logaddexp
 TREE_SFU_PER_LEAF = 4
@@ -236,6 +245,14 @@ PHYSICS_LANE_SFU = {"stoch_vol": 1}
 # and log1p: 2 special functions.  Per chain the prior's 3 per lane
 # (|q|^2, -inv_var q and its sum) and the two sums' 6.
 LOGISTIC_OBS_FLOPS, LOGISTIC_OBS_SFU = 12, 2
+# K2 (the packed split-bf16 forward) beside config 3's shape: C and N off
+# the kernel's 32-chain block and 64-observation tile, at the smallest,
+# an odd and the largest D it takes
+PACKED_CASES = ((200, 1_000, 1), (1_000, 2_049, 17), (8_001, 4_100, 64))
+PAIRS = 4                         # alternating pairs of K2 and K1 times
+# K4 (the multi-step leapfrog) at the roofline harness's shape and step
+# count, and at the 1000-D lockstep shape with an odd count
+MULTISTEP_CASES = ((G_CHAINS, G_DIM, 64), (S_CHAINS, W_DIM, 7))
 # K5's generator: the normals may differ from torch's by the rounding of
 # logf, cosf (1-2 ulp each) scaled by sqrt(-2 log u1) <= 5.8; 16 ulp of
 # max(1, |x|) bounds that.  Direction words and uniforms are integer work
@@ -343,13 +360,6 @@ SWEEP_KS = (1, 4, 16, 64)         # the n_sweep values the bench times
 BENCH_EPS, BENCH_TRANSITIONS, PROBE_EPS = 0.25, 64, 0.005  # bench.py's
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    return out.stdout.strip().splitlines()[0]
-
-
 def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean device time of ``fn()`` over ``iters`` calls, by CUDA events.
     The stream first sleeps for about 30 ms, so that the host queues all
@@ -398,12 +408,14 @@ def timed(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def bound(flops: float, nbytes: float, sfu: float = 0.0):
+def bound(flops: float, nbytes: float, sfu: float = 0.0,
+          tc_flops: float = 0.0):
     """The least time of the work on an H100 SXM, in ms, and what sets it:
     the operations (fp32 at the fp32 rate, special functions at the SFU
-    rate; the two pipes run side by side, so the larger) or the bytes at
-    the memory rate."""
-    t_ops = max(flops / PEAK_FP32_FLOPS, sfu / PEAK_SFU)
+    rate, bf16 products at the tensor cores' rate; the pipes run side by
+    side, so the largest) or the bytes at the memory rate."""
+    t_ops = max(flops / PEAK_FP32_FLOPS, sfu / PEAK_SFU,
+                tc_flops / PEAK_BF16_TC)
     t_bytes = nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
@@ -413,11 +425,14 @@ def build_kernels():
     """Build every kernel of the main paths, one nvcc process per source,
     all started together."""
     from inplacedhmc_tpu_torch.ops.cuda_build import build_all
-    from inplacedhmc_tpu_torch.ops.leapfrog import LEAPFROG_GAUSSIAN
-    from inplacedhmc_tpu_torch.ops.logistic import LOGISTIC_VG
+    from inplacedhmc_tpu_torch.ops.leapfrog import (LEAPFROG_GAUSSIAN,
+                                                    LEAPFROG_MULTISTEP)
+    from inplacedhmc_tpu_torch.ops.logistic import (LOGISTIC_PACKED,
+                                                    LOGISTIC_VG)
     from inplacedhmc_tpu_torch.ops.tree import (TREE_DENSE_KERNELS,
                                                 TREE_KERNELS)
-    kernels = [LOGISTIC_VG, LEAPFROG_GAUSSIAN, *TREE_KERNELS.values(),
+    kernels = [LOGISTIC_VG, LOGISTIC_PACKED, LEAPFROG_GAUSSIAN,
+               LEAPFROG_MULTISTEP, *TREE_KERNELS.values(),
                *TREE_DENSE_KERNELS.values()]
     build_all(kernels)
     for k in kernels:
@@ -439,18 +454,43 @@ def launch_counts(kernels) -> dict:
     return {k.symbol: k.launches for k in kernels}
 
 
-def _library_logistic(q, x, y, w, s2):
+def _library_logistic(q, x, y, w, s2, grad_bf16: bool = False):
     """One library composition of the same function: cuBLAS products and
-    PyTorch's fused BCE-with-logits.  A yardstick only; the port never
-    calls it."""
+    PyTorch's fused BCE-with-logits; with ``grad_bf16`` the backward is
+    cuBLAS's bf16 product with float32 accumulation and output
+    (``torch.mm(..., out_dtype=torch.float32)``) on the residual and ``x``
+    rounded to bfloat16.  A yardstick only; the port never calls it."""
     import torch
     import torch.nn.functional as F
     eta = torch.matmul(q, x.T)
     nll = F.binary_cross_entropy_with_logits(
         eta, y.expand_as(eta), weight=w, reduction="none").sum(1)
     logp = -nll - 0.5 * s2 * (q * q).sum(1)
-    grad = torch.addmm(q, (y - torch.sigmoid(eta)) * w, x, beta=-s2)
+    resid = (y - torch.sigmoid(eta)) * w
+    if grad_bf16:
+        grad = torch.mm(resid.to(torch.bfloat16), x.to(torch.bfloat16),
+                        out_dtype=torch.float32).sub_(q, alpha=s2)
+    else:
+        grad = torch.addmm(q, resid, x, beta=-s2)
     return logp, grad
+
+
+def logistic_bound(c: int, n: int, d: int, form: str = "f32"):
+    """``bound()`` of one logistic evaluation at c x n x d, each operation
+    at its type's rate: the forward and backward products, 2 c n d flops
+    each, in fp32 unless ``form`` makes them bf16 (tensor-core rate):
+    ``"grad_bf16"`` the backward, ``"packed"`` the forward as three bf16
+    products (which also reads x's two bf16 halves); beside them the
+    per-observation work (``LOGISTIC_OBS_FLOPS``, ``LOGISTIC_OBS_SFU``).
+    Returns (ms, what sets it, fp32 flops, tensor-core flops, special
+    functions, bytes)."""
+    prod = 2.0 * c * n * d
+    tc = {"f32": 0.0, "grad_bf16": prod, "packed": 3 * prod}[form]
+    fp32 = prod * (1 if tc else 2) + LOGISTIC_OBS_FLOPS * c * n
+    sfu = LOGISTIC_OBS_SFU * c * n
+    nbytes = 4.0 * (c * d + n * d + 2 * n) + 4.0 * (c + c * d) \
+        + (2.0 * 2 * n * d if form == "packed" else 0.0)
+    return (*bound(fp32, nbytes, sfu, tc_flops=tc), fp32, tc, sfu, nbytes)
 
 
 def check_logistic_kernel(card: str) -> dict:
@@ -501,12 +541,11 @@ def check_logistic_kernel(card: str) -> dict:
     plain_ms = cuda_time_ms(
         lambda: logistic_value_and_grad_plain(qf, x, y, w, s2))
     library_ms = cuda_time_ms(lambda: _library_logistic(qf, x, y, w, s2))
-    flops = 4.0 * C * N * D
-    nbytes = 4.0 * (C * D + N * D + 2 * N) + 4.0 * (C + C * D)
-    bound_ms, bound_by = bound(flops, nbytes)
+    bound_ms, bound_by, flops, _, sfu, nbytes = logistic_bound(C, N, D)
     print(f"[k1] {card}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
           f"library {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-          f"({bound_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB), "
+          f"({bound_by}; {flops / 1e9:.2f} GFLOP fp32, {sfu / 1e9:.3f} G "
+          f"special functions, {nbytes / 1e6:.2f} MB), "
           f"{flops / ms / 1e9:.1f} TFLOP/s achieved")
     return {"name": "logistic_value_and_grad", "route": "cuda",
             "source": "inplacedhmc_tpu_torch/csrc/logistic_vg.cu",
@@ -514,6 +553,365 @@ def check_logistic_kernel(card: str) -> dict:
             "launches": None, "max_abs_err": abs_err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms}
+
+
+def _rel_errors(logp, grad, lp_ref, g_ref, scale, gscale, ok):
+    """The largest |logp - ref| / scale and |grad - ref| / gscale over the
+    finite chains, and the root mean square over chains of the first."""
+    lp = (logp.double() - lp_ref).abs()[ok] / scale[ok]
+    g = (grad.double() - g_ref).abs()[ok] / gscale[ok]
+    return lp.max().item(), g.max().item(), lp.square().mean().sqrt().item()
+
+
+def _packed_case(card: str, c: int, n: int, d: int, seed: int,
+                 timing: bool = False) -> dict:
+    """K2 against its plain version at c x n x d, with one NaN chain: the
+    reference is the plain version in float64 on the same bf16 halves
+    (exact there, and run with TF32 off), so the kernel's difference is its
+    own float32 sums.  logp to ``LOGP_TOL`` of sum_n |term_n|, each
+    gradient component to ``LOGP_TOL`` of sum_n |resid_n x_nd| (+ the
+    prior's |s2 q|).  Prints K1's distance from the same reference on the
+    same q.  With ``timing`` (config 3's shape) K2's logp must sit nearer
+    its reference than K1's does, in the root mean square over chains
+    (the gradient is printed only: K2's backward is K1's, so the two share
+    its rounding), and K2, its plain version, the library composition and
+    K1 are timed beside the bound, K2 and K1 in alternating pairs."""
+    import statistics
+
+    import torch
+
+    from inplacedhmc_tpu_torch.models import synthetic_data
+    from inplacedhmc_tpu_torch.ops.logistic import (
+        LOGISTIC_PACKED, logistic_value_and_grad,
+        logistic_value_and_grad_packed, logistic_value_and_grad_packed_plain,
+        split_bf16)
+    from inplacedhmc_tpu_torch.sample import f32_matmuls
+
+    x, y, beta = synthetic_data(seed, n, d, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    q = beta + 0.1 * torch.randn((c, d), generator=gen, device="cuda")
+    q[1, min(3, d - 1)] = float("nan")
+    w = torch.ones_like(y)
+    s2 = INV_VAR
+    x_hi, x_lo = split_bf16(x)
+    before = LOGISTIC_PACKED.launches
+    logp, grad = logistic_value_and_grad_packed(q, x_hi, x_lo, x, y, w, s2)
+    torch.cuda.synchronize()
+    if LOGISTIC_PACKED.launches != before + 1:
+        raise RuntimeError("the wrapper did not launch K2 on a CUDA tensor")
+    q64, x64, y64, w64 = (t.double() for t in (q, x, y, w))
+    with f32_matmuls():
+        lp_ref, g_ref = logistic_value_and_grad_packed_plain(
+            q64, x_hi, x_lo, x64, y64, w64, s2)
+    eta = q64 @ x64.T
+    scale = (w64 * (y64 * eta - torch.logaddexp(torch.zeros_like(eta), eta))
+             ).abs().sum(1) + 0.5 * s2 * (q64 * q64).sum(1)
+    gscale = ((y64 - torch.sigmoid(eta)) * w64).abs() @ x64.abs() \
+        + s2 * q64.abs()
+    ok = torch.isfinite(lp_ref)
+    if not (torch.equal(torch.isfinite(logp), ok) and logp[1] == -torch.inf
+            and bool((grad[1] == 0).all())):
+        raise RuntimeError("K2 guard: the NaN chain must give -inf and a "
+                           "zero gradient, and only it")
+    lp_err, g_err, lp_rms = _rel_errors(logp, grad, lp_ref, g_ref, scale,
+                                        gscale, ok)
+    abs_err = max((logp.double() - lp_ref).abs()[ok].max().item(),
+                  (grad.double() - g_ref).abs()[ok].max().item())
+    lp1, g1 = logistic_value_and_grad(q, x, y, w, s2)
+    k1_lp, k1_g, k1_rms = _rel_errors(lp1, g1, lp_ref, g_ref, scale, gscale,
+                                      ok)
+    print(f"[k2] {c} x {n} x {d}: logp err / sum|terms| = {lp_err:.3e} "
+          f"(rms over chains {lp_rms:.3e}), grad err / sum|resid x| = "
+          f"{g_err:.3e} (tol {LOGP_TOL:g} each), max abs err {abs_err:.3e}; "
+          f"K1 on the same q from the same reference: logp {k1_lp:.3e} "
+          f"(rms {k1_rms:.3e}), grad {k1_g:.3e}")
+    if not (lp_err <= LOGP_TOL and g_err <= LOGP_TOL):
+        raise RuntimeError(f"K2 disagrees with its plain version at {c} x "
+                           f"{n} x {d}")
+    out = {"name": "logistic_value_and_grad_packed", "route": "cuda",
+           "source": "inplacedhmc_tpu_torch/csrc/logistic_vg.cu",
+           "replaces": "inplacedhmc_tpu/ops/logistic_pallas.py:161",
+           "launches": None, "max_abs_err": abs_err}
+    if not timing:
+        return out
+    if not lp_rms < k1_rms:
+        raise RuntimeError(f"K2's logp is no nearer its packed plain version "
+                           f"than K1's float32 forward ({lp_rms:.3e} >= "
+                           f"{k1_rms:.3e}): the packed forward did not run")
+    qf = q.clone()
+    qf[1, min(3, d - 1)] = 0.0
+    runs = {"K2": lambda: logistic_value_and_grad_packed(
+        qf, x_hi, x_lo, x, y, w, s2),
+        "K1": lambda: logistic_value_and_grad(qf, x, y, w, s2)}
+    times = {"K2": [], "K1": []}
+    for i in range(PAIRS):
+        for name in (("K2", "K1") if i % 2 == 0 else ("K1", "K2")):
+            times[name].append(cuda_time_ms(runs[name]))
+    ms, k1_ms = (statistics.median(times[k]) for k in ("K2", "K1"))
+    ratio = statistics.median(a / b for a, b in zip(times["K2"],
+                                                    times["K1"]))
+    with f32_matmuls():
+        plain_ms = cuda_time_ms(lambda: logistic_value_and_grad_packed_plain(
+            qf, x_hi, x_lo, x, y, w, s2))
+        library_ms = cuda_time_ms(lambda: _library_logistic(qf, x, y, w, s2))
+    bound_ms, bound_by, flops, tc, sfu, nbytes = logistic_bound(c, n, d,
+                                                                "packed")
+    print(f"[k2] {card}: kernel {ms:.4f} ms, K1 on the same inputs "
+          f"{k1_ms:.4f} ms (medians of {PAIRS} alternating pairs; K2 / K1 "
+          f"{ratio:.4f}), plain {plain_ms:.4f} ms, library "
+          f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+          f"{tc / 1e9:.2f} GFLOP bf16 at {PEAK_BF16_TC / 1e12:g} TFLOP/s "
+          f"{tc / PEAK_BF16_TC * 1e3:.4f} ms, {flops / 1e9:.2f} GFLOP fp32 "
+          f"{flops / PEAK_FP32_FLOPS * 1e3:.4f} ms, {sfu / 1e9:.3f} G special "
+          f"functions {sfu / PEAK_SFU * 1e3:.4f} ms, {nbytes / 1e6:.2f} MB)")
+    out.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+               bound_by=bound_by, library_ms=library_ms)
+    return out
+
+
+def _bf16_loaded(shape, gen):
+    """Float32 values just above 0.5 (bfloat16 hi halves in [0.5, 0.5625],
+    where an ulp, 2^-8, is 2^-7 of the value) whose lo half is 0.45 of an
+    ulp: the packed forward's dropped q_lo x_lo terms, each about 1.2e-5 of
+    its q x, then add up with one sign."""
+    import torch
+    hi = (0.5 + 0.0625 * torch.rand(shape, generator=gen, device="cuda")) \
+        .to(torch.bfloat16).float()
+    return hi + 0.45 * 2.0 ** -8
+
+
+def check_packed_separates(card: str) -> None:
+    """K2 and K1 on inputs where the packed forward's lo.lo term, which it
+    drops, adds up (``_bf16_loaded`` q and x, y = 0, so each observation's
+    term is about -eta, at 1.2e-5 of it from the float32 forward's): 256
+    chains x 8 observations x 16, few sums, so little rounding beside that
+    term.  K2's logp must agree with its plain version to ``LOGP_TOL`` and
+    sit ten times nearer it than K1's float32 forward does."""
+    import torch
+
+    from inplacedhmc_tpu_torch.ops.logistic import (
+        logistic_value_and_grad, logistic_value_and_grad_packed,
+        logistic_value_and_grad_packed_plain, split_bf16)
+    from inplacedhmc_tpu_torch.sample import f32_matmuls
+
+    c, n, d = 256, 8, 16
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    q, x = _bf16_loaded((c, d), gen), _bf16_loaded((n, d), gen)
+    y = torch.zeros((n,), device="cuda")
+    w = torch.ones_like(y)
+    x_hi, x_lo = split_bf16(x)
+    lp2, _ = logistic_value_and_grad_packed(q, x_hi, x_lo, x, y, w, INV_VAR)
+    lp1, _ = logistic_value_and_grad(q, x, y, w, INV_VAR)
+    with f32_matmuls():
+        ref, _ = logistic_value_and_grad_packed_plain(
+            q.double(), x_hi, x_lo, x.double(), y.double(), w.double(),
+            INV_VAR)
+    eta = q.double() @ x.double().T
+    scale = (eta + torch.log1p(torch.exp(-eta))).sum(1) \
+        + 0.5 * INV_VAR * (q.double() ** 2).sum(1)
+    err2 = ((lp2.double() - ref).abs() / scale).max().item()
+    err1 = ((lp1.double() - ref).abs() / scale).max().item()
+    print(f"[k2] {c} x {n} x {d}, the lo.lo terms of one sign: logp err / "
+          f"sum|terms| K2 {err2:.3e} (tol {LOGP_TOL:g}), K1's float32 "
+          f"forward {err1:.3e} from the same packed reference")
+    if not (err2 <= LOGP_TOL and err2 < err1 / 10):
+        raise RuntimeError("K2's packed forward is not told apart from K1's "
+                           "float32 forward")
+
+
+def check_packed_kernel(card: str) -> dict:
+    """K2 at config 3's shape (timed) and at ``PACKED_CASES``, the inputs
+    that tell it from K1 (``check_packed_separates``); prints the
+    registers, spills and tensor-core instructions (``HMMA``) of each
+    instantiation of the logistic body.  Returns config 3's case."""
+    main = _packed_case(card, C, N, D, SEED, timing=True)
+    for i, (c, n, d) in enumerate(PACKED_CASES):
+        _packed_case(card, c, n, d, SEED + 10 + i)
+    check_packed_separates(card)
+    from inplacedhmc_tpu_torch.ops.logistic import LOGISTIC_PACKED
+    sass_counts(LOGISTIC_PACKED, lambda name: "logistic_vg_kernel" in name,
+                ("LDL", "STL", "HMMA", "BAR"))
+    return main
+
+
+def check_grad_bf16_kernel(card: str) -> dict:
+    """K1 with ``grad_bf16`` against its plain version with it, in float64,
+    at C x N x D with one NaN chain: logp equal to K1's without the option
+    (the forward is untouched), the gradient to ``GRAD_TOL`` of max|grad|
+    (the residual rounds from float32 on both sides, so a residual on a
+    bf16 tie may round apart: one ulp of 2^-8 in a sum of 10^4 terms) and
+    five times nearer that reference than the float32 backward is."""
+    import torch
+
+    from inplacedhmc_tpu_torch.models import synthetic_data
+    from inplacedhmc_tpu_torch.ops.logistic import (
+        LOGISTIC_VG, logistic_value_and_grad, logistic_value_and_grad_plain)
+
+    x, y, beta = synthetic_data(SEED, N, D, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    q = beta + 0.1 * torch.randn((C, D), generator=gen, device="cuda")
+    q[1, 3] = float("nan")
+    w = torch.ones_like(y)
+    before = LOGISTIC_VG.bf16_launches
+    logp, grad = logistic_value_and_grad(q, x, y, w, INV_VAR, grad_bf16=True)
+    torch.cuda.synchronize()
+    if LOGISTIC_VG.bf16_launches != before + 1:
+        raise RuntimeError("the wrapper did not launch K1 with grad_bf16")
+    lp32, g32 = logistic_value_and_grad(q, x, y, w, INV_VAR)
+    lp_ref, g_ref = logistic_value_and_grad_plain(
+        *(t.double() for t in (q, x, y, w)), INV_VAR, grad_bf16=True)
+    ok = torch.isfinite(lp_ref)
+    top = g_ref[ok].abs().max()
+    g_err = ((grad.double() - g_ref).abs()[ok].max() / top).item()
+    shift = ((g32.double() - g_ref).abs()[ok].max() / top).item()
+    abs_err = (grad.double() - g_ref).abs()[ok].max().item()
+    print(f"[k1-bf16] grad err / max|grad| = {g_err:.3e} (tol {GRAD_TOL:g}, "
+          f"and below a fifth of the float32 backward's {shift:.3e}); logp "
+          f"equal to K1's without the option: "
+          f"{bool(torch.equal(logp, lp32))}")
+    if not (torch.equal(logp, lp32) and g_err <= GRAD_TOL
+            and g_err < shift / 5 and bool((grad[~ok] == 0).all())):
+        raise RuntimeError("K1 with grad_bf16 disagrees with its plain "
+                           "version, or is not told apart from the float32 "
+                           "backward")
+    qf = q.clone()
+    qf[1, 3] = 0.0
+    ms = cuda_time_ms(lambda: logistic_value_and_grad(qf, x, y, w, INV_VAR,
+                                                      grad_bf16=True))
+    plain_ms = cuda_time_ms(lambda: logistic_value_and_grad_plain(
+        qf, x, y, w, INV_VAR, grad_bf16=True))
+    library_ms = cuda_time_ms(lambda: _library_logistic(
+        qf, x, y, w, INV_VAR, grad_bf16=True))
+    bound_ms, bound_by, flops, tc, sfu, nbytes = logistic_bound(
+        C, N, D, "grad_bf16")
+    print(f"[k1-bf16] {card}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"library (the backward a cuBLAS bf16 product) {library_ms:.4f} "
+          f"ms, bound {bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.2f} GFLOP "
+          f"fp32 {flops / PEAK_FP32_FLOPS * 1e3:.4f} ms, {tc / 1e9:.2f} GFLOP "
+          f"bf16 {tc / PEAK_BF16_TC * 1e3:.4f} ms, {sfu / 1e9:.3f} G special "
+          f"functions {sfu / PEAK_SFU * 1e3:.4f} ms, {nbytes / 1e6:.2f} MB)")
+    return {"name": "logistic_value_and_grad_grad_bf16", "route": "cuda",
+            "source": "inplacedhmc_tpu_torch/csrc/logistic_vg.cu",
+            "replaces": "inplacedhmc_tpu/ops/logistic_pallas.py:131",
+            "launches": None, "max_abs_err": abs_err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
+def _library_multistep(q, p, eps, lam, minv, k: int):
+    """A torch composition of ``k`` steps (fused multiply-adds, addcmul).
+    A yardstick only; the port never calls it."""
+    import torch
+    half = (0.5 * eps)[:, None]
+    e = eps[:, None]
+    for _ in range(k):
+        p = torch.addcmul(p, half, lam * q, value=-1.0)
+        q = torch.addcmul(q, e, minv * p)
+        p = torch.addcmul(p, half, lam * q, value=-1.0)
+    return q, p
+
+
+def multistep_case(card: str, c: int, d: int, k: int, seed: int,
+                   timing: bool = False) -> dict:
+    """K4 at c x d x k against its plain version and against k chained K3
+    launches on the same inputs: equal bit for bit (the same float32
+    operations in the same order), else within k gamma_4 of each value's
+    magnitude (Higham's bound for the step's four roundings), which this
+    script reports; with ``timing``, timed beside the plain version, a
+    torch composition and the bound."""
+    import torch
+
+    from inplacedhmc_tpu_torch.ops.leapfrog import (
+        LEAPFROG_MULTISTEP, fused_gaussian_leapfrog, multi_step_leapfrog,
+        multi_step_leapfrog_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    lam = 0.5 + torch.rand((d,), generator=gen, device="cuda")
+    minv = 0.5 + torch.rand((d,), generator=gen, device="cuda")
+    q = torch.randn((c, d), generator=gen, device="cuda")
+    p = torch.randn((c, d), generator=gen, device="cuda") / minv.sqrt()
+    eps = 0.05 * torch.where(torch.rand((c,), generator=gen, device="cuda")
+                             < 0.5, 1.0, -1.0)
+    before = LEAPFROG_MULTISTEP.launches
+    got = multi_step_leapfrog(q, p, eps, lam, minv, k)
+    torch.cuda.synchronize()
+    if LEAPFROG_MULTISTEP.launches != before + 1:
+        raise RuntimeError("the wrapper did not launch K4 on a CUDA tensor")
+    want = multi_step_leapfrog_plain(q, p, eps, lam, minv, k)
+    chain = (q, p)
+    for _ in range(k):
+        chain = fused_gaussian_leapfrog(chain[0], chain[1], eps, lam,
+                                        minv)[:2]
+    gamma = k * 4 * 2.0 ** -24 / (1 - 4 * 2.0 ** -24)
+    abs_err, verdict = 0.0, []
+    for other, label in ((want, "plain"), (chain, f"{k} K3 launches")):
+        equal = all(torch.equal(a, b) for a, b in zip(got, other))
+        err = max((a - b).abs().max().item() for a, b in zip(got, other))
+        within = all(bool(((a - b).abs() <= gamma * b.abs().clamp(min=1.0)
+                           ).all()) for a, b in zip(got, other))
+        abs_err = max(abs_err, err)
+        verdict.append(f"{label}: {'equal bit for bit' if equal else ''}"
+                       f"{'' if equal else f'max abs err {err:.3e}'}")
+        if not (equal or within):
+            raise RuntimeError(f"K4 at {c} x {d}, k = {k} disagrees with "
+                               f"{label} beyond k gamma_4 ({err:.3e})")
+    print(f"[k4] {c} x {d}, k = {k}: against " + "; ".join(verdict))
+    out = {"name": "multi_step_leapfrog", "route": "cuda",
+           "source": "inplacedhmc_tpu_torch/csrc/leapfrog_gaussian.cu",
+           "replaces": "inplacedhmc_tpu/ops/leapfrog_pallas.py:95",
+           "launches": None, "max_abs_err": abs_err}
+    if not timing:
+        return out
+    ms = cuda_time_ms(lambda: multi_step_leapfrog(q, p, eps, lam, minv, k))
+    plain_ms = cuda_time_ms(
+        lambda: multi_step_leapfrog_plain(q, p, eps, lam, minv, k))
+    library_ms = cuda_time_ms(
+        lambda: _library_multistep(q, p, eps, lam, minv, k))
+    flops = 8.0 * c * d * k
+    nbytes = 4.0 * (4 * c * d + c + 2 * d)
+    bound_ms, bound_by = bound(flops, nbytes)
+    print(f"[k4] {card}: kernel {ms:.4f} ms per launch ({ms / k * 1e3:.3f} "
+          f"us per step), plain {plain_ms:.4f} ms, torch composition "
+          f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
+          f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB), "
+          f"{flops / ms / 1e9:.2f} TFLOP/s achieved")
+    out.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+               bound_by=bound_by, library_ms=library_ms)
+    return out
+
+
+def check_multistep_kernel(card: str) -> dict:
+    """K4 at ``MULTISTEP_CASES`` (the first timed), then its own path, the
+    roofline harness ``tools/roofline_torch.py --quick``: it must exit 0,
+    and K4's launches there are its launch count.  Returns the first
+    case."""
+    main = None
+    for i, (c, d, k) in enumerate(MULTISTEP_CASES):
+        entry = multistep_case(card, c, d, k, SEED + 20 + i, timing=i == 0)
+        main = main or entry
+    from inplacedhmc_tpu_torch.ops.leapfrog import LEAPFROG_MULTISTEP
+    sass_counts(LEAPFROG_MULTISTEP, lambda name: "leapfrog" in name,
+                ("LDL", "STL", "BAR"))
+    tool = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                        "roofline_torch.py")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, tool, "--quick"],
+                          capture_output=True, text=True)
+    for line in (proc.stdout + proc.stderr).splitlines():
+        print(f"[roofline] {line}")
+    if proc.returncode != 0:
+        raise RuntimeError(f"tools/roofline_torch.py --quick exited "
+                           f"{proc.returncode}")
+    rows = [json.loads(line) for line in proc.stdout.splitlines()
+            if line.startswith("{")]
+    k4 = [r for r in rows if r["kernel"].startswith("multi_step_leapfrog")]
+    if len(rows) != 3 or len(k4) != 1 or not k4[0]["launches"] > 0:
+        raise RuntimeError(f"the roofline harness did not run K4: {rows}")
+    main["launches"] = k4[0]["launches"]
+    print(f"[roofline] {time.perf_counter() - t0:.2f} s; K4 "
+          f"{k4[0]['launches']} launches, {k4[0]['step_us']:.4f} us per step, JAX's "
+          f"single-step ideal / step {k4[0]['ideal_over_step']:.3f}")
+    return main
 
 
 def _library_leapfrog(q, p, eps, lam, minv):
@@ -1431,18 +1829,15 @@ def dense_case(card: str, label: str, physics: str, data: dict, q0, minv,
     return times
 
 
-def sass_spills(source: str = "dense_gaussian", wide_only: bool = False):
-    """ptxas's registers and spill bytes (``-Xptxas -v`` of the build) and
-    the local-memory loads and stores (``LDL``, ``STL``: spills) in the
-    SASS (``cuobjdump -sass`` beside ``nvcc``) of each K5 instantiation of
-    ``tree_<source>.cu``, beside its loads from device memory (``LDG``),
-    its shuffles and its barriers (``BAR``); with ``wide_only``, of the
-    wide form's only (team ``Block``: ``5BlockE`` in the mangled name)."""
+def sass_counts(kernel, keep, ops=("LDL", "STL", "LDG", "SHFL", "BAR")):
+    """ptxas's registers and spill bytes (``-Xptxas -v`` of the build, read
+    from ``kernel``, the launcher that built its source) and the counts of
+    ``ops`` in the SASS (``cuobjdump -sass`` beside ``nvcc``) of each kernel
+    function of its library whose mangled name ``keep`` accepts: ``LDL``
+    and ``STL`` are local-memory loads and stores (spills)."""
     import re
 
     from inplacedhmc_tpu_torch.ops.cuda_build import find_nvcc
-    from inplacedhmc_tpu_torch.ops.tree import TREE_DENSE_KERNELS
-    kernel = TREE_DENSE_KERNELS[source]
     cuobjdump = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", kernel.build()],
                           capture_output=True, text=True, check=True).stdout
@@ -1458,9 +1853,9 @@ def sass_spills(source: str = "dense_gaussian", wide_only: bool = False):
                            + ", " + usage.get(name, "spills not reported"))
     for block in sass.split("Function : ")[1:]:
         name = block.split("\n")[0].strip()
-        if "tree_kernel" in name and ("5BlockE" in name or not wide_only):
+        if keep(name):
             count = {op: len(re.findall(rf"\b{op}\b", block))
-                     for op in ("LDL", "STL", "LDG", "SHFL", "BAR")}
+                     for op in ops}
             print(f"[sass] {name}: {usage.get(name, 'ptxas not reported')}; "
                   f"{count}")
 
@@ -1483,7 +1878,7 @@ def check_dense_tree_kernel(card: str) -> dict:
       1,024 chains, the default route's form.
 
     First the spills of the dense Gaussian's instantiations
-    (``sass_spills``); each case's timing line gives the time per ``[D, D]``
+    (``sass_counts``); each case's timing line gives the time per ``[D, D]``
     product on its longest chain.  Returns the kernels-line entry of
     ``dense_gaussian`` under its diagonal metric (the mvn run's early
     windows), timed at 1,024 chains and half the stability limit, drawing
@@ -1491,7 +1886,9 @@ def check_dense_tree_kernel(card: str) -> dict:
     import torch
 
     t = time.perf_counter()
-    sass_spills()
+    from inplacedhmc_tpu_torch.ops.tree import TREE_DENSE_KERNELS
+    sass_counts(TREE_DENSE_KERNELS["dense_gaussian"],
+                lambda name: "tree_kernel" in name)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 19)
     d = G_DIM
     dense_case(card, f"gaussian, dense metric, {G_CHAINS} x {d}", "gaussian",
@@ -1559,7 +1956,7 @@ def check_wide_kernels(card: str) -> None:
     warps, the row sums, the AR(1) neighbours and the ``[D, D]`` products
     through shared memory) against its plain version, max_depth 10, by
     ``compare_tree``'s rule: the SASS of the wide instantiations of the
-    Gaussian and stochastic volatility (``sass_spills``; the dense
+    Gaussian and stochastic volatility (``sass_counts``; the dense
     Gaussian's print with its narrow ones); the Gaussian at 64 and 1,024
     chains x 1,000 in its three forms at three step sizes
     (``check_tree_kernel``); the dense Gaussian on a 512-D Wishart-precision
@@ -1573,8 +1970,11 @@ def check_wide_kernels(card: str) -> None:
     import torch
 
     t = time.perf_counter()
+    from inplacedhmc_tpu_torch.ops.tree import TREE_DENSE_KERNELS
     for source in ("gaussian", "stoch_vol"):
-        sass_spills(source, wide_only=True)
+        # the wide form's instantiations: team Block
+        sass_counts(TREE_DENSE_KERNELS[source],
+                    lambda name: "tree_kernel" in name and "5BlockE" in name)
     for c in (S_CHAINS, E_CHAINS):
         check_tree_kernel(card, c, W_DIM, seed=30 + c)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 31)
@@ -2090,11 +2490,11 @@ def logistic_stages():
                                  metric="dense")
 
 
-def logistic_gates(tag: str, card: str, res, beta, sample_s: float) -> None:
+def logistic_gates(tag: str, card: str, res, beta, sample_s: float) -> float:
     """The logistic ``sample()`` gates: finite draws of ``[N_DRAWS, C, D]``,
     split R-hat < 1.05, mean acceptance in [0.6, 0.95], corr(posterior
     mean, beta_true) > 0.95; prints them with the sampling loop's steps/s
-    and ESS/s."""
+    and ESS/s.  Returns the mean acceptance."""
     import torch
 
     from inplacedhmc_tpu_torch import diagnostics as diag
@@ -2126,50 +2526,72 @@ def logistic_gates(tag: str, card: str, res, beta, sample_s: float) -> None:
     if not corr > 0.95:
         raise RuntimeError(f"{tag} posterior mean vs beta_true corr {corr} "
                            f"<= 0.95")
+    return accept
 
 
-def run_sample(card: str, kernels) -> dict:
-    """``sample()`` at full width through K1, with the posterior checked
-    (``logistic_gates``); no other kernel launched."""
+def run_sample(card: str, kernels, tag: str = "[sample]",
+               fused_opts: Optional[dict] = None, state=None):
+    """``sample()`` at full width through K1, or through the kernel that
+    ``fused_opts`` select (K2 under ``{"fwd_precision": "packed"}``), with
+    the posterior checked (``logistic_gates``); no other kernel launched.
+    Under ``grad_bf16`` every K1 launch must carry it.  From ``state`` (a
+    tuned ``WarmupState``) it runs no warmup.  Returns the launch counts,
+    the mean acceptance and the tuned state."""
     import torch
 
     from inplacedhmc_tpu_torch import sample
     from inplacedhmc_tpu_torch.models import (logistic_regression,
                                               synthetic_data)
+    from inplacedhmc_tpu_torch.ops.logistic import LOGISTIC_VG
 
+    opts = dict(fused_opts or {})
+    packed = opts.get("fwd_precision") == "packed"
+    sym, name = (("logistic_packed_launch", "K2") if packed
+                 else ("logistic_vg_launch", "K1"))
     x, y, beta = synthetic_data(SEED, N, D, device="cuda")
     model = logistic_regression(x, y, device="cuda")
-    stages = logistic_stages()
+    stages, start = logistic_stages(), {}
+    if state is not None:
+        stages = ()
+        start = dict(q=state.z.q, metric=state.metric,
+                     eps=float(torch.exp(state.log_eps)))
     timer = StageTimer()
     for k in kernels:
         k.launches = 0
+    LOGISTIC_VG.bf16_launches = 0
     t0 = time.perf_counter()
-    res = sample(SEED, model, N_DRAWS, C, warmup_stages=stages,
-                 reporter=timer, device="cuda")
+    res = sample(SEED + (state is not None), model, N_DRAWS, C,
+                 warmup_stages=stages, reporter=timer, device="cuda",
+                 fused_opts=fused_opts, **start)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = launch_counts(kernels)
 
-    for name, sec in timer.stages:
-        print(f"[sample] {name}: {sec:.2f} s on {card}")
-    print(f"[sample] total {wall:.2f} s on {card}")
+    for stage, sec in timer.stages:
+        print(f"{tag} {stage}: {sec:.2f} s on {card}")
+    print(f"{tag} total {wall:.2f} s on {card}")
     sample_s = timer.stages[-1][1]
 
     stats, wstats = res.stats, res.warmup_stats
     # every lockstep transition runs at least its longest chain's steps,
-    # one K1 launch each
-    min_launches = int(stats.steps.amax(dim=1).sum() +
-                       wstats.steps.amax(dim=1).sum())
-    print(f"[sample] K1 launches {launches['logistic_vg_launch']} "
+    # one launch each
+    min_launches = int(stats.steps.amax(dim=1).sum())
+    if wstats is not None:
+        min_launches += int(wstats.steps.amax(dim=1).sum())
+    print(f"{tag} {name} launches {launches[sym]} "
           f"(lockstep leapfrog steps >= {min_launches})")
-    if launches["logistic_vg_launch"] < min_launches:
-        raise RuntimeError("the main path did not go through K1")
-    others = {k: v for k, v in launches.items() if k != "logistic_vg_launch"}
+    if launches[sym] < min_launches:
+        raise RuntimeError(f"the main path did not go through {name}")
+    others = {k: v for k, v in launches.items() if k != sym}
     if any(others.values()):
         raise RuntimeError(f"the logistic path launched another kernel: "
                            f"{others}")
-    logistic_gates("[sample]", card, res, beta, sample_s)
-    return launches
+    bf16 = LOGISTIC_VG.bf16_launches
+    if bf16 != (launches[sym] if opts.get("grad_bf16") else 0):
+        raise RuntimeError(f"{tag} K1 launches with grad_bf16: {bf16} of "
+                           f"{launches[sym]}")
+    accept = logistic_gates(tag, card, res, beta, sample_s)
+    return launches, accept, res.warmup_state
 
 
 def run_logistic_tree_sample(card: str, kernels):
@@ -2857,7 +3279,10 @@ def main() -> int:
     print(f"[phase] build {time.perf_counter() - t:.2f} s")
     t = time.perf_counter()
     k1 = check_logistic_kernel(card)
+    k1b = check_grad_bf16_kernel(card)
+    k2 = check_packed_kernel(card)
     k3 = check_leapfrog_kernel(card)
+    k4 = check_multistep_kernel(card)
     check_tree_kernel(card)
     check_generator(card)
     check_sweep(card)
@@ -2879,11 +3304,29 @@ def main() -> int:
     k5l_diag = check_logistic_tree_kernel(card)
     print(f"[phase] kernel checks {time.perf_counter() - t:.2f} s")
     t = time.perf_counter()
-    launches = run_sample(card, kernels)
+    launches, k1_accept, k1_state = run_sample(card, kernels)
     k1["launches"] = launches["logistic_vg_launch"]
     print(f"[sample] K1 device time about {k1['launches']} x {k1['ms']:.4f} "
           f"ms = {k1['launches'] * k1['ms'] / 1e3:.2f} s of sample()'s wall")
     print(f"[phase] logistic sample {time.perf_counter() - t:.2f} s")
+    # the same through K2 (fused_opts packed), then K1 with grad_bf16 from
+    # the K1 run's tuned state
+    t = time.perf_counter()
+    launches, k2_accept, _ = run_sample(card, kernels, "[packed]",
+                                        {"fwd_precision": "packed"})
+    k2["launches"] = launches["logistic_packed_launch"]
+    print(f"[packed] acceptance mean {k2_accept:.4f} through K2 beside "
+          f"{k1_accept:.4f} through K1; K2 device time about "
+          f"{k2['launches']} x {k2['ms']:.4f} ms = "
+          f"{k2['launches'] * k2['ms'] / 1e3:.2f} s of sample()'s wall")
+    print(f"[phase] packed logistic sample {time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
+    launches, _, _ = run_sample(card, kernels, "[grad_bf16]",
+                                {"grad_bf16": True}, state=k1_state)
+    k1b["launches"] = launches["logistic_vg_launch"]
+    del k1_state
+    print(f"[phase] grad_bf16 logistic sample {time.perf_counter() - t:.2f} "
+          f"s")
     # BASELINE config 3 through K5-logistic (use_pallas="tree"), then its
     # flagship options from the tuned state, and the crossover against the
     # default route (lockstep + K1) at that state
@@ -3115,8 +3558,9 @@ def main() -> int:
           f"largest K needed by field {LONG_SUM_NEED} (LONG_SUM_K "
           f"{LONG_SUM_K})")
     print(f"[phase] total {time.perf_counter() - t_start:.2f} s")
-    print(json.dumps({"kernels": [k1, k3, k5, k5s, *tiles, *dense, k5l_diag,
-                                  k5l, k5ls, *sv, k5w, *svw]}))
+    print(json.dumps({"kernels": [k1, k1b, k2, k3, k4, k5, k5s, *tiles,
+                                  *dense, k5l_diag, k5l, k5ls, *sv, k5w,
+                                  *svw]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -41,6 +41,13 @@ whole tree ignores them, as in JAX.
 ``ckpt_bf16`` stores the kernel's two checkpoint stacks in bfloat16 (the
 turn checks read the rounded values), halving their shared memory.
 
+``fused_opts`` reach the fused logistic potential on the routes that run it
+(``use_pallas`` ``"auto"`` and ``"on"``), as in JAX: ``fwd_precision``,
+``bwd_precision``, ``grad_bf16``, ``block_c`` and ``block_n``, checked as
+JAX checks them; ``fwd_precision="packed"`` runs K2, the packed split-bf16
+forward (``ops/logistic.py::make_logistic_potential`` says how each maps to
+the card).  Other models and routes ignore them, as in JAX.
+
 ``post_step(gen, z) -> z`` runs after every transition of the warmup and
 sampling loops (``models/stoch_vol.py::make_asis_hook``);
 ``tuning_chunk`` runs each tuning window in pieces of at most that many
@@ -53,7 +60,7 @@ small value after every chunk and block (:func:`value_fence`).
 
 Not ported yet, and refused with ``NotImplementedError``: meshes,
 checkpoints, sketches, ``store_draws``, work-sorted scheduling, the
-options ``use_kernels`` and ``fused_opts``, ``use_pallas="interpret"``
+option ``use_kernels``, ``use_pallas="interpret"``
 (JAX's Pallas interpreter: on a CPU tensor the port runs its plain
 versions already), the whole tree where its kernel does not take the
 problem (``ops.tree.takes``: above D = 256 for eight schools, the funnel
@@ -247,7 +254,7 @@ class NUTSKernel:
     default) is JAX's "auto" policy:
 
     * ``structure["kind"] == "logistic"``: the fused potential
-      (``ops/logistic.py``) on the lockstep tree;
+      (``ops/logistic.py``, with ``fused_opts``) on the lockstep tree;
     * ``"diag_gaussian"``: with a shared float32 metric (diagonal or
       dense), the whole-tree transition (``ops/tree.py``, Gaussian physics)
       when there are at least ``TREE_MIN_CHAINS`` chains and the kernel
@@ -301,7 +308,8 @@ class NUTSKernel:
     def __init__(self, model: Model, algorithm: NUTS = NUTS(),
                  pooled: bool = True, tree_opts: Optional[dict] = None,
                  use_pallas: str = "auto",
-                 post_step: Optional[Callable] = None):
+                 post_step: Optional[Callable] = None,
+                 fused_opts: Optional[dict] = None):
         if use_pallas == "interpret":
             raise NotImplementedError(
                 "use_pallas='interpret' runs the JAX package's Pallas "
@@ -322,8 +330,8 @@ class NUTSKernel:
         kind = None if st is None else st.get("kind")
         fused = use_pallas in ("auto", "on")
         if kind == "logistic" and fused:
-            self.potential = make_logistic_potential(st["x"], st["y"],
-                                                     st["inv_var"])
+            self.potential = make_logistic_potential(
+                st["x"], st["y"], st["inv_var"], **(fused_opts or {}))
         else:
             self.potential = batched_logdensity_and_grad(model.logp)
         topts = _tree_options(st, use_pallas, tree_opts)
@@ -560,7 +568,7 @@ def _cat0(parts):
 #: options of the JAX drivers that the port does not run yet
 _NOT_PORTED = ("warmup_checkpoint_path", "sample_checkpoint_path",
                "collect_sketch", "store_draws", "checkpoint_throttle_s",
-               "fused_opts", "schedule", "use_kernels")
+               "schedule", "use_kernels")
 
 
 def _tree_options(st: Optional[dict], use_pallas: str,
@@ -613,6 +621,7 @@ def mcmc_with_warmup(seed: Union[int, torch.Generator], model: Model,
                      keep_dims: Optional[Sequence[int]] = None,
                      tree_opts: Optional[dict] = None,
                      use_pallas: str = "auto",
+                     fused_opts: Optional[dict] = None,
                      post_step: Optional[Callable] = None,
                      draw_block: Optional[int] = None,
                      tuning_chunk: Optional[int] = None,
@@ -623,9 +632,9 @@ def mcmc_with_warmup(seed: Union[int, torch.Generator], model: Model,
     dual-averaging target acceptance rate; ``pooled`` defaults to
     ``n_chains > 1``; ``seed`` is an int or a ``torch.Generator`` on
     ``device``; ``thin``, ``keep_dims``, ``tree_opts``, ``use_pallas``,
-    ``post_step``, ``draw_block``, ``tuning_chunk``, ``collect_moments``
-    and ``sync_blocks`` as in the JAX package (see the module docstring,
-    :class:`NUTSKernel` and :meth:`NUTSKernel.run`)."""
+    ``fused_opts``, ``post_step``, ``draw_block``, ``tuning_chunk``,
+    ``collect_moments`` and ``sync_blocks`` as in the JAX package (see the
+    module docstring, :class:`NUTSKernel` and :meth:`NUTSKernel.run`)."""
     _refuse(not_ported)
     if pooled is None:
         pooled = n_chains > 1
@@ -633,7 +642,8 @@ def mcmc_with_warmup(seed: Union[int, torch.Generator], model: Model,
         warmup_stages = default_warmup_stages(
             stepsize_adaptation=DualAveraging(delta=delta))
     kern = NUTSKernel(model, algorithm, pooled, tree_opts=tree_opts,
-                      use_pallas=use_pallas, post_step=post_step)
+                      use_pallas=use_pallas, post_step=post_step,
+                      fused_opts=fused_opts)
     return kern.run(make_generator(seed, device), n_draws, n_chains,
                     warmup_stages=warmup_stages, q=q, metric=metric, eps=eps,
                     dtype=dtype, device=device, reporter=reporter, thin=thin,

@@ -1,5 +1,9 @@
 """Tests of the port that need an NVIDIA card: the CUDA kernels K1
-(``csrc/logistic_vg.cu``), K3 (``csrc/leapfrog_gaussian.cu``) and K5
+(``csrc/logistic_vg.cu``, with and without ``grad_bf16``), K2
+(the same body's packed split-bf16 forward, and
+``sample(fused_opts={"fwd_precision": "packed"})`` through it), K3 and K4
+(``csrc/leapfrog_gaussian.cu``: one fused step, and k steps per launch
+against k launches of K3) and K5
 (``csrc/tree_gaussian.cu``: its three drawing forms, its sweeps and its
 generator; ``csrc/tree_eight_schools.cu`` and ``csrc/tree_funnel.cu``, its
 tile physics; K5-dense, each source's dense-metric launcher, and
@@ -1473,3 +1477,193 @@ def test_cuda_ckpt_bf16_lifts_the_wide_bound():
         blocks = [tree.blocks_per_sm("stoch_vol", 1002, 10, dense, b)
                   for b in (False, True)]
         assert min(blocks) >= 1, blocks
+
+
+def _packed_inputs(seed, c, n, d):
+    """``_data``'s inputs (its NaN chain at q[5, min(2, d - 1)]) with X's
+    bfloat16 halves and unit weights."""
+    from inplacedhmc_tpu_torch.ops.logistic import split_bf16
+    x, y, q = _data(seed, c, n, max(d, 3))
+    x, q = x[:, :d].contiguous(), q[:, :d].contiguous()
+    q[5, min(2, d - 1)] = float("nan")
+    x_hi, x_lo = split_bf16(x)
+    return q, x_hi, x_lo, x, y, torch.ones(n, device="cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,n,d", [(33, 300, 1), (70, 1000, 17),
+                                   (130, 129, 50), (65, 64, 64)])
+def test_cuda_packed_matches_plain_version(c, n, d):
+    """K2 against its plain version in float64 on the same bf16 halves
+    (exact there), on C not a multiple of the 32-chain block and N not of
+    the 64-observation tile, with a NaN chain: logp to 1e-5 of sum|terms|,
+    each gradient component to 1e-5 of sum_n |resid x| (the kernel's
+    float32 sums and its tensor cores' accumulation)."""
+    _needs_card()
+    from inplacedhmc_tpu_torch.ops.logistic import (
+        LOGISTIC_PACKED, logistic_value_and_grad_packed,
+        logistic_value_and_grad_packed_plain)
+    q, x_hi, x_lo, x, y, w = _packed_inputs(6, c, n, d)
+    before = LOGISTIC_PACKED.launches
+    lp, g = logistic_value_and_grad_packed(q, x_hi, x_lo, x, y, w, INV_VAR)
+    torch.cuda.synchronize()
+    assert LOGISTIC_PACKED.launches == before + 1
+    lp_ref, g_ref = logistic_value_and_grad_packed_plain(
+        q.double(), x_hi, x_lo, x.double(), y.double(), w.double(), INV_VAR)
+    ok = torch.isfinite(lp_ref)
+    assert torch.equal(torch.isfinite(lp), ok)
+    assert bool((g[~ok] == 0).all())
+    eta = q.double() @ x.double().T
+    scale = (y.double() * eta - torch.logaddexp(torch.zeros_like(eta), eta)
+             ).abs().sum(1)
+    resid = (y.double() - torch.sigmoid(eta)).abs()
+    gscale = resid @ x.double().abs() + INV_VAR * q.double().abs()
+    assert ((lp.double() - lp_ref).abs()[ok] / scale[ok]).max() < 1e-5
+    assert bool(((g.double() - g_ref).abs()[ok]
+                 <= 1e-5 * gscale[ok]).all())
+
+
+@pytest.mark.cuda
+def test_cuda_packed_forward_is_told_apart_from_the_float32_one():
+    """On values whose bfloat16 lo halves are 0.45 ulp of their hi halves,
+    all positive (y = 0, so logp is about -sum eta), the lo.lo terms that
+    the packed forward drops add up to about 1e-5 of logp: K2 sits within
+    1e-6 of its plain version, K1's float32 forward ten times farther."""
+    _needs_card()
+    from inplacedhmc_tpu_torch.ops.logistic import (
+        logistic_value_and_grad_packed, logistic_value_and_grad_packed_plain,
+        split_bf16)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+
+    def loaded(shape):
+        hi = (0.5 + 0.0625 * torch.rand(shape, generator=gen,
+                                        device="cuda")).to(torch.bfloat16)
+        return hi.float() + 0.45 * 2.0 ** -8
+
+    q, x = loaded((70, 16)), loaded((8, 16))
+    y = torch.zeros(8, device="cuda")
+    w = torch.ones_like(y)
+    x_hi, x_lo = split_bf16(x)
+    lp2, _ = logistic_value_and_grad_packed(q, x_hi, x_lo, x, y, w, INV_VAR)
+    lp1, _ = logistic_value_and_grad(q, x, y, w, INV_VAR)
+    ref, _ = logistic_value_and_grad_packed_plain(
+        q.double(), x_hi, x_lo, x.double(), y.double(), w.double(), INV_VAR)
+    err2 = ((lp2.double() - ref).abs() / ref.abs()).max()
+    err1 = ((lp1.double() - ref).abs() / ref.abs()).max()
+    assert err2 < 1e-6 and err2 < err1 / 10
+
+
+@pytest.mark.cuda
+def test_cuda_packed_wrapper_refuses_what_the_kernel_does_not_take():
+    _needs_card()
+    from inplacedhmc_tpu_torch.ops.logistic import (
+        LOGISTIC_PACKED, logistic_value_and_grad_packed)
+    q, x_hi, x_lo, x, y, w = _packed_inputs(7, 8, 64, 7)
+    before = LOGISTIC_PACKED.launches
+    for args in ((q.double(), x_hi, x_lo, x), (q, x_hi.float(), x_lo, x),
+                 (q, x_hi, x_lo.cpu(), x), (q, x_hi, x_lo, x.double()),
+                 (q.t().contiguous().t(), x_hi, x_lo, x)):
+        with pytest.raises(ValueError):
+            logistic_value_and_grad_packed(*args, y, w, INV_VAR)
+    wide = _packed_inputs(7, 8, 64, 65)
+    with pytest.raises(ValueError):
+        logistic_value_and_grad_packed(*wide, INV_VAR)
+    assert LOGISTIC_PACKED.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,n,d", [(33, 300, 7), (70, 1000, 100),
+                                   (40, 129, 256)])
+def test_cuda_grad_bf16_matches_plain_version(c, n, d):
+    """K1 with ``grad_bf16`` against its plain version with it in float64
+    (the residual and x rounded to bfloat16 from float32, as the kernel
+    rounds them): logp as without the option, the gradient to 1e-4 of
+    max|grad|; the option moves the gradient by more than that, and it is
+    counted apart."""
+    _needs_card()
+    x, y, q = _data(8, c, n, d)
+    w = torch.ones(n, device="cuda")
+    before = (LOGISTIC_VG.launches, LOGISTIC_VG.bf16_launches)
+    lp, g = logistic_value_and_grad(q, x, y, w, INV_VAR, grad_bf16=True)
+    torch.cuda.synchronize()
+    assert (LOGISTIC_VG.launches, LOGISTIC_VG.bf16_launches) \
+        == (before[0] + 1, before[1] + 1)
+    lp_ref, g_ref = logistic_value_and_grad_plain(
+        q.double(), x.double(), y.double(), w.double(), INV_VAR,
+        grad_bf16=True)
+    lp32, g32 = logistic_value_and_grad(q, x, y, w, INV_VAR)
+    ok = torch.isfinite(lp_ref)
+    assert torch.equal(lp, lp32)
+    assert bool((g[~ok] == 0).all())
+    top = g_ref[ok].abs().max()
+    assert ((g.double() - g_ref).abs()[ok].max() / top) < 1e-4
+    assert ((g32.double() - g_ref).abs()[ok].max() / top) > 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,d,k", [(1, 1, 1), (37, 7, 3), (64, 1000, 7),
+                                   (1000, 100, 64)])
+def test_cuda_multistep_matches_plain_and_chained_k3(c, d, k):
+    """K4 against its plain version and against ``k`` launches of K3 on the
+    same inputs, bit for bit: the same float32 operations in the same
+    order, none contracted into an FMA."""
+    _needs_card()
+    x = _gaussian(2, c, d)
+    eps = torch.where(torch.arange(c, device="cuda") % 3 == 0, -0.21, 0.3)
+    before = lf.LEAPFROG_MULTISTEP.launches
+    got = lf.multi_step_leapfrog(x["q"], x["p"], eps, x["lam"], x["minv"], k)
+    torch.cuda.synchronize()
+    assert lf.LEAPFROG_MULTISTEP.launches == before + 1
+    want = lf.multi_step_leapfrog_plain(x["q"], x["p"], eps, x["lam"],
+                                        x["minv"], k)
+    chain = (x["q"], x["p"])
+    for _ in range(k):
+        chain = lf.fused_gaussian_leapfrog(chain[0], chain[1], eps, x["lam"],
+                                           x["minv"])[:2]
+    for g, w, c3 in zip(got, want, chain):
+        assert torch.equal(g, w)
+        assert torch.equal(g, c3)
+
+
+@pytest.mark.cuda
+def test_cuda_multistep_wrapper_refuses_what_the_kernel_does_not_take():
+    _needs_card()
+    x = _gaussian(3, 8, 5)
+    eps = torch.full((8,), 0.1, device="cuda")
+    args = [x["q"], x["p"], eps, x["lam"], x["minv"]]
+    before = lf.LEAPFROG_MULTISTEP.launches
+    with pytest.raises(ValueError):
+        lf.multi_step_leapfrog(*args, 0)
+    for i, bad in ((0, x["q"].double()), (1, x["p"][:4]), (2, eps[:4]),
+                   (3, x["lam"].cpu()), (4, x["minv"][:3])):
+        with pytest.raises(ValueError):
+            lf.multi_step_leapfrog(*args[:i], bad, *args[i + 1:], 2)
+    assert lf.LEAPFROG_MULTISTEP.launches == before
+
+
+@pytest.mark.cuda
+def test_cuda_packed_sample_goes_through_k2():
+    """``sample(..., fused_opts={"fwd_precision": "packed"})`` on a
+    logistic regression of 2,000 x 10 at 64 chains: K2 at every density, K1
+    not once, finite draws; with ``{"grad_bf16": True}`` K1 with the option
+    at every density."""
+    _needs_card()
+    from inplacedhmc_tpu_torch import default_warmup_stages, sample
+    from inplacedhmc_tpu_torch.ops.logistic import LOGISTIC_PACKED
+    x, y, _ = models.synthetic_data(6, 2000, 10, device="cuda")
+    m = models.logistic_regression(x, y, device="cuda")
+    stages = default_warmup_stages(init_steps=40, middle_steps=25,
+                                   doubling_stages=2, terminating_steps=25,
+                                   metric="dense")
+    for opts in ({"fwd_precision": "packed"}, {"grad_bf16": True}):
+        LOGISTIC_PACKED.launches = LOGISTIC_VG.launches = 0
+        LOGISTIC_VG.bf16_launches = 0
+        res = sample(3, m, 100, 64, warmup_stages=stages, device="cuda",
+                     fused_opts=opts)
+        torch.cuda.synchronize()
+        if "grad_bf16" in opts:
+            assert LOGISTIC_PACKED.launches == 0
+            assert LOGISTIC_VG.bf16_launches == LOGISTIC_VG.launches > 0
+        else:
+            assert LOGISTIC_PACKED.launches > 0 and LOGISTIC_VG.launches == 0
+        assert bool(torch.isfinite(res.draws).all())
