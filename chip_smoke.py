@@ -63,7 +63,17 @@ Phases, each printed with its wall time:
    launched with float32 stacks (the share of chains whose termination
    agrees, both timed in alternating pairs, both occupancies), the
    Gaussian at D = 2,048 and max_depth 20, which float32 stacks cannot
-   take, and the blocks per SM of both stack types at D = 1,002;
+   take, and the blocks per SM of both stack types at D = 1,002; every
+   dense check and every timing at a tuned state with a ``[D, D]`` matrix
+   also prints the staged products' plan (path, ring stages and bytes in
+   flight, chains a block, blocks an SM: the launcher's, held to
+   ``ops.tree.stage_plan``) and its time per product on the longest chain,
+   runs the launch again through every other path its shape admits
+   (outputs equal bit for bit; once for each shape, on its first state),
+   and times the per-leaf library yardstick (one float32 ``torch.mm`` of
+   every chain's vector by the matrix: ``library_leaf_ms`` in the kernels
+   line, whose ``library_ms`` stays null, as no library call computes a
+   transition);
 3. ``sample()`` on BASELINE config 3 (logistic regression, 10,000 x 50 data
    from a seed, 8192 chains, dense metric, a short warmup schedule, 128
    draws) through K1; the same with ``fused_opts={"fwd_precision":
@@ -1351,7 +1361,9 @@ def tree_form(form: str, q0, p0, e, d32, unif, phys, minv, key, md: int,
     The plain version gets what the kernel's generator draws for ``key``
     (``ops.tree.philox_draws``); ``plain(rows, shift)`` runs it on those
     chains with every uniform times exp(shift) (``compare_tree``'s
-    replay).  ``bf16``: both with bfloat16 checkpoint stacks."""
+    replay).  ``bf16``: both with bfloat16 checkpoint stacks.
+    ``launch(path)`` forces the staged products' path (``ops.tree.
+    stage_plan``; by default the plan's own)."""
     import torch
 
     from inplacedhmc_tpu_torch.ops.tree import (
@@ -1374,16 +1386,16 @@ def tree_form(form: str, q0, p0, e, d32, unif, phys, minv, key, md: int,
             phys, minv, md, -1000.0, ckpt_bf16=bf16)
 
     if form == "array":
-        return (lambda: tree_transition(
+        return (lambda path=None: tree_transition(
             q0, p0, e, d32, unif, phys, minv, md, -1000.0,
-            ckpt_bf16=bf16), plain)
+            ckpt_bf16=bf16, path=path), plain)
     if form == "prng":
-        return (lambda: tree_transition(
+        return (lambda path=None: tree_transition(
             q0, p0, e, d32, None, phys, minv, md, -1000.0, key=key,
-            ckpt_bf16=bf16), plain)
-    return (lambda: _first(tree_sweep(
+            ckpt_bf16=bf16, path=path), plain)
+    return (lambda path=None: _first(tree_sweep(
         q0, e, phys, minv, md, -1000.0, key=key, sqrt_mass=sqrt_mass,
-        ckpt_bf16=bf16)), plain)
+        ckpt_bf16=bf16, path=path)), plain)
 
 
 def check_tree_kernel(card: str, c: int = G_CHAINS, d: int = G_DIM,
@@ -1705,6 +1717,9 @@ def check_tile_kernel(card: str, physics: str, chain_counts, eps_list,
                   f"leapfrog steps, {steps / ms * 1e3:.4g} steps/s; bound "
                   f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.3f} of "
                   f"it{neck_note}")
+            if dense:
+                staged_paths(card, label, launch, got, physics, d, dense,
+                             "prng", ms, int(got.steps.max()))
             if not finite:
                 raise RuntimeError(f"K5 ({label}) returned a non-finite "
                                    f"state, or a chain started where the "
@@ -1761,6 +1776,100 @@ def kernel_order_product(xi, s):
     return acc
 
 
+def n_products(physics: str, dense: bool, form: str, n_leaf: int,
+               k: int = 1) -> int:
+    """The ``[D, D]`` products of a chain of ``n_leaf`` leaves over ``k``
+    transitions (``tree_bound``'s count): a dense metric's two a leaf, one
+    at each start and, under ``refresh``, one more for the momentum; the
+    dense Gaussian's one a leaf, one at each start and one for the final
+    gradient."""
+    own = physics == "dense_gaussian"
+    return own * (n_leaf + k + 1) \
+        + dense * (2 * n_leaf + k + k * (form == "refresh"))
+
+
+def bits_equal(a, b) -> bool:
+    """Whether two tensors hold the same bits (a NaN where the other holds
+    the same NaN counts as equal: the saturated chains' gradients)."""
+    import torch
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+#: the shapes (physics, D, metric, refresh, stack type) whose launch
+#: ``staged_paths`` has forced through every admitted path
+_FORCED_SHAPES = set()
+
+
+def staged_paths(card: str, label: str, launch, ref, physics: str, d: int,
+                 dense: bool, form: str, ms: float, n_leaf: int,
+                 bf16: bool = False, k: int = 1) -> str:
+    """The staged products of a launch that has a ``[D, D]`` matrix: the
+    launcher's plan (``ops.tree.plan_on_card``), which must be the Python
+    mirror's (``stage_plan``); on the first state of each shape,
+    ``launch(path)`` forced through every other path the shape admits, each
+    output equal bit for bit to ``ref`` (the plan's own launch: the same
+    arithmetic in the same order; ``bits_equal``).  Prints and returns the
+    plan, the ring's stages and bytes in flight, the chains a block, the
+    blocks an SM holds, and the time per product on the longest chain
+    (``ms`` over its ``n_products``)."""
+    import torch
+
+    from inplacedhmc_tpu_torch.ops.tree import (PATHS, TreeOut,
+                                                plan_on_card, stage_plan)
+    refresh = form == "refresh"
+    plan, blocks = plan_on_card(physics, d, MAX_DEPTH, dense, refresh, bf16)
+    mirror = stage_plan(d, MAX_DEPTH, physics, dense, refresh, bf16)
+    if plan != mirror:
+        raise RuntimeError(f"{label}: the launcher plans {plan}, the mirror "
+                           f"{mirror}")
+    shape = (physics, d, dense, refresh, bf16)
+    first = shape not in _FORCED_SHAPES
+    _FORCED_SHAPES.add(shape)
+    same = []
+    for path in PATHS if first else ():
+        try:
+            stage_plan(d, MAX_DEPTH, physics, dense, refresh, bf16, path)
+        except ValueError:
+            continue
+        if path == plan.path:
+            continue
+        got = launch(path)
+        torch.cuda.synchronize()
+        differ = [f for f in TreeOut._fields
+                  if not bits_equal(getattr(got, f), getattr(ref, f))]
+        if differ:
+            raise RuntimeError(f"{label}: the {path} path differs from the "
+                               f"{plan.path} path in {differ}")
+        same.append(path)
+    n_prod = n_products(physics, dense, form, n_leaf, k)
+    line = (f"{plan.path} path, {plan.stages} stages of {plan.rows} rows "
+            f"({plan.in_flight(d)} bytes in flight), {plan.warps} chains a "
+            f"block, {blocks} blocks an SM ({blocks * plan.warps} chains); "
+            f"longest chain {n_leaf} leaves, {n_prod} products, "
+            f"{ms / n_prod * 1e3:.2f} us per product; "
+            + (f"{', '.join(same) or 'no other path'} admitted, equal bit "
+               f"for bit" if first else "other paths checked on this "
+               "shape's first state"))
+    print(f"[staged] {label} on {card}: {line}")
+    return line
+
+
+def library_product_ms(v, m) -> float:
+    """One ``torch.mm`` of every chain's vector ``v [C, D]`` by the matrix
+    ``m [D, D]`` in float32 with TF32 off: the per-leaf library yardstick
+    of a staged product (the kernel makes two or three a leaf, each chain
+    on its own)."""
+    import torch
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return cuda_time_ms(lambda: torch.mm(v, m))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
 def dense_case(card: str, label: str, physics: str, data: dict, q0, minv,
                eps_list, forms=("array", "prng", "refresh"),
                seed: int = 0, iters: int = 10) -> dict:
@@ -1813,18 +1922,15 @@ def dense_case(card: str, label: str, physics: str, data: dict, q0, minv,
             ms = cuda_time_ms(launch, 3 if deep else iters, 1)
             bound_ms, bound_by, steps = tree_bound(c, d, want, form, physics,
                                                    dense, _n_obs(phys))
-            # a launch lasts as long as its longest chain, whose [D, D]
-            # products (tree_bound's count) run one after another
-            i = int(want.steps.argmax())
-            n_leaf = int(want.steps[i])
-            n_prod = (phys.matrix() is not None) * (n_leaf + 2) \
-                + dense * (2 * n_leaf + 1 + (form == "refresh"))
-            per = f"; longest chain {n_leaf} leaves, {n_prod} products, " \
-                f"{ms / n_prod * 1e3:.2f} us per product" if n_prod else ""
             print(f"[k5-dense] {tag} on {card}: kernel {ms:.4f} ms, plain "
                   f"{plain_ms:.2f} ms (wall); {steps:.0f} leapfrog steps, "
                   f"{steps / ms * 1e3:.4g} steps/s; bound {bound_ms:.4f} ms "
-                  f"({bound_by}), {bound_ms / ms:.4f} of it{per}")
+                  f"({bound_by}), {bound_ms / ms:.4f} of it")
+            # a launch lasts as long as its longest chain, whose [D, D]
+            # products (tree_bound's count) run one after another
+            if dense or phys.matrix() is not None:
+                staged_paths(card, tag, launch, got, physics, d, dense, form,
+                             ms, int(got.steps.max()))
             times[(eps, form)] = (ms, plain_ms, bound_ms, bound_by, err)
     return times
 
@@ -1878,8 +1984,9 @@ def check_dense_tree_kernel(card: str) -> dict:
       1,024 chains, the default route's form.
 
     First the spills of the dense Gaussian's instantiations
-    (``sass_counts``); each case's timing line gives the time per ``[D, D]``
-    product on its longest chain.  Returns the kernels-line entry of
+    (``sass_counts``); each case's ``staged_paths`` line gives its plan and
+    the time per ``[D, D]`` product on its longest chain.  Returns the
+    kernels-line entry of
     ``dense_gaussian`` under its diagonal metric (the mvn run's early
     windows), timed at 1,024 chains and half the stability limit, drawing
     its uniforms."""
@@ -1887,23 +1994,36 @@ def check_dense_tree_kernel(card: str) -> dict:
 
     t = time.perf_counter()
     from inplacedhmc_tpu_torch.ops.tree import TREE_DENSE_KERNELS
+    # the staged instantiations of the dense Gaussian (its P under either
+    # metric; the other launchers' registers and spills print with the
+    # build)
     sass_counts(TREE_DENSE_KERNELS["dense_gaussian"],
-                lambda name: "tree_kernel" in name)
+                lambda name: "tree_kernel" in name,
+                ("LDL", "STL", "LDG", "LDS", "SHFL", "BAR", "SYNCS"))
     gen = torch.Generator(device="cuda").manual_seed(SEED + 19)
     d = G_DIM
-    dense_case(card, f"gaussian, dense metric, {G_CHAINS} x {d}", "gaussian",
-               {"lam": torch.ones((d,), device="cuda")},
-               torch.randn((G_CHAINS, d), generator=gen, device="cuda"),
-               _spd(d, gen), (0.3, 1.8, 0.002), seed=1)
+    q0 = torch.randn((G_CHAINS, d), generator=gen, device="cuda")
+    minv = _spd(d, gen)
+    dense_case(card, f"gaussian, dense metric, {G_CHAINS} x {d}",
+               "gaussian", {"lam": torch.ones((d,), device="cuda")}, q0,
+               minv, (0.3, 1.8, 0.002), seed=1)
     ms, plain_ms, bound_ms, bound_by, err = mvn_cases(
         card, gen, MVN_DIM, MVN_DF, (MVN_CHAINS,), deep=False)
     mvn_cases(card, gen, MVN_DIM, MVN_DF, (64,), forms=("prng",))
+    model, _ = mvn_target()
+    prec = model.structure["precision"]
+    lib = library_product_ms(torch.randn((MVN_CHAINS, MVN_DIM), generator=gen,
+                                         device="cuda"), prec)
+    print(f"[k5-dense] the per-leaf library yardstick of P q: torch.mm of "
+          f"[{MVN_CHAINS}, {MVN_DIM}] by [{MVN_DIM}, {MVN_DIM}], float32, "
+          f"TF32 off: {lib:.4f} ms")
     entry = {"name": "tree_dense_gaussian", "route": "cuda",
              "source": "inplacedhmc_tpu_torch/csrc/tree_dense_gaussian.cu",
              "replaces": "inplacedhmc_tpu/ops/tree_pallas.py:1118",
              "launches": None, "max_abs_err": err, "ms": ms,
              "plain_ms": plain_ms, "bound_ms": bound_ms,
-             "bound_by": bound_by, "library_ms": None}
+             "bound_by": bound_by, "library_ms": None,
+             "library_leaf_ms": lib}
     for name, eps in (("eight_schools", 0.3), ("funnel", 0.2)):
         st = tile_model(name).structure
         dense_case(card, f"{name}, dense metric, {E_CHAINS} x 10", name,
@@ -2078,12 +2198,17 @@ def bf16_case(card: str, label: str, physics: str, phys, q0, p0, e, d32,
     print(f"[k5-bf16] {label} on {card}: kernel {ms:.4f} ms, plain "
           f"{plain_ms:.2f} ms (wall), bound {bound_ms:.4g} ms ({bound_by}), "
           f"{bound_ms / ms:.4f} of it; {steps:.0f} steps{note}")
+    leaf = {}
+    if dense:
+        staged_paths(card, f"{label}, bfloat16 stacks", launch, got, physics,
+                     d, dense, "prng", ms, int(got.steps.max()), bf16=True)
+        leaf = {"library_leaf_ms": library_product_ms(q0, minv)}
     return {"name": name or f"tree_{physics}_ckpt_bf16", "route": "cuda",
             "source": f"inplacedhmc_tpu_torch/csrc/{kern.source}",
             "replaces": f"inplacedhmc_tpu/ops/tree_pallas.py:{BF16_REPLACES}",
             "launches": None, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None}
+            "library_ms": None, **leaf}
 
 
 def bf16_at_state(card: str, ws, physics: str, data: dict, label: str,
@@ -2447,6 +2572,21 @@ def tree_at_state(card: str, res, form: str = "prng", k: int = 1,
           f"transition), plain {plain_ms:.2f} ms (wall: its host loop "
           f"synchronises), bound {bound_ms:.4g} ms ({bound_by}); "
           f"{steps:.0f} steps, {steps / ms * 1e3:.4g} steps/s")
+    leaf = {}
+    mat = phys.matrix()
+    if dense or mat is not None:
+        # the products of the longest chain over the k transitions
+        staged_paths(card, f"{physics}, {c} x {d} at the tuned state "
+                     f"({metric} metric), {form}, n_sweep {k}",
+                     lambda path: tree_sweep(q0, e, phys, minv, md, -1000.0,
+                                             k, key=key, path=path, **kw),
+                     out, physics, d, dense, form, ms,
+                     int(out.steps.sum(0).max()), k=k)
+        leaf = {"library_leaf_ms": library_product_ms(
+            q0, minv if dense else mat)}
+        print(f"[k5] the per-leaf library yardstick: torch.mm of the "
+              f"[{c}, {d}] vectors by the [{d}, {d}] matrix, float32, TF32 "
+              f"off: {leaf['library_leaf_ms']:.4f} ms")
     if name is None:
         name = f"tree_{physics}" if physics != "gaussian" else \
             "gaussian_tree_transition" if form == "prng" else \
@@ -2460,7 +2600,7 @@ def tree_at_state(card: str, res, form: str = "prng", k: int = 1,
                            else DENSE_REPLACES[physics] if dense else "92"),
             "launches": None, "max_abs_err": abs_err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None}
+            "library_ms": None, **leaf}
 
 
 class StageTimer:

@@ -5,11 +5,14 @@
 // make_dense_gaussian_tree_transition, :1126).  Its plain version is
 // ops/tile_physics.py::dense_gaussian:
 //   g = -(q P),  logp = 0.5 sum g q
-// P q is one team mat-vec (tree_kernel.cuh's Warp::matvec, Block::matvec
-// in the wide form above D = 256; P is symmetric, so row i of P is its
-// column i), the log density one team sum of the same product's terms.
-// Per leaf 2 D^2 + 3 D flops and D shuffles; P (D^2 floats, 250 KB at
-// D = 250) is read from L2 at every leaf.  The TPU kernel pads P with an
+// P q is one staged team mat-vec (tree_kernel.cuh's Staged: P is
+// symmetric, so row i of P is its column i), the log density one team sum
+// of the same product's terms.  Per leaf 2 D^2 + 3 D flops.  P is staged
+// as every [D, D] matrix of K5 is, under either metric: resident in the
+// block's shared memory where it fits beside the stacks (40 KB at D = 100),
+// else streamed through the warp's ring of panels (250 KB at D = 250), by
+// the asynchronous bulk copies of tree_kernel.cuh; the register path reads
+// it from L2 in the wide form, where the ring measured slower (plan_of).  The TPU kernel pads P with an
 // identity block on its dead lanes; here lanes past D read no row of P and
 // get a zero gradient, so nothing is padded.
 
@@ -22,14 +25,16 @@ struct DenseGaussian {
   static constexpr int kNV = NV;
   static constexpr int kMinDim = 1;
   static constexpr bool kFusedGaussian = false;
+  static constexpr bool kMatrix = true;  // a [D, D] matrix of its own
+  static constexpr bool kStaging = true;  // products staged (kStagedOf)
   static constexpr bool kWide = true;
-  const float* prec;  // [D, D]
+  Mat prec;  // [D, D]
   int D;
 
   template <class T>
   __device__ __forceinline__ void load(const PhysicsData& pd,
                                        const bool (&)[NV], const T&) {
-    prec = pd.mat;
+    prec = Mat{pd.mat, MAT_OWN};
     D = pd.D;
   }
 

@@ -28,6 +28,12 @@ struct EightSchools {
   static constexpr int kNV = NV;
   static constexpr int kMinDim = 2;
   static constexpr bool kFusedGaussian = false;
+  static constexpr bool kMatrix = false;  // a [D, D] matrix of its own
+  // the dense launcher keeps M^-1 on the register path (kStagedOf): at
+  // D = 10 the leaf's special functions set the time, the 400-byte matrix
+  // sits in L1, and the staged instantiation's registers cost more than
+  // shared memory saves (measured 3 % slower)
+  static constexpr bool kStaging = false;
   static constexpr bool kWide = false;  // D <= 256 only
   float y[NV], sig[NV];
   bool obs[NV];

@@ -25,6 +25,8 @@ struct Funnel {
   static constexpr int kNV = NV;
   static constexpr int kMinDim = 1;
   static constexpr bool kFusedGaussian = false;
+  static constexpr bool kMatrix = false;  // a [D, D] matrix of its own
+  static constexpr bool kStaging = true;  // products staged (kStagedOf)
   static constexpr bool kWide = false;  // D <= 256 only
   bool xm[NV];
   float kf, inv_s2;

@@ -16,6 +16,8 @@ struct Gaussian {
   static constexpr int kNV = NV;
   static constexpr int kMinDim = 1;
   static constexpr bool kFusedGaussian = true;
+  static constexpr bool kMatrix = false;  // a [D, D] matrix of its own
+  static constexpr bool kStaging = true;  // products staged (kStagedOf)
   static constexpr bool kWide = true;
   float lam[NV];  // the precision
 

@@ -73,24 +73,51 @@
 // (tools/compare_sass.py compares two checkouts' SASS, instantiation by
 // instantiation).
 //
-// The dense metric (kDense): Minv is [D, D] and every p# = Minv p is a warp
-// mat-vec (matvec below: v_i broadcast from its lane, row i of the matrix
-// read by the 32 lanes at once, i in order, each product and sum rounded on
-// its own; in the wide form v staged in shared memory and rows read by the
-// block's threads in batches of MATVEC_ROWS, in the same order, Block::
-// matvec); the refresh draws xi and takes p = xi S with S = mass_chol^T
+// The dense metric (kDense): Minv is [D, D] and every p# = Minv p is a team
+// mat-vec; the refresh draws xi and takes p = xi S with S = mass_chol^T
 // [D, D] in the momentum slot.  A leaf does two products, Minv p_mid for
 // the position update and Minv p_new, which serves both the U-turn p# and
 // the kinetic energy 0.5 p . p#; a physics with a matrix (the dense
 // Gaussian) does a third.  A merge takes the new end's p# from the
 // subtree's last leaf, and a transition's start does one product (two
-// under refresh).  The TPU kernel takes the turn statistic as a
-// cheaper 1-pass bf16 product and the energy and the update as a 3-pass
-// split-bf16 one (tree_pallas.py:182-221); one f32 product for all is at
-// least as exact as each of them and keeps both exactness classes.  The
-// matrices ([D, D] floats, 250 KB at D = 250) are read from device memory
-// through the read-only cache and stay resident in L2; two of them do not
-// fit in shared memory beside the checkpoint stacks.
+// under refresh).  The TPU kernel takes the turn statistic as a cheaper
+// 1-pass bf16 product and the energy and the update as a 3-pass split-bf16
+// one (tree_pallas.py:182-221); one f32 product for all is at least as
+// exact as each of them and keeps both exactness classes.
+// Every product of the one-warp form is staged (Staged, below) where the
+// card measured it faster: its matrix reaches shared memory through the
+// copy unit's asynchronous bulk copies (cp.async.bulk, completed on an
+// mbarrier), not through registers, on one of two paths chosen by shape
+// before the launch (plan_of, ops/tree.py::stage_plan):
+//  * resident, where every matrix of the launch (M^-1, S under refresh, the
+//    physics' own) fits beside the stacks of the block's chains (the
+//    funnel's D = 10, 100, 102, 128: up to MAX_STAGED_WARPS chains a block
+//    share one copy; above D = 128 only with as many chains an SM as the
+//    ring): thread 0 copies them in once a launch, before any warp of a
+//    partial last block leaves, and the warps wait on the copy's mbarrier;
+//  * a ring, in the one-warp form above D = 128 where they do not fit (the
+//    250-D mvn): each warp streams each product's matrix through its own S
+//    stages of R rows, at the register path's blocks an SM in the room
+//    they leave; one lane issues the panels, a `full` mbarrier per stage
+//    signals arrival, S - 1 panels stay in flight while the warp reads
+//    one, and a stage is refilled after a __syncwarp.
+// The vector reaches every thread from shared memory, rows are read
+// i = 0 .. D-1 in order by the lanes at consecutive addresses (no bank
+// conflict), each thread keeps its own columns, and each product and sum
+// is rounded on its own: the register path's arithmetic in its order, so
+// the outputs are the same bit for bit whatever the path.  A bulk copy
+// moves 16-byte-aligned multiples of 16 bytes: a panel is R rows with R D
+// a multiple of 4, the matrices start 16-byte aligned (the wrapper
+// checks), and the at most three floats of a matrix past its last multiple
+// of 16 bytes are copied by the issuing thread before its arrival, which
+// releases them to the waiters.  The register path (matvec below: v_i
+// broadcast from its lane, row i read through the read-only cache by the
+// 32 lanes at once; Block::matvec: rows in batches of MATVEC_ROWS) stays in
+// the wide form, where the matrix does not fit and a ring over the block
+// measured slower (each panel a handshake of all its warps with the issuing
+// thread), and for eight schools and logistic regression, whose products
+// the card measured slower staged (kStagedOf); elsewhere it is a launch's
+// to ask for (path, a check's hook).
 //
 // What differs from the TPU kernel, and why:
 //  * The TPU runs a tile of chains in lockstep: the leaf index is global to
@@ -151,14 +178,17 @@
 // dense metric, so a transition is about that times sum(steps) flops at 67
 // TFLOP/s fp32, against the bytes of its inputs and outputs (q in, the
 // matrices once, and per transition q and the eight per-chain records out,
-// grad once) at 3.35 TB/s.  The dense products reread their matrices from
-// L2 at every leaf of every chain, one row per step of a warp at its
-// register cap: their time is L2 latency, far from the bound
-// (chip_smoke.py prints the time per product on the longest chain); in the
-// wide form every chain streams its whole [D, D] matrix (4 MB at D = 1002)
-// from L2 at every product, so a launch of many chains is bound by L2's
-// bandwidth as well.  Staging tiles in shared memory, several chains per
-// block sharing a tile, or 3xTF32 tensor cores are later work.
+// grad once) at 3.35 TB/s.  A launch lasts as long as its deepest chain,
+// whose [D, D] products run one after another (chip_smoke.py prints the
+// time per product on the longest chain): on the register path each waited
+// for L2 row by row with a few KB in flight; staged, a resident product
+// reads shared memory only, and a ring keeps S - 1 panels on their way,
+// but each panel costs its team a handshake with the copy unit, whatever
+// S, so a streamed product is held by its number of panels, and a launch
+// of many chains by L2's bandwidth.
+// Several chains sharing one stream of a matrix (a chain tile in lockstep,
+// or TMA multicast across a cluster), then 3xTF32 tensor cores on the
+// shared panels, are later work.
 // With the draws made here no uniform array crosses device memory.  One
 // warp per chain leaves 32 - D lanes idle where D < 32 (22 of 32 at D =
 // 10); a simple kernel that is right comes first, the tile shape is later
@@ -177,6 +207,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace tree {
 
 constexpr int TERM_MAX_DEPTH = 0;  // core/state.py::Termination
@@ -191,6 +223,18 @@ constexpr int MATVEC_ROWS = 4;        // rows of the wide mat-vec's batch
 constexpr int SMEM_LIMIT = 232448;    // dynamic shared memory of one block
 constexpr int STACK_ALIGN = 16;       // bytes: a chain's stacks rounded up
 constexpr unsigned FULL = 0xffffffffu;
+// the staged [D, D] products (the plan below)
+constexpr int SM_SMEM = 233472;       // shared memory of one SM (228 KB)
+constexpr int BLOCK_RESERVED = 1024;  // of it reserved for each block
+constexpr int MAX_STAGES = 8;         // stages of a ring
+constexpr int MAX_STAGED_WARPS = 16;  // chains a block of the staged
+                                      // one-warp form holds (D <= 128)
+constexpr int PATH_REGISTER = 0;      // rows read from L2 into registers
+constexpr int PATH_RESIDENT = 1;      // the matrices copied in once a launch
+constexpr int PATH_RING = 2;          // panels of rows streamed through a
+                                      // ring of stages
+constexpr int RING_MIN_DIM = 128;     // the plan's own ring: the one-warp
+                                      // form above it (plan_of)
 
 // utils/philox.py: streams, constants
 constexpr uint32_t STREAM_MOMENTUM = 0;
@@ -540,23 +584,283 @@ struct Args {
   int D, md, n_sweep, refresh;
   int ckpt_bf16;         // 1: bfloat16 checkpoint stacks
   float min_delta;
+  int path;              // the staged products' path (Plan), and its ring's
+  int ring_stages, ring_rows;  // stages and rows a panel
 };
+
+// Chains a block of the one-warp form holds: MAX_WARPS, fewer where their
+// stacks would pass SMEM_LIMIT
+inline int narrow_warps(int64_t per_warp) {
+  int warps = MAX_WARPS;
+  while (warps > 1 && warps * per_warp > SMEM_LIMIT) --warps;
+  return warps;
+}
+
+// The wide form's dynamic shared memory (its bound, ops/tree.py::takes):
+// the stacks, the scratch of the row sums, the mat-vec's two staging rows
+__host__ __device__ constexpr int64_t wide_bytes(int D, int md, bool bf16) {
+  return stack_bytes(D, md, bf16) +
+         (int64_t)sizeof(float) * (WIDE_SCRATCH + 2 * (int64_t)D);
+}
+
+// The staged [D, D] products (the comment at the top of this file, "The
+// dense metric"): the copy unit's asynchronous bulk copies
+// (cp.async.bulk, completed on an mbarrier) into shared memory.
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void bar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+               :: "r"(smem_addr(bar)), "r"(count) : "memory");
+}
+// the barriers' initialisation visible to the copy unit
+__device__ __forceinline__ void bar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+__device__ __forceinline__ void bar_expect(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
+               :: "r"(smem_addr(bar)) : "memory");
+}
+__device__ __forceinline__ void bar_wait(uint64_t* bar, unsigned parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+  } while (!done);
+}
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// n floats from src (device memory) to dst (shared memory), both 16-byte
+// aligned, completed on bar (one arrival): the floats up to the last
+// multiple of four by one bulk copy, the at most three after them by the
+// calling thread before its arrival, which releases them to the waiters
+__device__ __forceinline__ void copy_in(float* dst, const float* src,
+                                        int64_t n, uint64_t* bar) {
+  const int64_t bulk = n & ~(int64_t)3;
+  for (int64_t t = bulk; t < n; ++t) dst[t] = __ldg(src + t);
+  bar_expect(bar, 4u * (unsigned)bulk);
+  if (bulk) bulk_copy(dst, src, 4u * (unsigned)bulk, bar);
+}
+
+// The block's dynamic shared memory, as the staged products address it
+// (every extern __shared__ array starts at the same address: the kernel's
+// smem)
+extern __shared__ __align__(16) unsigned char staged_smem[];
+
+// A matrix of the products: g in device memory, and which of a launch's
+// staged matrices it is (its slot among the resident copies: M^-1 first,
+// then mass_chol^T under refresh, then the physics' own)
+enum MatKind { MAT_MINV = 0, MAT_SCALE = 1, MAT_OWN = 2 };
+struct Mat {
+  const float* g;
+  int kind;
+  // the register path's view (Warp::matvec, Block::matvec): the matrix in
+  // device memory
+  __device__ __forceinline__ operator const float*() const { return g; }
+};
+
+// The staged regions' bytes
+__host__ __device__ constexpr int64_t round16(int64_t b) {
+  return (b + 15) / 16 * 16;
+}
+__host__ __device__ constexpr int64_t mat_bytes(int D) {
+  return round16(4 * (int64_t)D * D);
+}
+__host__ __device__ constexpr int64_t vrow_bytes(int D) {
+  return round16(4 * (int64_t)D);
+}
+__host__ __device__ constexpr int64_t ring_bytes(int D, int S, int R) {
+  return 4 * (int64_t)S * R * D;
+}
+// a ring and its S barriers
+__host__ __device__ constexpr int64_t ring_region(int D, int S, int R) {
+  return ring_bytes(D, S, R) + round16(8 * (int64_t)S);
+}
+
+// Panel p of g (rows [p R, min(p R + R, D))) into stage s of the ring
+// `buf` of R-row stages, on its barrier full[s], by the one issuing thread
+__device__ __forceinline__ void issue_panel(float* buf, uint64_t* full,
+                                            int R, const float* g, int D,
+                                            int p, int s) {
+  copy_in(buf + (int64_t)s * R * D, g + (int64_t)p * R * D,
+          (int64_t)min(R, D - p * R) * D, full + s);
+}
+
+// The one-warp form's team with staged products: its matvec(Mat, D, v,
+// out) reads the matrix from shared memory, resident or streamed through
+// the warp's ring by the launch's path (or, on the register path, runs
+// Warp's own).  What it keeps is four words, so that the registers of the
+// register path and of the physics stay free: cfg (the path, the ring's
+// stages S and rows R, the physics' matrix's slot), the byte offsets in
+// shared memory of the resident matrices or the warp's ring and of its
+// vector row, and rph (bit s the parity of ring stage s's next completion,
+// the same on every lane).
+struct Staged : Warp {
+  uint32_t cfg = PATH_REGISTER;  // path | S << 2 | own slot << 6 | R << 8
+  uint32_t off = 0, voff = 0, rph = 0;
+
+  __device__ __forceinline__ explicit Staged(float* s) : Warp(s) {}
+
+  template <int NV>
+  __device__ __forceinline__ void matvec(Mat m, int D, const float (&v)[NV],
+                                         float (&out)[NV]) {
+    const int path = cfg & 3u;
+    if (path == PATH_REGISTER) {
+      Warp::matvec(m.g, D, v, out);
+      return;
+    }
+    const bool streamed = path == PATH_RING;
+    const int S = (cfg >> 2) & 15u, R = cfg >> 8;
+    float* buf = reinterpret_cast<float*>(staged_smem + off);
+    uint64_t* full =
+        reinterpret_cast<uint64_t*>(staged_smem + off + ring_bytes(D, S, R));
+    // the vector in the warp's row of shared memory, and the first S panels
+    // on their way: the __syncwarp orders every lane's reads of the last
+    // product's stages and vector before them
+    float* vs = reinterpret_cast<float*>(staged_smem + voff);
+    __syncwarp();
+#pragma unroll
+    for (int k = 0; k < NV; ++k)
+      if (lane + 32 * k < D) vs[lane + 32 * k] = v[k];
+    __syncwarp();
+    const int np = streamed ? (D + R - 1) / R : 1;
+    if (streamed && lane == 0)
+      for (int p = 0; p < min(S, np); ++p)
+        issue_panel(buf, full, R, m.g, D, p, p);
+    float acc[NV];
+#pragma unroll
+    for (int k = 0; k < NV; ++k) acc[k] = 0.f;
+    const int slot = m.kind == MAT_OWN ? (int)((cfg >> 6) & 3u) : m.kind;
+    const float* row = buf + slot * (mat_bytes(D) / 4) + lane;
+    int i = 0, s = 0;
+    for (int p = 0; p < np; ++p) {
+      if (streamed) {
+        bar_wait(full + s, (rph >> s) & 1u);
+        rph ^= 1u << s;
+        row = buf + (int64_t)s * R * D + lane;
+      }
+      const int end = streamed ? min(i + R, D) : D;
+#pragma unroll 4
+      for (; i < end; ++i, row += D) {
+        const float vi = vs[i];
+#pragma unroll
+        for (int k = 0; k < NV; ++k)
+          if (lane + 32 * k < D) acc[k] = add(acc[k], mul(row[32 * k], vi));
+      }
+      if (streamed) {
+        // the stage read by the warp: refilled with panel p + S
+        __syncwarp();
+        if (lane == 0 && p + S < np)
+          issue_panel(buf, full, R, m.g, D, p + S, s);
+        s = s + 1 == S ? 0 : s + 1;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < NV; ++k) out[k] = lane + 32 * k < D ? acc[k] : 0.f;
+  }
+};
+
+// The plan of a launch's staged products: the path, the chains of a block
+// of the one-warp form (warps), the ring's stages and rows a panel, and the
+// block's dynamic shared memory.  The one-warp form's staged instantiations
+// hold 128 registers a thread at D <= 128 and 255 above (so 16 and 8 warps
+// an SM), as the register path does; the wide form's 255.
+struct Plan {
+  int path, warps, stages, rows;
+  int64_t bytes;
+};
+
+// Rows of a panel whose bytes are a multiple of 16
+__host__ __device__ constexpr int align_rows(int D) {
+  return D % 4 == 0 ? 1 : D % 2 == 0 ? 2 : 4;
+}
+inline int reg_warps(int D) { return D > 128 ? 8 : 16; }
+inline int blocks_by_smem(int64_t bytes) {
+  return (int)(SM_SMEM / (bytes + BLOCK_RESERVED));
+}
+// The ring for `room` bytes: the most rows a panel (a multiple of
+// align_rows, at most D) with two stages, and as many stages of it as fit
+// (at most MAX_STAGES); stages 0 where two stages of align_rows rows do
+// not fit.  Each panel costs its team a handshake with the copy unit, so
+// the fewest, largest panels go fastest (on the card the ring's time did
+// not move with its depth, 2 to 8 stages, and fell with its rows a panel).
+inline void ring_fit(int D, int64_t room, int* S, int* R) {
+  const int unit = align_rows(D);
+  int64_t r = room / (2 * 4LL * D) / unit * unit;
+  if (r > D) r = (D + unit - 1) / unit * unit;
+  *R = r >= unit ? (int)r : unit;
+  const int64_t s = r >= unit ? room / (4LL * r * D) : 0;
+  *S = s >= 2 ? (int)(s < MAX_STAGES ? s : MAX_STAGES) : 0;
+}
+
+// Whether an instantiation stages its [D, D] products: the one-warp form
+// with a dense M^-1 or a physics' own matrix, for a physics whose products
+// the card measured faster staged (P::kStaging; not eight schools' or
+// logistic regression's, whose leaves the product does not set)
+template <class T, class P, bool kDense>
+constexpr bool kStagedOf =
+    (kDense || P::kMatrix) && !T::kWide && P::kStaging;
 
 // The transition of one chain by the team T (Warp: a chain per warp, up to
 // MAX_WARPS a block; Block: a chain per block of up to MAX_WIDE_WARPS).
 // Every branch depends on values that are the same on every thread of the
 // team (its sums), so every thread of a block reaches every barrier.
+// A launch of the one-warp form with a [D, D] matrix (a dense M^-1, or a
+// physics' own) stages its products (Staged, kStagedOf); its blocks hold up
+// to MAX_STAGED_WARPS chains at 128 registers a thread (D <= 128), 8 at 255.
 template <class T, class P, bool kDense>
-__global__ void __launch_bounds__(T::kWide ? 32 * MAX_WIDE_WARPS
-                                           : 32 * MAX_WARPS,
-                                  T::kWide || P::kNV > 4 ? 1 : 4)
+__global__ void __launch_bounds__(
+    T::kWide                     ? 32 * MAX_WIDE_WARPS
+    : kStagedOf<T, P, kDense>    ? 32 * (P::kNV > 4 ? 8 : MAX_STAGED_WARPS)
+                                 : 32 * MAX_WARPS,
+    T::kWide || P::kNV > 4 || kStagedOf<T, P, kDense> ? 1 : 4)
 tree_kernel(const Args a) {
   constexpr int NV = P::kNV;
+  constexpr bool kStaged = kStagedOf<T, P, kDense>;
+  using Team = std::conditional_t<kStaged, Staged, T>;
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int64_t c = T::kWide ? (int64_t)blockIdx.x
                              : (int64_t)blockIdx.x * (blockDim.x >> 5) + warp;
+  // the resident matrices (M^-1, mass_chol^T under refresh, the physics'
+  // own: the slots of MatKind, the last the own slot) after the block's
+  // stacks and vector rows, their barrier after them, copied in by thread
+  // 0 before any warp of a partial last block leaves
+  if constexpr (kStaged) {
+    if (a.path == PATH_RESIDENT && threadIdx.x == 0) {
+      const int64_t mb = mat_bytes(a.D);
+      unsigned char* at =
+          smem + (blockDim.x >> 5) * (stack_bytes(a.D, a.md, a.ckpt_bf16 != 0)
+                                      + vrow_bytes(a.D));
+      const int own = kDense ? 1 + (a.refresh != 0) : 0;
+      uint64_t* bar = reinterpret_cast<uint64_t*>(at + (own + P::kMatrix) * mb);
+      bar_init(bar, own + P::kMatrix);
+      bar_init_fence();
+      const int64_t n = (int64_t)a.D * a.D;
+      if (kDense) copy_in(reinterpret_cast<float*>(at), a.minv, n, bar);
+      if (kDense && a.refresh)
+        copy_in(reinterpret_cast<float*>(at + mb), a.p0, n, bar);
+      if (P::kMatrix)
+        copy_in(reinterpret_cast<float*>(at + own * mb), a.pd.mat, n, bar);
+    }
+    if (a.path == PATH_RESIDENT) __syncthreads();
+  }
   if (c >= a.C) return;  // the whole warp (team) leaves together
   const int64_t C = a.C;
   const int D = a.D, md = a.md;
@@ -568,7 +872,33 @@ tree_kernel(const Args a) {
   const int64_t stack_len = stack_bytes(D, md, bf16);
   unsigned char* stk_s = smem + (T::kWide ? 0 : warp * stack_len);
   unsigned char* stk_ps = stk_s + (int64_t)md * D * (bf16 ? 2 : 4);
-  T team(reinterpret_cast<float*>(smem + stack_len));
+  Team team(reinterpret_cast<float*>(smem + stack_len));
+  if constexpr (kStaged) {
+    // each warp's vector row after the block's stacks, then the resident
+    // matrices, or each warp's ring and its barriers
+    const int own = kDense ? 1 + (a.refresh != 0) : 0;
+    team.cfg = a.path | a.ring_stages << 2 | own << 6 | a.ring_rows << 8;
+    const int w = blockDim.x >> 5;
+    const int64_t rows = w * stack_len;
+    team.voff = rows + warp * vrow_bytes(D);
+    if (a.path == PATH_RESIDENT) {
+      team.off = rows + w * vrow_bytes(D);
+      bar_wait(reinterpret_cast<uint64_t*>(
+                   smem + team.off + (own + P::kMatrix) * mat_bytes(D)),
+               0);
+    } else if (a.path == PATH_RING) {
+      const int S = a.ring_stages;
+      team.off = rows + w * vrow_bytes(D) +
+                 warp * ring_region(D, S, a.ring_rows);
+      uint64_t* full = reinterpret_cast<uint64_t*>(
+          smem + team.off + ring_bytes(D, S, a.ring_rows));
+      if (lane == 0) {
+        for (int s = 0; s < S; ++s) bar_init(full + s, 1);
+        bar_init_fence();
+      }
+      __syncwarp();
+    }
+  }
   const int base = team.base;
 
   const Key key = a.key ? Key{(uint32_t)a.key[0], (uint32_t)a.key[1]}
@@ -606,8 +936,8 @@ tree_kernel(const Args a) {
                 : a.refresh ? draw_normal(key, (uint32_t)c, s, d)
                             : a.p0[((int64_t)s * C + c) * D + d];
       }
-      if (a.refresh) team.matvec(a.p0, D, pv, pv);
-      team.matvec(a.minv, D, pv, psl);
+      if (a.refresh) team.matvec(Mat{a.p0, MAT_SCALE}, D, pv, pv);
+      team.matvec(Mat{a.minv, MAT_MINV}, D, pv, psl);
 #pragma unroll
       for (int k = 0; k < NV; ++k) {
         lq[k] = rq[k] = subq[k] = cq[k] = propq[k];
@@ -690,7 +1020,7 @@ tree_kernel(const Args a) {
 #pragma unroll
             for (int k = 0; k < NV; ++k)
               p_mid[k] = add(cp[k], mul(half, cg[k]));
-            team.matvec(a.minv, D, p_mid, qn);  // Minv p_mid
+            team.matvec(Mat{a.minv, MAT_MINV}, D, p_mid, qn);  // Minv p_mid
 #pragma unroll
             for (int k = 0; k < NV; ++k)
               qn[k] = add(cq[k], mul(eps_signed, qn[k]));
@@ -706,7 +1036,7 @@ tree_kernel(const Args a) {
 #pragma unroll
             for (int k = 0; k < NV; ++k)
               pn[k] = add(p_mid[k], mul(half, gn[k]));
-            team.matvec(a.minv, D, pn, psn);
+            team.matvec(Mat{a.minv, MAT_MINV}, D, pn, psn);
 #pragma unroll
             for (int k = 0; k < NV; ++k)
               kin_leaf = add(kin_leaf, mul(pn[k], psn[k]));
@@ -899,50 +1229,119 @@ tree_kernel(const Args a) {
     if (in[k]) a.grad_out[row + base + lane + 32 * k] = lg[k];
 }
 
-// Chains a block of the one-warp form holds: MAX_WARPS, fewer where their
-// stacks would pass SMEM_LIMIT
-inline int narrow_warps(int64_t per_warp) {
-  int warps = MAX_WARPS;
-  while (warps > 1 && warps * per_warp > SMEM_LIMIT) --warps;
-  return warps;
+// The plan for D, md, the stack type and the n matrices a launch stages
+// (M^-1 under a dense metric, mass_chol^T when it refreshes too, the
+// physics' own; none where kStagedOf is false): the register path's launch
+// (narrow_warps chains a block, or the wide form's one); in the one-warp
+// form, the resident path where every matrix fits beside the stacks of the
+// block's chains, with the fewest chains a block that put the most on an
+// SM, and the ring at the register path's blocks an SM in the room they
+// leave (ring_fit).  The plan's own path is resident where that fits
+// (above RING_MIN_DIM only where it holds as many chains an SM as the
+// ring), else the ring above RING_MIN_DIM, else the register path.
+// The card's measurements set these bounds (PERF.md section 6): a panel
+// costs its team a handshake with the copy unit, so at D <= 128 (rows of
+// at most 512 bytes) the ring ran 1.3 to 3.2 times slower than the
+// register path, and a ring over the wide form's block, whose warps also
+// hand each stage back to the issuing thread, 1.25 to 3.2 times slower at
+// D = 1,002 (the wide form keeps the register path); from D = 200 to 256
+// it ran 1.2 to 2.1 times faster; the resident path ran faster than both
+// wherever it fitted, from D = 10 (the funnel: 1.7 % faster) to D = 128
+// (2.2 times, at 3 chains an SM against 16), but for the physics that
+// keep the register path (kStagedOf).  The ring
+// stays admitted at D <= 128 where the plan does not take it, for a
+// launch that asks for it.  `force` (-1 for the plan's own) asks for a
+// path: cudaErrorInvalidValue where the shape does not admit it (n = 0
+// and the wide form admit the register path only).
+inline cudaError_t plan_of(int D, int md, bool bf16, int n, int force,
+                           Plan* out) {
+  const bool wide = D > WARP_DIM;
+  const int64_t stack = stack_bytes(D, md, bf16);
+  const Plan reg = wide ? Plan{PATH_REGISTER, 1, 0, 0,
+                               wide_bytes(D, md, bf16)}
+                        : Plan{PATH_REGISTER, narrow_warps(stack), 0, 0,
+                               narrow_warps(stack) * stack};
+  Plan res{-1, 0, 0, 0, 0}, ring{-1, 0, 0, 0, 0};
+  int res_chains = 0, reg_chains = 0;
+  if (!wide && n > 0) {
+    for (int w = 1; w <= reg_warps(D); ++w) {
+      const int64_t bytes = w * (stack + vrow_bytes(D)) + n * mat_bytes(D) + 16;
+      if (bytes > SMEM_LIMIT) break;
+      const int by_smem = blocks_by_smem(bytes);
+      const int ch = w * (reg_warps(D) / w < by_smem ? reg_warps(D) / w
+                                                      : by_smem);
+      if (ch > res_chains) {
+        res_chains = ch;
+        res = {PATH_RESIDENT, w, 0, 0, bytes};
+      }
+    }
+    const int by_regs = reg_warps(D) / reg.warps;
+    const int bps = by_regs < blocks_by_smem(reg.bytes)
+                        ? by_regs : blocks_by_smem(reg.bytes);
+    reg_chains = reg.warps * bps;
+    if (bps >= 1) {
+      int64_t budget = SM_SMEM / bps - BLOCK_RESERVED;
+      if (budget > SMEM_LIMIT) budget = SMEM_LIMIT;
+      int S, R;
+      ring_fit(D, budget / reg.warps - stack - vrow_bytes(D) - 16
+                      - 8 * MAX_STAGES, &S, &R);
+      const int64_t bytes =
+          reg.warps * (stack + vrow_bytes(D) + ring_region(D, S, R));
+      if (S >= 2 && bytes <= SMEM_LIMIT)
+        ring = {PATH_RING, reg.warps, S, R, bytes};
+    }
+  }
+  const bool ring_own = ring.path >= 0 && D > RING_MIN_DIM;
+  if (force < 0)
+    *out = res.path >= 0 && (!ring_own || res_chains >= reg_chains) ? res
+           : ring_own                                               ? ring
+                                                                    : reg;
+  else if (force == PATH_REGISTER)
+    *out = reg;
+  else if (force == PATH_RESIDENT && res.path >= 0)
+    *out = res;
+  else if (force == PATH_RING && ring.path >= 0)
+    *out = ring;
+  else
+    return cudaErrorInvalidValue;
+  return cudaSuccess;
 }
 
-// The wide form's dynamic shared memory (its bound, ops/tree.py::takes):
-// the stacks, the scratch of the row sums, the mat-vec's two staging rows
-__host__ __device__ constexpr int64_t wide_bytes(int D, int md, bool bf16) {
-  return stack_bytes(D, md, bf16) +
-         (int64_t)sizeof(float) * (WIDE_SCRATCH + 2 * (int64_t)D);
-}
-
-// The launch launch_physics makes: the instantiation, its grid, threads
-// and dynamic shared memory
+// The launch launch_physics makes: the instantiation, its grid, threads,
+// dynamic shared memory and plan
 struct Shape {
   void (*kernel)(const Args);
   int64_t grid;
   int threads;
   int64_t bytes;
+  Plan plan;
 };
 
-// The one dispatch by D, md and the stack type, for C chains: the one-warp
-// form (D <= 256, NV by D) puts up to MAX_WARPS chains in a block, the wide
-// form (P::kWide, 256 < D <= MAX_DIM) one chain in a block of ceil(D / 256)
-// warps.  cudaErrorInvalidValue where neither takes the shape.
+// The one dispatch by D, md, the stack type and what the launch stages, for
+// C chains: the one-warp form (D <= 256, NV by D) puts plan.warps chains in
+// a block, the wide form (P::kWide, 256 < D <= MAX_DIM) one chain in a
+// block of ceil(D / 256) warps; the plan (plan_of) by shape, before the
+// launch.  cudaErrorInvalidValue where neither form takes the shape or the
+// plan refuses `force`.
 template <template <int> class P, bool kDense>
-cudaError_t shape_of(int64_t C, int D, int md, bool bf16, Shape* s) {
+cudaError_t shape_of(int64_t C, int D, int md, bool bf16, bool refresh,
+                     int force, Shape* s) {
+  if (D > WARP_DIM && !(P<8>::kWide && D <= MAX_DIM))
+    return cudaErrorInvalidValue;
+  const int n = !P<1>::kStaging ? 0
+                : (kDense ? 1 + (refresh ? 1 : 0) : 0) + (P<1>::kMatrix ? 1 : 0);
+  Plan pl;
+  cudaError_t err = plan_of(D, md, bf16, n, force, &pl);
+  if (err != cudaSuccess) return err;
   if (D <= WARP_DIM) {
-    const int64_t per_warp = stack_bytes(D, md, bf16);
-    const int warps = narrow_warps(per_warp);
     void (*kernel)(const Args) = D <= 32    ? tree_kernel<Warp, P<1>, kDense>
                                  : D <= 64  ? tree_kernel<Warp, P<2>, kDense>
                                  : D <= 128 ? tree_kernel<Warp, P<4>, kDense>
                                             : tree_kernel<Warp, P<8>, kDense>;
-    *s = {kernel, (C + warps - 1) / warps, 32 * warps, warps * per_warp};
+    *s = {kernel, (C + pl.warps - 1) / pl.warps, 32 * pl.warps, pl.bytes, pl};
   } else if constexpr (P<8>::kWide) {
-    if (D > MAX_DIM) return cudaErrorInvalidValue;
     *s = {tree_kernel<Block, P<8>, kDense>, C,
-          32 * ((D + WARP_DIM - 1) / WARP_DIM), wide_bytes(D, md, bf16)};
-  } else {
-    return cudaErrorInvalidValue;
+          32 * ((D + WARP_DIM - 1) / WARP_DIM), pl.bytes, pl};
   }
   if (s->bytes > SMEM_LIMIT || s->grid > 0x7fffffff)
     return cudaErrorInvalidValue;
@@ -951,18 +1350,28 @@ cudaError_t shape_of(int64_t C, int D, int md, bool bf16, Shape* s) {
                               (int)s->bytes);
 }
 
-// The blocks per SM of the launch launch_physics makes for D, md and the
-// stack type (TREE_LAUNCHERS' tree_<name>_occupancy; the CUDA occupancy
+// The plan of the launch launch_physics makes for D, md, the stack type,
+// the metric form and refresh, with `force` as shape_of takes it
+// (TREE_LAUNCHERS' tree_<name>_plan): out[0..5] the path, the chains
+// a block of the one-warp form, the ring's stages and rows a panel, the
+// dynamic shared memory and the blocks an SM holds (the CUDA occupancy
 // calculator: registers, shared memory, threads)
 template <template <int> class P, bool kDense>
-int occupancy_physics(int D, int md, int ckpt_bf16, int* blocks) {
-  if (!blocks || D < P<1>::kMinDim || md < 1 || md > 30)
+int plan_physics(int D, int md, int ckpt_bf16, int refresh, int force,
+                 int* out) {
+  if (!out || D < P<1>::kMinDim || md < 1 || md > 30)
     return (int)cudaErrorInvalidValue;
   Shape sh;
-  cudaError_t err = shape_of<P, kDense>(1, D, md, ckpt_bf16 != 0, &sh);
+  cudaError_t err = shape_of<P, kDense>(1, D, md, ckpt_bf16 != 0,
+                                        refresh != 0, force, &sh);
   if (err != cudaSuccess) return (int)err;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, sh.kernel, sh.threads, (size_t)sh.bytes);
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, sh.kernel, sh.threads, (size_t)sh.bytes);
+  const int vals[6] = {sh.plan.path, sh.plan.warps, sh.plan.stages,
+                       sh.plan.rows, (int)sh.bytes, blocks};
+  for (int i = 0; i < 6; ++i) out[i] = vals[i];
+  return (int)err;
 }
 
 // The body of every physics' extern "C" launchers (TREE_LAUNCHERS), with a
@@ -987,6 +1396,9 @@ int occupancy_physics(int D, int md, int ckpt_bf16, int* blocks) {
 // of the final carry.  D must be in [P's least
 // D, 256], or for a physics with a wide form (P::kWide) in (256, MAX_DIM]
 // with wide_bytes(D, md, ckpt_bf16) <= SMEM_LIMIT; md in [1, 30], K >= 1.
+// path (-1: the plan's own) asks for the staged products' path (plan_of;
+// a check's hook: the sampling paths pass -1); a matrix that is staged
+// (minv dense, p0 under refresh dense, mat) must start 16-byte aligned.
 #define TREE_LAUNCH_PARAMS                                                  \
   const float *q0, const float *p0, const float *eps, const int32_t *dirs, \
       const int32_t *valid, const int64_t *key, const float *unif,          \
@@ -997,13 +1409,13 @@ int occupancy_physics(int D, int md, int ckpt_bf16, int* blocks) {
       float *q_out, float *logp_out, float *grad_out, float *energy_out,    \
       float *lsa_out, int32_t *term, int32_t *tl, int32_t *tr,              \
       int32_t *depth, int32_t *steps, int64_t C, int D, int md,             \
-      int n_sweep, int refresh, int ckpt_bf16, float min_delta,             \
+      int n_sweep, int refresh, int ckpt_bf16, int path, float min_delta,  \
       void *stream
 #define TREE_LAUNCH_ARGS                                                    \
   q0, p0, eps, dirs, valid, key, unif, row0, row1, row2, mat, obs_mat,     \
       obs_row0, obs_row1, n_obs, s0, s1, minv, q_out, logp_out, grad_out,   \
       energy_out, lsa_out, term, tl, tr, depth, steps, C, D, md, n_sweep,   \
-      refresh, ckpt_bf16, min_delta, stream
+      refresh, ckpt_bf16, path, min_delta, stream
 
 template <template <int> class P, bool kDense>
 int launch_physics(TREE_LAUNCH_PARAMS) {
@@ -1017,15 +1429,16 @@ int launch_physics(TREE_LAUNCH_PARAMS) {
   if (!refresh && !dirs) return (int)cudaErrorInvalidValue;
   const PhysicsData pd{{row0, row1, row2}, {s0, s1}, mat, obs_mat,
                        {obs_row0, obs_row1}, n_obs, D};
-  const Args a{q0,      p0,       eps,        dirs,    valid,
-               key,     unif,     pd,         minv,    q_out,
-               logp_out, grad_out, energy_out, lsa_out, term,
-               tl,      tr,       depth,      steps,   C,
-               D,       md,       n_sweep,    refresh, ckpt_bf16,
-               min_delta};
   Shape sh;
-  cudaError_t err = shape_of<P, kDense>(C, D, md, ckpt_bf16 != 0, &sh);
+  cudaError_t err = shape_of<P, kDense>(C, D, md, ckpt_bf16 != 0,
+                                        refresh != 0, path, &sh);
   if (err != cudaSuccess) return (int)err;
+  const Args a{q0,       p0,       eps,        dirs,    valid,
+               key,      unif,     pd,         minv,    q_out,
+               logp_out, grad_out, energy_out, lsa_out, term,
+               tl,       tr,       depth,      steps,   C,
+               D,        md,       n_sweep,    refresh, ckpt_bf16,
+               min_delta, sh.plan.path, sh.plan.stages, sh.plan.rows};
   void* args[] = {(void*)&a};
   return (int)cudaLaunchKernel((const void*)sh.kernel, dim3((unsigned)sh.grid),
                                dim3(sh.threads), args, (size_t)sh.bytes,
@@ -1037,20 +1450,21 @@ int launch_physics(TREE_LAUNCH_PARAMS) {
 // A physics source's two extern "C" launchers: tree_<name>_launch with a
 // diagonal Minv [D] and tree_<name>_dense_launch with a dense Minv [D, D],
 // each tree::launch_physics<PHYS> with TREE_LAUNCH_PARAMS; and
-// tree_<name>_occupancy(D, md, ckpt_bf16, dense, &blocks), the blocks per
-// SM of the launch either would make (tree::occupancy_physics; it
-// launches nothing).
-#define TREE_LAUNCHERS(name, PHYS)                                      \
-  extern "C" int tree_##name##_launch(TREE_LAUNCH_PARAMS) {             \
-    return tree::launch_physics<PHYS, false>(TREE_LAUNCH_ARGS);         \
-  }                                                                     \
-  extern "C" int tree_##name##_dense_launch(TREE_LAUNCH_PARAMS) {       \
-    return tree::launch_physics<PHYS, true>(TREE_LAUNCH_ARGS);          \
-  }                                                                     \
-  extern "C" int tree_##name##_occupancy(int D, int md, int ckpt_bf16,  \
-                                         int dense, int* blocks) {      \
-    return dense ? tree::occupancy_physics<PHYS, true>(D, md, ckpt_bf16, \
-                                                       blocks)          \
-                 : tree::occupancy_physics<PHYS, false>(D, md,          \
-                                                        ckpt_bf16, blocks); \
+// tree_<name>_plan(D, md, ckpt_bf16, dense, refresh, path, out), the plan
+// of the launch either would make and the blocks an SM holds
+// (tree::plan_physics; it launches nothing).
+#define TREE_LAUNCHERS(name, PHYS)                                        \
+  extern "C" int tree_##name##_launch(TREE_LAUNCH_PARAMS) {               \
+    return tree::launch_physics<PHYS, false>(TREE_LAUNCH_ARGS);           \
+  }                                                                       \
+  extern "C" int tree_##name##_dense_launch(TREE_LAUNCH_PARAMS) {         \
+    return tree::launch_physics<PHYS, true>(TREE_LAUNCH_ARGS);            \
+  }                                                                       \
+  extern "C" int tree_##name##_plan(int D, int md, int ckpt_bf16,         \
+                                    int dense, int refresh, int path,     \
+                                    int* out) {                           \
+    return dense ? tree::plan_physics<PHYS, true>(D, md, ckpt_bf16,       \
+                                                  refresh, path, out)     \
+                 : tree::plan_physics<PHYS, false>(D, md, ckpt_bf16,      \
+                                                   refresh, path, out);   \
   }

@@ -66,6 +66,11 @@ struct Logistic {
   static constexpr int kNV = NV;
   static constexpr int kMinDim = 1;
   static constexpr bool kFusedGaussian = false;
+  static constexpr bool kMatrix = false;  // a [D, D] matrix of its own
+  // the dense launcher keeps M^-1 on the register path (kStagedOf): the
+  // leaf streams the observations from L2, and the staged matrix's shared
+  // memory is taken from the L1 that serves them (measured 0.5 % slower)
+  static constexpr bool kStaging = false;
   static constexpr bool kWide = false;  // D <= 256 only (the reduce-scatter)
   static constexpr int J = 8;  // observations per step
   const float* x;              // [n_obs, D]

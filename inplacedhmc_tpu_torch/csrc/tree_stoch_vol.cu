@@ -55,6 +55,8 @@ struct StochVol {
   static constexpr int kNV = NV;
   static constexpr int kMinDim = 3;
   static constexpr bool kFusedGaussian = false;
+  static constexpr bool kMatrix = false;  // a [D, D] matrix of its own
+  static constexpr bool kStaging = true;  // products staged (kStagedOf)
   static constexpr bool kWide = true;
   float r2[NV];
   bool hm[NV], am[NV];

@@ -46,6 +46,17 @@ chains in plain torch, drawing the same Philox numbers.  There is no other
 path: a CUDA tensor launches the kernel or raises.  The ``gaussian_*``
 functions are these with the Gaussian physics of precision ``lam``.
 
+Every ``[D, D]`` product of a launch (a dense ``M^-1``, the refresh's
+``mass_chol^T``, the dense Gaussian's ``P``) reads its matrix from shared
+memory, filled by the copy unit's asynchronous bulk copies: resident in
+the block where the launch's matrices fit beside its chains' stacks, else
+streamed through each chain's ring of row panels, except where the card
+measured the ring slower than reading the rows from L2 (the wide form);
+:func:`stage_plan` is the launcher's choice by shape, :func:`plan_on_card`
+asks the launcher.
+The arithmetic and its order are those of the kernel before staging, so
+the outputs are too, bit for bit, on every path.
+
 ``ckpt_bf16`` stores the two checkpoint stacks in bfloat16, as JAX's
 kernel can (``_make_kernel``'s ``ckpt_bf16``): each store rounds the
 momentum sum and ``p#`` to bfloat16 (round to nearest even) and the turn
@@ -78,7 +89,8 @@ _P = ctypes.c_void_p
 _TREE_ARGS = ([_P] * 14 + [ctypes.c_int64] + [ctypes.c_float] * 2
               + [_P] * 11
               + [ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                 ctypes.c_int, ctypes.c_int, ctypes.c_float, _P])
+                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                 _P])
 #: the whole-tree kernel of each physics with a diagonal metric,
 #: ``csrc/tree_<physics>.cu``; its ``launches`` counts its launches
 TREE_KERNELS = {
@@ -95,11 +107,12 @@ TREE_GAUSSIAN = TREE_KERNELS["gaussian"]
 #: that launcher's ``launches`` (the stack type is an argument of the one
 #: kernel), counted where it launches
 CKPT_BF16_LAUNCHES: dict = {}
-#: each source's occupancy query (``tree_<physics>_occupancy``: it launches
-#: nothing), read by :func:`blocks_per_sm`
-TREE_OCCUPANCY = {
-    name: CudaKernel(f"tree_{name}.cu", f"tree_{name}_occupancy",
-                     [ctypes.c_int] * 4 + [ctypes.c_void_p])
+#: each source's plan query (``tree_<physics>_plan``: the staged products'
+#: plan of a launch and the blocks an SM holds; it launches nothing), read
+#: by :func:`plan_on_card` and :func:`blocks_per_sm`
+TREE_PLAN = {
+    name: CudaKernel(f"tree_{name}.cu", f"tree_{name}_plan",
+                     [ctypes.c_int] * 6 + [ctypes.c_void_p])
     for name in tile_physics.PHYSICS}
 #: the Gaussian source's second launcher: it writes what the kernel's generator
 #: draws (the check of the generator against ``utils/philox.py``)
@@ -123,6 +136,26 @@ _WIDE_SCRATCH = 64
 _STACK_ALIGN = 16
 #: the chain tile of JAX's ``make_logistic_tree_transition`` (its default)
 LOGISTIC_BLOCK_C = 128
+#: the staged ``[D, D]`` products (``tree_kernel.cuh``'s ``plan_of``): the
+#: paths, by their number in the launch; an SM's shared memory and what of
+#: it each block reserves; a ring's most stages; the most chains a block of
+#: the staged one-warp form holds (D <= 128; 8 above)
+PATHS = ("register", "resident", "ring")
+SM_SMEM = 233472
+BLOCK_RESERVED = 1024
+MAX_STAGES = 8
+MAX_STAGED_WARPS = 16
+#: the plan's own ring: the one-warp form above this D
+#: (``tree_kernel.cuh::RING_MIN_DIM``, set by the card's measurements)
+RING_MIN_DIM = 128
+#: chains a block of the one-warp form holds on the register path
+_MAX_WARPS = 4
+#: the physics whose dense launcher keeps its products on the register
+#: path (``kStaging = false`` in their source: the card measured them
+#: slower staged, eight schools' 3 % at D = 10, where the leaf's special
+#: functions set the time, and logistic regression's 0.5 %, whose leaf
+#: streams the observations through the L1 the staged matrix takes)
+UNSTAGED_PHYSICS = frozenset({"eight_schools", "logistic"})
 
 
 class TreeOut(NamedTuple):
@@ -217,17 +250,169 @@ def refusal(dim: int, max_depth: int, physics: str,
             f"(ROADMAP queue 2 item 1 (h))")
 
 
+class StagePlan(NamedTuple):
+    """How a launch takes its ``[D, D]`` products (``tree_kernel.cuh``'s
+    ``plan_of``): ``path`` (one of :data:`PATHS`), the chains a block of
+    the one-warp form holds (``warps``; 1 in the wide form), the ring's
+    ``stages`` and ``rows`` a panel (0 off the ring), and the block's
+    dynamic shared memory ``smem_bytes``."""
+
+    path: str
+    warps: int
+    stages: int
+    rows: int
+    smem_bytes: int
+
+    def in_flight(self, dim: int) -> int:
+        """Bytes of the matrix a team has on their way while it reads a
+        panel: ``stages - 1`` panels on the ring, 0 off it."""
+        return 4 * max(self.stages - 1, 0) * self.rows * dim
+
+
+def _round16(b: int) -> int:
+    return -(-b // 16) * 16
+
+
+def _narrow_warps(per_warp: int) -> int:
+    """Chains a block of the one-warp form holds on the register path:
+    ``_MAX_WARPS``, fewer where their stacks would pass ``SMEM_LIMIT``
+    (``tree_kernel.cuh::narrow_warps``)."""
+    w = _MAX_WARPS
+    while w > 1 and w * per_warp > SMEM_LIMIT:
+        w -= 1
+    return w
+
+
+def _align_rows(dim: int) -> int:
+    """Rows of a panel whose bytes are a multiple of 16."""
+    return 1 if dim % 4 == 0 else 2 if dim % 2 == 0 else 4
+
+
+def _ring_fit(dim: int, room: int):
+    """``(stages, rows)`` of a ring in ``room`` bytes: the most rows a
+    panel (a multiple of :func:`_align_rows`, at most ``dim``) with two
+    stages, and as many stages of it as fit (at most ``MAX_STAGES``; 0
+    where two stages of the fewest rows do not fit):
+    ``tree_kernel.cuh::ring_fit``."""
+    unit = _align_rows(dim)
+    r = max(room, 0) // (8 * dim) // unit * unit
+    r = min(r, -(-dim // unit) * unit)
+    if r < unit:
+        return 0, unit
+    s = room // (4 * r * dim)
+    return (min(s, MAX_STAGES) if s >= 2 else 0), r
+
+
+def n_staged(physics: str, dense: bool, refresh: bool = False) -> int:
+    """The ``[D, D]`` matrices a launch stages: ``M^-1`` under a dense
+    metric, ``mass_chol^T`` when it refreshes there too, and the physics'
+    own (the dense Gaussian's ``P``); none for the physics of
+    ``UNSTAGED_PHYSICS``."""
+    if physics in UNSTAGED_PHYSICS:
+        return 0
+    own = tile_physics.PHYSICS[physics].matrix is not None
+    return (1 + bool(refresh)) * bool(dense) + own
+
+
+def stage_plan(dim: int, max_depth: int, physics: str, dense: bool,
+               refresh: bool = False, ckpt_bf16: bool = False,
+               path: str = None) -> StagePlan:
+    """The plan of the launch :func:`tree_sweep` makes, as the launcher
+    decides it by shape before the launch (``tree_kernel.cuh::plan_of``,
+    which :func:`plan_on_card` reads back).  The register path is the
+    launch of the kernel before staging (:func:`_narrow_warps` chains a
+    block, or the wide form's one).  In the one-warp form, with a matrix
+    to stage (:func:`n_staged`): the resident path puts every staged
+    matrix in the block beside its chains' stacks and vector rows, with the
+    fewest chains a block that put the most on an SM (16 warps an SM by registers at
+    D <= 128, 8 above); the ring keeps the register path's blocks an SM and
+    fills the room they leave (:func:`_ring_fit`).  The plan's own path is
+    resident where that fits (above ``RING_MIN_DIM`` only where it holds as
+    many chains an SM as the ring), else the ring above ``RING_MIN_DIM``,
+    else the register path (the card's measurements,
+    ``tree_kernel.cuh::plan_of``: the ring lost to the register path at
+    D <= 128 and over the wide form's block, the resident path won wherever
+    it fitted, from D = 10 to 128, but for ``UNSTAGED_PHYSICS``).  ``path``
+    (one of :data:`PATHS`) asks for a path: ``ValueError`` where the shape
+    does not admit it.  A launch
+    without a matrix to stage and the wide form admit the register path
+    only."""
+    n = n_staged(physics, dense, refresh)
+    stack = stack_bytes(dim, max_depth, ckpt_bf16)
+    vrow = _round16(4 * dim)
+    if dim > WARP_DIM:
+        reg = StagePlan("register", 1, 0, 0,
+                        wide_smem_bytes(dim, max_depth, ckpt_bf16))
+    else:
+        w = _narrow_warps(stack)
+        reg = StagePlan("register", w, 0, 0, w * stack)
+    res = ring = None
+    res_chains = reg_chains = 0
+    if dim <= WARP_DIM and n:
+        reg_warps = 8 if dim > 128 else MAX_STAGED_WARPS
+
+        def by_smem(b):
+            return SM_SMEM // (b + BLOCK_RESERVED)
+
+        for w in range(1, reg_warps + 1):
+            b = w * (stack + vrow) + n * _round16(4 * dim * dim) + 16
+            if b > SMEM_LIMIT:
+                break
+            ch = w * min(reg_warps // w, by_smem(b))
+            if ch > res_chains:
+                res_chains, res = ch, StagePlan("resident", w, 0, 0, b)
+        bps = min(reg_warps // reg.warps, by_smem(reg.smem_bytes))
+        reg_chains = reg.warps * bps
+        if bps >= 1:
+            budget = min(SMEM_LIMIT, SM_SMEM // bps - BLOCK_RESERVED)
+            s, r = _ring_fit(dim, budget // reg.warps - stack - vrow - 16
+                             - 8 * MAX_STAGES)
+            b = reg.warps * (stack + vrow + 4 * s * r * dim
+                             + _round16(8 * s))
+            if s >= 2 and b <= SMEM_LIMIT:
+                ring = StagePlan("ring", reg.warps, s, r, b)
+    if path is None:
+        ring_own = ring is not None and dim > RING_MIN_DIM
+        if res is not None and (not ring_own or res_chains >= reg_chains):
+            return res
+        return ring if ring_own else reg
+    plans = {"register": reg, "resident": res, "ring": ring}
+    if path not in plans:
+        raise ValueError(f"path must be one of {PATHS}, got {path!r}")
+    if plans[path] is None:
+        raise ValueError(
+            f"the {physics} kernel does not admit the {path} path at D = "
+            f"{dim}, max_depth {max_depth} ({'dense' if dense else 'diagonal'}"
+            f" metric, refresh {bool(refresh)}, "
+            f"{'bfloat16' if ckpt_bf16 else 'float32'} stacks)")
+    return plans[path]
+
+
+def plan_on_card(physics: str, dim: int, max_depth: int, dense: bool,
+                 refresh: bool = False, ckpt_bf16: bool = False,
+                 path: str = None):
+    """The launcher's own plan (``tree_<physics>_plan``) for the launch
+    :func:`tree_sweep` would make, and the blocks of it one SM holds at
+    once by the CUDA occupancy calculator (registers, shared memory,
+    threads): ``(StagePlan, blocks)``.  Raises where the launcher refuses
+    ``path``.  Needs the card."""
+    out = (ctypes.c_int * 6)()
+    TREE_PLAN[physics].call(
+        dim, max_depth, int(ckpt_bf16), int(dense), int(refresh),
+        -1 if path is None else PATHS.index(path), out)
+    return StagePlan(PATHS[out[0]], *out[1:5]), out[5]
+
+
 def blocks_per_sm(physics: str, dim: int, max_depth: int,
-                  dense: bool = False, ckpt_bf16: bool = False) -> int:
+                  dense: bool = False, ckpt_bf16: bool = False,
+                  refresh: bool = False, path: str = None) -> int:
     """Blocks of the launch :func:`tree_sweep` would make for ``physics`` at
     ``dim`` and ``max_depth`` that one SM holds at once, by the CUDA
-    occupancy calculator (registers, shared memory, threads): a block is up
-    to 4 chains of the one-warp form, or one chain of the wide form.  Needs
-    the card."""
-    out = ctypes.c_int(0)
-    TREE_OCCUPANCY[physics].call(dim, max_depth, int(ckpt_bf16), int(dense),
-                                 ctypes.byref(out))
-    return out.value
+    occupancy calculator (:func:`plan_on_card`): a block is
+    ``stage_plan(...).warps`` chains of the one-warp form, or one chain of
+    the wide form.  Needs the card."""
+    return plan_on_card(physics, dim, max_depth, dense, refresh, ckpt_bf16,
+                        path)[1]
 
 
 def _check_max_depth(max_depth: int) -> None:
@@ -533,11 +718,14 @@ def _check_draws(momentum, dirs, sqrt_mass, unif, key) -> bool:
 
 def _launch(q0, eps, phys, minv, max_depth: int, min_delta: float, k: int,
             lead: tuple, momentum, dirs, unif, key, sqrt_mass, valid, out,
-            refresh: bool, ckpt_bf16: bool) -> TreeOut:
+            refresh: bool, ckpt_bf16: bool, path) -> TreeOut:
     """Check what the physics' kernel (``csrc/tree_<physics>.cu``, its
     diagonal or dense launcher by ``minv``'s shape) reads through raw
     pointers and launch it on the current stream.  ``lead`` is ``(k,)`` for
-    arrays with a sweep axis, ``()`` for one transition without one."""
+    arrays with a sweep axis, ``()`` for one transition without one.
+    ``path`` asks for the staged products' path (:func:`stage_plan`); the
+    matrices a launch may stage must start 16-byte aligned, as the copy
+    unit reads them."""
     if q0.device.type != "cuda":
         raise ValueError(f"tree kernel: unsupported device {q0.device}")
     if q0.ndim != 2:
@@ -586,6 +774,15 @@ def _launch(q0, eps, phys, minv, max_depth: int, min_delta: float, k: int,
             checks.append((f"out.{name}", t, shape, dtype))
     for name, t, shape, dtype in checks:
         check_tensor("tree kernel", name, t, shape, dev, dtype)
+    if path is not None:
+        stage_plan(d, max_depth, phys.name, dense, refresh, ckpt_bf16, path)
+    staged = [("matrix", mat), ("minv", minv if dense else None),
+              ("sqrt_mass", sqrt_mass if dense and refresh else None)]
+    for name, t in staged:
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(
+                f"tree kernel: {name} must start 16-byte aligned for the "
+                f"staged products' bulk copies (address {t.data_ptr():#x})")
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -604,6 +801,7 @@ def _launch(q0, eps, phys, minv, max_depth: int, min_delta: float, k: int,
             minv.data_ptr(),
             *(t.data_ptr() for t in out),
             c, d, max_depth, k, int(refresh), int(ckpt_bf16),
+            -1 if path is None else PATHS.index(path),
             float(min_delta), stream)
     if ckpt_bf16:
         CKPT_BF16_LAUNCHES[kernel.symbol] = \
@@ -615,7 +813,7 @@ def tree_sweep(q0: torch.Tensor, eps: torch.Tensor, phys,
                minv: torch.Tensor, max_depth: int, min_delta: float,
                n_sweep: int = 1, *, momentum=None, dirs=None, unif=None,
                key=None, sqrt_mass=None, valid=None, out=None,
-               ckpt_bf16: bool = False) -> TreeOut:
+               ckpt_bf16: bool = False, path: str = None) -> TreeOut:
     """``n_sweep`` transitions of every chain in one launch, from
     ``q0 [C, D]``, which is only read (on the card it may be the last
     transition of ``out.q``: the previous launch's carry), under the physics
@@ -631,19 +829,25 @@ def tree_sweep(q0: torch.Tensor, eps: torch.Tensor, phys,
     int32 or none (every row valid).  ``out``: a :class:`TreeOut` of
     buffers to write into (a sampling loop's, allocated once); the returned
     tensors are those buffers, so the next call with them overwrites
-    them.  ``ckpt_bf16``: bfloat16 checkpoint stacks."""
+    them.  ``ckpt_bf16``: bfloat16 checkpoint stacks.  ``path``: the staged
+    products' path, a check's hook (:func:`stage_plan`: the plan's own by
+    default; the sampling paths never set it); the plain version checks it
+    and has one path."""
     refresh = _check_draws(momentum, dirs, sqrt_mass, unif, key)
     _check_max_depth(max_depth)
     if n_sweep < 1:
         raise ValueError(f"n_sweep must be >= 1, got {n_sweep}")
     if q0.device.type == "cpu":
+        if path is not None:
+            stage_plan(q0.shape[1], max_depth, phys.name, minv.ndim == 2,
+                       refresh, ckpt_bf16, path)
         return tree_sweep_plain(
             q0, eps, phys, minv, max_depth, min_delta, n_sweep,
             momentum=momentum, dirs=dirs, unif=unif, key=key,
             sqrt_mass=sqrt_mass, valid=valid, ckpt_bf16=ckpt_bf16)
     return _launch(q0, eps, phys, minv, max_depth, min_delta, n_sweep,
                    (n_sweep,), momentum, dirs, unif, key, sqrt_mass, valid,
-                   out, refresh, ckpt_bf16)
+                   out, refresh, ckpt_bf16, path)
 
 
 def gaussian_tree_sweep(q0, eps, lam, minv, *args, **kw) -> TreeOut:
@@ -655,7 +859,8 @@ def gaussian_tree_sweep(q0, eps, lam, minv, *args, **kw) -> TreeOut:
 def tree_transition(q0: torch.Tensor, p0, eps: torch.Tensor, dirs, unif,
                     phys, minv: torch.Tensor, max_depth: int,
                     min_delta: float, *, key=None, valid=None,
-                    sqrt_mass=None, ckpt_bf16: bool = False) -> TreeOut:
+                    sqrt_mass=None, ckpt_bf16: bool = False,
+                    path: str = None) -> TreeOut:
     """One transition for every chain, with no sweep axis: with the given
     momentum ``p0 [C, D]`` and direction words ``dirs [C]`` (int32 on the
     card), or with ``p0 = dirs = None`` and the momentum's scale
@@ -663,12 +868,16 @@ def tree_transition(q0: torch.Tensor, p0, eps: torch.Tensor, dirs, unif,
     :func:`tree_sweep`) both drawn from ``key`` (``refresh_inside``); with
     the uniforms ``unif [2^md - 1 + md, C]`` or, with ``unif=None``, those
     the generator draws from ``key``; under the physics ``phys``;
-    ``ckpt_bf16``: bfloat16 checkpoint stacks.  CPU tensors take the plain
+    ``ckpt_bf16``: bfloat16 checkpoint stacks; ``path`` as
+    :func:`tree_sweep` takes it.  CPU tensors take the plain
     version; CUDA tensors launch the physics' kernel (float32 and
     contiguous, within :func:`takes`) or raise."""
     refresh = _check_draws(p0, dirs, sqrt_mass, unif, key)
     _check_max_depth(max_depth)
     if q0.device.type == "cpu":
+        if path is not None:
+            stage_plan(q0.shape[1], max_depth, phys.name, minv.ndim == 2,
+                       refresh, ckpt_bf16, path)
         if refresh:
             out = tree_sweep_plain(
                 q0, eps, phys, minv, max_depth, min_delta, key=key,
@@ -684,7 +893,8 @@ def tree_transition(q0: torch.Tensor, p0, eps: torch.Tensor, dirs, unif,
             q0, p0, eps, dirs, unif, phys, minv, max_depth, min_delta, valid,
             ckpt_bf16)
     return _launch(q0, eps, phys, minv, max_depth, min_delta, 1, (), p0, dirs,
-                   unif, key, sqrt_mass, valid, None, refresh, ckpt_bf16)
+                   unif, key, sqrt_mass, valid, None, refresh, ckpt_bf16,
+                   path)
 
 
 def gaussian_tree_transition(q0, p0, eps, dirs, unif, lam, minv, *args,

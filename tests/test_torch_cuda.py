@@ -1363,6 +1363,86 @@ def test_cuda_wide_wrapper_refuses_what_the_kernel_does_not_take():
     assert bool(torch.isfinite(out.q).all())
 
 
+# the staged [D, D] products at the shapes whose plan
+# tests/test_torch_staging.py holds: eight schools' and the funnel's D, logistic regression's, config 1's,
+# stochastic volatility's T = 100, each side of the one-warp form's register
+# bounds, the dense Gaussian's mvn, one past a warp, config 5's T = 1,000
+# and the largest D
+STAGING_DIMS = [10, 50, 100, 102, 128, 129, 200, 250, 256, 257, 1002, 2048]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", STAGING_DIMS)
+@pytest.mark.parametrize("physics,metric,form", [
+    ("gaussian", "dense", "prng"), ("dense_gaussian", "diag", "refresh"),
+    ("dense_gaussian", "dense", "refresh")])
+def test_cuda_staged_paths_bit_equal(d, physics, metric, form):
+    """Every path the plan admits at the shape (the register path, the
+    resident matrices, the ring), forced through the launch's hook: outputs
+    equal bit for bit across paths (the same arithmetic in the same order), the
+    plan's own path among them; each launch by ``_compare_any_field``
+    against the plain version fed the kernel's draws; the launcher's plan
+    (``plan_on_card``) equal to the Python mirror (``stage_plan``) for each
+    path, and refusing the paths the mirror refuses.  The Gaussian under a
+    dense metric (M^-1 staged), the dense Gaussian under a diagonal one (P)
+    and under a dense one with the refresh (M^-1, mass_chol^T and P), at
+    max_depth 6 and 10."""
+    _needs_card()
+    c = 24
+    dense = metric == "dense"
+    refresh = form == "refresh"
+    q, phys, minv = _dense(170 + d, c, d, physics, metric)
+    e = torch.full((c,), 0.25, device="cuda")
+    key = _key(171 + d)
+    scale = _scale(minv)
+    for md in (10, 13):
+        for path in (None,) + tree.PATHS:
+            try:
+                want = tree.stage_plan(d, md, physics, dense, refresh, False,
+                                       path)
+            except ValueError:
+                with pytest.raises(RuntimeError):
+                    tree.plan_on_card(physics, d, md, dense, refresh,
+                                      path=path)
+                continue
+            got, _ = tree.plan_on_card(physics, d, md, dense, refresh,
+                                       path=path)
+            assert got == want, (md, path, got, want)
+    md = 6
+    xi, dirs, unif = tree.philox_draws(key, c, d, md)
+    p0 = tree.refresh_momentum(scale, xi[0]).contiguous()
+    runs = ["register"]
+    for path in ("resident", "ring"):
+        try:
+            tree.stage_plan(d, md, physics, dense, refresh, False, path)
+        except ValueError:
+            continue
+        runs.append(path)
+    runs.append(None)
+    want = tree.tree_transition_plain(q, p0, e, dirs[0], unif[0], phys, minv,
+                                      md, -1000.0)
+    outs = []
+    for path in runs:
+        if refresh:
+            got = tree.tree_transition(q, None, e, None, None, phys, minv,
+                                       md, -1000.0, key=key, sqrt_mass=scale,
+                                       path=path)
+        else:
+            got = tree.tree_transition(q, p0, e, dirs[0], None, phys, minv,
+                                       md, -1000.0, key=key, path=path)
+        torch.cuda.synchronize()
+        outs.append((path, got))
+        _compare_any_field(got, want, c, c // 20, lsa_bound=d > 256)
+        assert bool(torch.isfinite(got.q).all())
+    ref = outs[0][1]
+    for run, got in outs[1:]:
+        for f in tree.TreeOut._fields:
+            a, b = getattr(got, f), getattr(ref, f)
+            if a.dtype == torch.float32:   # bit for bit, NaN payloads too
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            assert torch.equal(a, b), (run, f)
+
+
 # K5's bfloat16 checkpoint stacks (ckpt_bf16): inside one register, one
 # warp's fourth, one past a warp (the wide form), config 5's T = 1,000 and
 # the largest D

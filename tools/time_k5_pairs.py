@@ -2,34 +2,55 @@
 """Time kernels of two checkouts against each other on one card.
 
 Builds the sources of this checkout and of the checkout ``--old`` (an
-older launcher without an argument this checkout's has, the ``ckpt_bf16``
-of K5's or the ``grad_bf16`` of K1's, is called without it, and this
-checkout's then runs with it 0), then for each case launches both on the
-same inputs (their outputs must be equal bit for bit) in ``--pairs``
-alternating pairs, old then new, new then old, each side timed with CUDA
-events as the mean of ``--reps`` launches queued back to back after one
-warm-up (``chip_smoke.cuda_time_ms``).  Prints each pair, the medians,
-the spread of each side's own times and the median of new / old.  Cases:
+older launcher without an argument this checkout's has, K5's ``path`` or
+``ckpt_bf16``, K1's ``grad_bf16``, is called without it, and this
+checkout's then runs with it at its default), then for each case launches
+both on the same inputs (their outputs must be equal bit for bit) in
+``--pairs`` alternating pairs, old then new, new then old, each side timed
+with CUDA events as the mean of ``--reps`` launches queued back to back
+after one warm-up (``chip_smoke.cuda_time_ms``).  Prints each pair, the medians,
+the spread of each side's own times, the median of new / old, the pairs in
+which new was faster, and for K5 the plan this checkout's launcher makes
+(``ops.tree.plan_on_card``) and the time per ``[D, D]`` product on the
+longest chain.  Cases:
 
+* ``gauss_dense``: the Gaussian's dense launcher at 10,240 x 100 (config
+  1's dense windows), an SPD M^-1 (``chip_smoke._spd``), eps 0.3;
+* ``stoch_vol``: K5-stoch_vol's dense launcher at T = 100 (1,024 x 102),
+  start ``chip_smoke.tile_start``, an SPD M^-1, eps 0.02;
+* ``stoch_vol_wide``: the same at T = 1,000 (1,024 x 1,002: the wide
+  form), with float32 and with bfloat16 stacks; ``stoch_vol_wide_one``:
+  one chain at eps 0.002 (one block streaming the 4 MB M^-1);
+* ``mvn``: the dense Gaussian at 1,024 x 250 (``chip_smoke.mvn_target``)
+  under its dense M^-1 (eps 0.3) and under its diagonal, which times
+  ``P q`` alone (eps half the stability limit);
+* ``dims``: the dense Gaussian (a Wishart precision) at 1,024 chains
+  under an SPD M^-1, eps 0.25, at each D of ``DIMS``;
+* ``small``: the dense launchers of eight schools and the funnel at their
+  D = 10 (1,024 chains, ``chip_smoke.tile_start``, an SPD M^-1, eps 0.3
+  and 0.2), and the dense Gaussian as ``dims`` at each D of
+  ``SMALL_DIMS``;
+* ``diag``: the diagonal launchers of the Gaussian (10,240 x 100, eps
+  0.3), stochastic volatility (1,024 chains at T = 100 and 1,000, eps
+  0.02) and logistic regression (the ``logistic`` case under its
+  covariance's diagonal), M^-1 ``0.5 + U(0, 1)`` but for logistic;
 * ``logistic``: K5-logistic's dense launcher, BASELINE config 3 (8,192
   chains x 10,000 x 50, ``chip_smoke.logistic_problem``), dense M^-1 the
   Laplace covariance, eps half the stability limit, start drawn about the
   truth;
-* ``stoch_vol``: K5-stoch_vol's dense launcher at T = 100 (1,024 x 102),
-  start ``chip_smoke.tile_start``, an SPD M^-1 (``chip_smoke._spd``),
-  eps 0.02;
-* ``stoch_vol_wide``: the same at T = 1,000 (1,024 x 1,002: the wide
-  form, which an ``--old`` checkout must have too);
 * ``k1``: K1 (``csrc/logistic_vg.cu``) at config 3's shape, chains about
   the true coefficients;
 * ``k3``: K3 (``csrc/leapfrog_gaussian.cu``) at 64 x 1000 (the lockstep
   1000-D run's step) and at 10,240 x 100.
 
 The K5 cases run max_depth 10, one transition drawing its momentum,
-direction and uniforms, the momentum through ``mass_chol``::
+direction and uniforms, the momentum through ``mass_chol`` (the refresh).
+With ``--paths`` the K5 cases time this checkout alone, forced through
+every staged path their shape admits, each output equal bit for bit to
+the plan's own::
 
-    python3 tools/time_k5_pairs.py --old DIR [--cases logistic k1 k3]
-        [--pairs 12] [--reps 5]
+    python3 tools/time_k5_pairs.py --old DIR [--cases mvn k1 k3]
+        [--pairs 12] [--reps 5] [--paths]
 
 Needs a CUDA device.
 """
@@ -44,11 +65,19 @@ import sys
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
 
-CASES = ("logistic", "stoch_vol", "stoch_vol_wide", "k1", "k3")
+CASES = ("gauss_dense", "stoch_vol", "stoch_vol_wide", "stoch_vol_wide_one",
+         "mvn", "dims", "small", "logistic", "diag", "k1", "k3")
+#: the ``dims`` case's D: each side of the one-warp form's register bounds
+#: and of the plan's ring bound, and the largest one-warp D
+DIMS = (128, 129, 200, 256)
+#: the ``small`` case's D: the one-warp form's first two register counts
+SMALL_DIMS = (32, 50, 64)
 
 
-def _case(name: str):
-    """(physics, phys, q0, minv, eps) of a K5 case, on the card."""
+def _cases(name: str) -> list:
+    """The runs of a K5 case, on the card: dicts of the physics, its bound
+    data (``phys``), q0, the metric ``minv`` (``[D, D]``, or ``[D]``: the
+    diagonal launcher), eps and the stack type."""
     import torch
 
     import chip_smoke as cs
@@ -61,13 +90,88 @@ def _case(name: str):
         q0 = (beta.double() + torch.randn(
             (cs.C, cs.D), generator=gen, dtype=torch.float64,
             device="cuda") @ chol.T).float().contiguous()
-        return ("logistic", cs._physics("logistic", data), q0,
-                cov.float().contiguous(), 0.5 * limit)
-    t = cs.SV_WIDE_T if name == "stoch_vol_wide" else cs.SV_T
+        return [dict(physics="logistic", phys=cs._physics("logistic", data),
+                     q0=q0, minv=cov.float().contiguous(), eps=0.5 * limit)]
+    if name == "gauss_dense":
+        d = cs.G_DIM
+        return [dict(physics="gaussian",
+                     phys=cs._physics("gaussian", {
+                         "lam": torch.ones((d,), device="cuda")}),
+                     q0=torch.randn((cs.G_CHAINS, d), generator=gen,
+                                    device="cuda"),
+                     minv=cs._spd(d, gen).contiguous(), eps=0.3)]
+    if name == "mvn":
+        model, sigma = cs.mvn_target()
+        prec = model.structure["precision"]
+        chol = torch.linalg.cholesky(sigma)
+        var = torch.diag(sigma)
+        pre = prec.double() * torch.sqrt(var[:, None] * var[None, :])
+        limit = 2.0 / float(torch.linalg.eigvalsh(pre).max()) ** 0.5
+        q0 = (torch.randn((cs.MVN_CHAINS, cs.MVN_DIM), generator=gen,
+                          dtype=torch.float64, device="cuda")
+              @ chol.T).float().contiguous()
+        sigma32 = sigma.float()
+        phys = cs._physics("dense_gaussian", {"prec": prec})
+        return [dict(physics="dense_gaussian", phys=phys, q0=q0,
+                     minv=(0.5 * (sigma32 + sigma32.T)).contiguous(),
+                     eps=0.3),
+                dict(physics="dense_gaussian", phys=phys, q0=q0,
+                     minv=var.float().contiguous(), eps=0.5 * limit)]
+    if name in ("dims", "small"):
+        runs = []
+        if name == "small":
+            for tile, eps in (("eight_schools", 0.3), ("funnel", 0.2)):
+                st = cs.tile_model(tile).structure
+                runs.append(dict(
+                    physics=tile,
+                    phys=cs._physics(tile, {**st["data"], **st["scalars"]}),
+                    q0=cs.tile_start(tile, cs.E_CHAINS, gen),
+                    minv=cs._spd(10, gen).contiguous(), eps=eps))
+        for d in DIMS if name == "dims" else SMALL_DIMS:
+            x = torch.randn((d, 2 * d), generator=gen, device="cuda")
+            prec = x @ x.T / (2 * d)
+            runs.append(dict(
+                physics="dense_gaussian",
+                phys=cs._physics("dense_gaussian",
+                                 {"prec": (0.5 * (prec + prec.T))
+                                  .contiguous()}),
+                q0=0.5 * torch.randn((cs.MVN_CHAINS, d), generator=gen,
+                                     device="cuda"),
+                minv=cs._spd(d, gen).contiguous(), eps=0.25))
+        return runs
+    if name == "diag":
+        # the diagonal launchers of physics without a matrix: the
+        # Gaussian, stochastic volatility at T = 100 and 1,000, logistic
+        runs = [dict(physics="gaussian",
+                     phys=cs._physics("gaussian", {
+                         "lam": torch.ones((cs.G_DIM,), device="cuda")}),
+                     q0=torch.randn((cs.G_CHAINS, cs.G_DIM), generator=gen,
+                                    device="cuda"),
+                     minv=0.5 + torch.rand((cs.G_DIM,), generator=gen,
+                                           device="cuda"), eps=0.3)]
+        for t in (cs.SV_T, cs.SV_WIDE_T):
+            st = cs.tile_model("stoch_vol", t).structure
+            runs.append(dict(
+                physics="stoch_vol",
+                phys=cs._physics("stoch_vol",
+                                 {**st["data"], **st["scalars"]}),
+                q0=cs.tile_start("stoch_vol", cs.E_CHAINS, gen, sv_t=t),
+                minv=0.5 + torch.rand((t + 2,), generator=gen,
+                                      device="cuda"), eps=0.02))
+        log = _cases("logistic")[0]
+        return runs + [{**log, "minv": torch.diagonal(log["minv"])
+                        .contiguous()}]
+    t = cs.SV_WIDE_T if name.startswith("stoch_vol_wide") else cs.SV_T
     st = cs.tile_model("stoch_vol", t).structure
     phys = cs._physics("stoch_vol", {**st["data"], **st["scalars"]})
-    q0 = cs.tile_start("stoch_vol", cs.E_CHAINS, gen, sv_t=t)
-    return ("stoch_vol", phys, q0, cs._spd(t + 2, gen).contiguous(), 0.02)
+    c = 1 if name == "stoch_vol_wide_one" else cs.E_CHAINS
+    q0 = cs.tile_start("stoch_vol", c, gen, sv_t=t)
+    minv = cs._spd(t + 2, gen).contiguous()
+    run = dict(physics="stoch_vol", phys=phys, q0=q0, minv=minv, eps=0.02)
+    if name == "stoch_vol_wide_one":
+        return [{**run, "eps": 0.002}]
+    return [run] + ([{**run, "bf16": True}] if name == "stoch_vol_wide"
+                    else [])
 
 
 def _leaf_cases(names):
@@ -102,8 +206,46 @@ def _leaf_cases(names):
     return cases
 
 
+def _products(physics: str, dense: bool, n_leaf: int) -> int:
+    """The ``[D, D]`` products of a chain of ``n_leaf`` leaves in one
+    refreshing transition: two a leaf, one at the start and one for the
+    momentum under a dense metric; the dense Gaussian's one a leaf, at the
+    start and for the final gradient."""
+    return (physics == "dense_gaussian") * (n_leaf + 2) \
+        + dense * (2 * n_leaf + 2)
+
+
+def _time_paths(label, run, kernel, physics, d, dense, bf16, n_prod, ref,
+                card, reps) -> None:
+    """This checkout's launch forced through each path its shape admits:
+    outputs equal bit for bit to the plan's own (``ref``); each timed
+    (``chip_smoke.cuda_time_ms``, ``reps`` launches after one warm-up)
+    with its microseconds per product on the longest chain and the blocks
+    an SM holds."""
+    import chip_smoke as cs
+    from inplacedhmc_tpu_torch.ops import tree
+    print(f"[paths] {label}")
+    for path in tree.PATHS:
+        try:
+            plan, blocks = tree.plan_on_card(physics, d, cs.MAX_DEPTH, dense,
+                                             True, bf16, path)
+        except RuntimeError:
+            continue
+        out = run(kernel, path)
+        if not all(cs.bits_equal(getattr(out, f), getattr(ref, f))
+                   for f in tree.TreeOut._fields):
+            raise RuntimeError(f"{label}: the {path} path differs from the "
+                               f"plan's own")
+        ms = cs.cuda_time_ms(lambda: run(kernel, path), reps, 1)
+        print(f"[paths]   {path}, {plan.stages} stages of {plan.rows} rows "
+              f"({plan.in_flight(d)} bytes in flight), {plan.warps} chains "
+              f"a block, {plan.smem_bytes} bytes, {blocks} blocks an SM: "
+              f"{ms:.4f} ms, {ms / n_prod * 1e3:.2f} us per product on the "
+              f"longest chain, on {card}; outputs equal")
+
+
 def time_pairs(label: str, run_old, run_new, pairs: int, reps: int,
-               card: str) -> None:
+               card: str, n_prod: int = 0) -> None:
     """Time ``run_old()`` and ``run_new()`` in ``pairs`` alternating pairs
     (old first, then new first), each side the mean of ``reps`` calls
     queued back to back after one warm-up (``chip_smoke.cuda_time_ms``);
@@ -122,11 +264,16 @@ def time_pairs(label: str, run_old, run_new, pairs: int, reps: int,
     mo, mn = (statistics.median(times[s]) for s in ("old", "new"))
     ratio = statistics.median(n / o for o, n in zip(times["old"],
                                                     times["new"]))
+    per = f"; per product on the longest chain old " \
+        f"{mo / n_prod * 1e3:.2f} us, new {mn / n_prod * 1e3:.2f} us" \
+        if n_prod else ""
     print(f"[pairs] {label}, outputs equal bit for bit, on {card}: old "
           f"median {mo:.4f} ms (spread {min(times['old']):.4f}-"
           f"{max(times['old']):.4f}), new median {mn:.4f} ms (spread "
           f"{min(times['new']):.4f}-{max(times['new']):.4f}); new / old "
-          f"median {ratio:.4f} over {pairs} pairs")
+          f"median {ratio:.4f} over {pairs} pairs; faster in "
+          f"{sum(n < o for o, n in zip(times['old'], times['new']))} of "
+          f"{pairs}{per}")
 
 
 def main() -> int:
@@ -136,6 +283,9 @@ def main() -> int:
                     choices=CASES)
     ap.add_argument("--pairs", type=int, default=12)
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--paths", action="store_true",
+                    help="time this checkout's K5 cases through every "
+                         "path their shape admits instead")
     args = ap.parse_args()
 
     import torch
@@ -152,21 +302,29 @@ def main() -> int:
                                source)) as f:
             return word in f.read()
 
-    # arguments an older launcher may lack: its place among the arguments,
-    # before the stream (and K5's min_delta)
-    lacks = {k.symbol: len(k.argtypes) - 3
-             for k in tree.TREE_DENSE_KERNELS.values()
-             if not old_has("tree_kernel.cuh", "ckpt_bf16")}
+    # arguments an older launcher may lack: their places among the
+    # arguments, before the stream (and K5's min_delta): K5's path (the
+    # staged products), and before it its ckpt_bf16; K1's grad_bf16.  An
+    # old launcher is called without them, and this checkout's then runs
+    # with them at their defaults (a path of -1, the plan's own, is not
+    # sent)
+    lacks = {}
+    for k in (*tree.TREE_KERNELS.values(),
+              *tree.TREE_DENSE_KERNELS.values()):
+        n = len(k.argtypes)
+        if not old_has("tree_kernel.cuh", "PATH_RESIDENT"):
+            lacks[k.symbol] = {n - 3: -1}
+        if not old_has("tree_kernel.cuh", "ckpt_bf16"):
+            lacks[k.symbol][n - 4] = 0
     if not old_has("logistic_vg.cu", "grad_bf16"):
         lacks[logistic.LOGISTIC_VG.symbol] = \
-            len(logistic.LOGISTIC_VG.argtypes) - 2
+            {len(logistic.LOGISTIC_VG.argtypes) - 2: 0}
 
     class OldKernel(CudaKernel):
         def __init__(self, new: CudaKernel):
-            self.at = lacks.get(new.symbol)
-            types = list(new.argtypes)
-            if self.at is not None:
-                del types[self.at]
+            self.at = lacks.get(new.symbol, {})
+            types = [t for i, t in enumerate(new.argtypes)
+                     if i not in self.at]
             super().__init__(new.source, new.symbol, types)
 
         @property
@@ -175,17 +333,25 @@ def main() -> int:
                                 self.source)
 
         def launch(self, *a):
-            if self.at is not None:
-                if a[self.at]:
+            for i, default in self.at.items():
+                if a[i] != default:
                     raise ValueError(f"the old {self.symbol} lacks an "
                                      f"argument this call sets")
-                a = a[:self.at] + a[self.at + 1:]
-            super().launch(*a)
+            super().launch(*(x for i, x in enumerate(a) if i not in self.at))
 
-    k5_cases = [c for c in args.cases if c not in ("k1", "k3")]
-    physics = sorted({"logistic" if c == "logistic" else "stoch_vol"
-                      for c in k5_cases})
-    new = {p: tree.TREE_DENSE_KERNELS[p] for p in physics}
+    k5_runs = [(name, run) for name in args.cases
+               if name not in ("k1", "k3") for run in _cases(name)]
+
+    def kernels_of(run):
+        """the launcher's dictionary and key: the dense one, or the
+        diagonal one for a [D] metric"""
+        return (tree.TREE_DENSE_KERNELS if run["minv"].ndim == 2
+                else tree.TREE_KERNELS), run["physics"]
+
+    new = {}
+    for _, run in k5_runs:
+        table, p = kernels_of(run)
+        new[table[p].symbol] = table[p]
     leaves = _leaf_cases(args.cases)
     new.update({attr: getattr(module, attr) for _, attr, module, _ in leaves})
     old = {key: OldKernel(k) for key, k in new.items()}
@@ -193,28 +359,49 @@ def main() -> int:
     build_all(list(old.values()))
     card = cs.card_line()
     key = cs._key(cs.SEED + 71)
-    for name in k5_cases:
-        p, phys, q0, minv, eps = _case(name)
-        e = torch.full((q0.shape[0],), eps, device="cuda")
-        scale = dense_metric(minv).mass_chol.T.contiguous()
+    for name, r in k5_runs:
+        table, p = kernels_of(r)
+        sym = table[p].symbol
+        q0, minv, phys = r["q0"], r["minv"], r["phys"]
+        e = torch.full((q0.shape[0],), r["eps"], device="cuda")
+        dense = minv.ndim == 2
+        scale = dense_metric(minv).mass_chol.T.contiguous() if dense \
+            else (1.0 / torch.sqrt(minv)).contiguous()
+        bf16 = r.get("bf16", False)
 
-        def run(kernel):
-            tree.TREE_DENSE_KERNELS[p] = kernel
+        def run(kernel, path=None):
+            table[p] = kernel
             try:
                 return tree.tree_sweep(q0, e, phys, minv, cs.MAX_DEPTH,
-                                       -1000.0, key=key, sqrt_mass=scale)
+                                       -1000.0, key=key, sqrt_mass=scale,
+                                       ckpt_bf16=bf16, path=path)
             finally:
-                tree.TREE_DENSE_KERNELS[p] = new[p]
+                table[p] = new[sym]
 
-        a, b = run(old[p]), run(new[p])
+        a, b = run(old[sym]), run(new[sym])
         differ = [f for f in tree.TreeOut._fields
-                  if not torch.equal(getattr(a, f), getattr(b, f))]
+                  if not cs.bits_equal(getattr(a, f), getattr(b, f))]
         if differ:
             raise RuntimeError(f"{name}: old and new differ in {differ}")
+        c, d = q0.shape
+        plan, blocks = tree.plan_on_card(p, d, cs.MAX_DEPTH, dense, True,
+                                         bf16)
         steps = float(b.steps.sum())
-        time_pairs(f"{name}, {q0.shape[0]} x {q0.shape[1]}, eps {eps:.4g}, "
-                   f"{steps:.0f} steps", lambda: run(old[p]),
-                   lambda: run(new[p]), args.pairs, args.reps, card)
+        n_prod = _products(p, dense, int(b.steps.max()))
+        label = (f"{name}, {c} x {d}, {'dense' if dense else 'diagonal'} "
+                 f"metric, {'bf16' if bf16 else 'f32'} stacks, eps "
+                 f"{r['eps']:.4g}, {steps:.0f} steps, longest chain "
+                 f"{int(b.steps.max())} leaves ({n_prod} products); new: "
+                 f"{plan.path}, {plan.warps} chains a block, "
+                 f"{plan.stages} stages of {plan.rows} rows "
+                 f"({plan.in_flight(d)} bytes in flight), {blocks} blocks "
+                 f"an SM")
+        if args.paths:
+            _time_paths(label, run, new[sym], p, d, dense, bf16, n_prod,
+                        b, card, args.reps)
+            continue
+        time_pairs(label, lambda: run(old[sym]), lambda: run(new[sym]),
+                   args.pairs, args.reps, card, n_prod)
     for label, attr, module, call in leaves:
         def run(kernel, attr=attr, module=module, call=call):
             setattr(module, attr, kernel)
