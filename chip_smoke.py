@@ -166,7 +166,7 @@ from typing import Optional
 
 # the card's line and the H100's peaks, shared with tools/roofline_torch.py
 from tools.card import (PEAK_BF16_TC, PEAK_BYTES, PEAK_FP32_FLOPS,  # noqa
-                        PEAK_SFU, card_line)
+                        PEAK_SFU, PEAK_TF32_TC, card_line)
 
 SEED = 20261017
 C, N, D = 8192, 10_000, 50        # chains, observations, features
@@ -256,9 +256,14 @@ PHYSICS_LANE_SFU = {"stoch_vol": 1}
 # (|q|^2, -inv_var q and its sum) and the two sums' 6.
 LOGISTIC_OBS_FLOPS, LOGISTIC_OBS_SFU = 12, 2
 # K2 (the packed split-bf16 forward) beside config 3's shape: C and N off
-# the kernel's 32-chain block and 64-observation tile, at the smallest,
+# the kernel's 64-chain block and 32-observation tile, at the smallest,
 # an odd and the largest D it takes
 PACKED_CASES = ((200, 1_000, 1), (1_000, 2_049, 17), (8_001, 4_100, 64))
+# K1 beside config 3's 8192 chains: the crossover's other chain counts, at
+# the same data, and K1 above the D = 256 it once refused (chunks of 64
+# dimensions), at 1,024 chains of config 3's observations
+K1_CHAINS = (1, 64, 1024)
+K1_WIDE = (1024, N, 300)
 PAIRS = 4                         # alternating pairs of K2 and K1 times
 # K4 (the multi-step leapfrog) at the roofline harness's shape and step
 # count, and at the 1000-D lockstep shape with an odd count
@@ -419,13 +424,14 @@ def timed(fn):
 
 
 def bound(flops: float, nbytes: float, sfu: float = 0.0,
-          tc_flops: float = 0.0):
+          tc_flops: float = 0.0, tf32_flops: float = 0.0):
     """The least time of the work on an H100 SXM, in ms, and what sets it:
     the operations (fp32 at the fp32 rate, special functions at the SFU
-    rate, bf16 products at the tensor cores' rate; the pipes run side by
-    side, so the largest) or the bytes at the memory rate."""
+    rate, bf16 and TF32 products at the tensor cores' rates, one pipe
+    whose two times add; the pipes run side by side, so the largest) or
+    the bytes at the memory rate."""
     t_ops = max(flops / PEAK_FP32_FLOPS, sfu / PEAK_SFU,
-                tc_flops / PEAK_BF16_TC)
+                tc_flops / PEAK_BF16_TC + tf32_flops / PEAK_TF32_TC)
     t_bytes = nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
@@ -458,6 +464,40 @@ def build_kernels():
     return kernels
 
 
+def logistic_instantiations(card: str) -> None:
+    """The three forms of the logistic body at config 3's D (float32,
+    ``grad_bf16``, packed) and the two wide ones (D > 64): ptxas's
+    registers and spills, their tensor-core instructions (``HMMA``) in the
+    SASS, and the occupancy of each (blocks and warps an SM,
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``).  Fails unless each
+    of the three runs its products on the tensor cores, spills nothing and
+    keeps more than 8 warps an SM."""
+    from inplacedhmc_tpu_torch.ops.logistic import LOGISTIC_VG, occupancy
+    nk = f"ELi{(D + 7) // 8}ELb0E"    # the instantiation of config 3's D
+    counts = sass_counts(
+        LOGISTIC_VG, lambda name: "logistic_vg_kernel" in name
+        and (nk in name or "ELb1E" in name), ("LDL", "STL", "HMMA", "BAR"))
+    for form, code in (("f32", 0), ("grad_bf16", 1), ("packed", 2)):
+        ours = [v for k, v in counts.items() if f"ILi{code}{nk}" in k]
+        for d in (D, K1_WIDE[2]):
+            if form == "packed" and d > 64:
+                continue
+            occ = occupancy(form, d)
+            print(f"[sass] logistic {form} at D = {d}: "
+                  f"{occ['registers']} registers, {occ['local_bytes']} "
+                  f"local bytes, {occ['blocks_per_sm']} blocks = "
+                  f"{occ['warps_per_sm']} warps an SM, {occ['stages']} "
+                  f"stages of {4 * occ['tile_words']} bytes, "
+                  f"{occ['smem_bytes']} bytes of shared memory a block, on "
+                  f"{card}")
+        occ = occupancy(form, D)
+        if not (len(ours) == 1 and ours[0]["HMMA"] > 0
+                and ours[0]["LDL"] == ours[0]["STL"] == 0
+                and occ["local_bytes"] == 0 and occ["warps_per_sm"] > 8):
+            raise RuntimeError(f"the logistic body's {form} form at D = {D}: "
+                               f"{ours}, {occ}")
+
+
 def launch_counts(kernels) -> dict:
     """Each launcher's count of launches, by its symbol (a source's two
     launchers count apart)."""
@@ -485,22 +525,36 @@ def _library_logistic(q, x, y, w, s2, grad_bf16: bool = False):
     return logp, grad
 
 
-def logistic_bound(c: int, n: int, d: int, form: str = "f32"):
-    """``bound()`` of one logistic evaluation at c x n x d, each operation
-    at its type's rate: the forward and backward products, 2 c n d flops
-    each, in fp32 unless ``form`` makes them bf16 (tensor-core rate):
-    ``"grad_bf16"`` the backward, ``"packed"`` the forward as three bf16
-    products (which also reads x's two bf16 halves); beside them the
-    per-observation work (``LOGISTIC_OBS_FLOPS``, ``LOGISTIC_OBS_SFU``).
-    Returns (ms, what sets it, fp32 flops, tensor-core flops, special
-    functions, bytes)."""
+def logistic_bound(c: int, n: int, d: int, form: str = "f32") -> dict:
+    """``bound()`` of one logistic evaluation at c x n x d, the same work
+    whatever implements it: the forward and backward products, 2 c n d
+    flops each, the bfloat16 ones (``"grad_bf16"``'s backward, one pass;
+    ``"packed"``'s forward, three passes, which also reads x's two bf16
+    halves) at the tensor cores' bf16 rate, each float32-grade one at the
+    lesser of two times, on the fp32 FMA pipe or as three TF32 passes on
+    the tensor cores; beside them the per-observation work
+    (``LOGISTIC_OBS_FLOPS``, ``LOGISTIC_OBS_SFU``).  Returns ``ms`` and
+    ``by`` (the lesser bound and what sets it) and ``text``, which gives
+    both routes' bounds and the work of each type."""
     prod = 2.0 * c * n * d
-    tc = {"f32": 0.0, "grad_bf16": prod, "packed": 3 * prod}[form]
-    fp32 = prod * (1 if tc else 2) + LOGISTIC_OBS_FLOPS * c * n
+    bf16 = {"f32": 0.0, "grad_bf16": prod, "packed": 3 * prod}[form]
+    f32_grade = {"f32": 2, "grad_bf16": 1, "packed": 1}[form] * prod
+    elem = LOGISTIC_OBS_FLOPS * c * n
     sfu = LOGISTIC_OBS_SFU * c * n
     nbytes = 4.0 * (c * d + n * d + 2 * n) + 4.0 * (c + c * d) \
         + (2.0 * 2 * n * d if form == "packed" else 0.0)
-    return (*bound(fp32, nbytes, sfu, tc_flops=tc), fp32, tc, sfu, nbytes)
+    fma = bound(f32_grade + elem, nbytes, sfu, tc_flops=bf16)
+    tf32 = bound(elem, nbytes, sfu, tc_flops=bf16, tf32_flops=3 * f32_grade)
+    ms, by = min(tf32, fma)
+    text = (
+        f"bound {ms:.4f} ms ({by}; the float32-grade products "
+        f"{f32_grade / 1e9:.2f} GFLOP as three TF32 passes at "
+        f"{PEAK_TF32_TC / 1e12:g} TFLOP/s {tf32[0]:.4f} ms, on the fp32 FMA "
+        f"pipe {fma[0]:.4f} ms; {bf16 / 1e9:.2f} GFLOP bf16 "
+        f"{bf16 / PEAK_BF16_TC * 1e3:.4f} ms, {elem / 1e9:.2f} GFLOP fp32 "
+        f"elementwise, {sfu / 1e9:.3f} G special functions "
+        f"{sfu / PEAK_SFU * 1e3:.4f} ms, {nbytes / 1e6:.2f} MB)")
+    return {"ms": ms, "by": by, "text": text}
 
 
 def check_logistic_kernel(card: str) -> dict:
@@ -509,7 +563,8 @@ def check_logistic_kernel(card: str) -> dict:
 
     from inplacedhmc_tpu_torch.models import synthetic_data
     from inplacedhmc_tpu_torch.ops.logistic import (
-        LOGISTIC_VG, logistic_value_and_grad, logistic_value_and_grad_plain)
+        BLOCK_CHAINS, LOGISTIC_VG, launch_splits, logistic_planes,
+        logistic_value_and_grad, logistic_value_and_grad_plain, occupancy)
 
     x, y, beta = synthetic_data(SEED, N, D, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
@@ -545,24 +600,91 @@ def check_logistic_kernel(card: str) -> dict:
     if not (lp_err <= LOGP_TOL and g_err <= GRAD_TOL):
         raise RuntimeError("K1 disagrees with its plain version")
 
+    # timed as the potential launches it: the plane of the data made once
     qf = q.clone()
     qf[1, 3] = 0.0
-    ms = cuda_time_ms(lambda: logistic_value_and_grad(qf, x, y, w, s2))
+    plane = logistic_planes(x, y, w)
+    ms = cuda_time_ms(lambda: logistic_value_and_grad(qf, x, y, w, s2,
+                                                      planes=plane))
     plain_ms = cuda_time_ms(
         lambda: logistic_value_and_grad_plain(qf, x, y, w, s2))
     library_ms = cuda_time_ms(lambda: _library_logistic(qf, x, y, w, s2))
-    bound_ms, bound_by, flops, _, sfu, nbytes = logistic_bound(C, N, D)
+    b = logistic_bound(C, N, D)
+    bound_ms, bound_by = b["ms"], b["by"]
     print(f"[k1] {card}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"library {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-          f"({bound_by}; {flops / 1e9:.2f} GFLOP fp32, {sfu / 1e9:.3f} G "
-          f"special functions, {nbytes / 1e6:.2f} MB), "
-          f"{flops / ms / 1e9:.1f} TFLOP/s achieved")
+          f"library {library_ms:.4f} ms, {b['text']}, "
+          f"{bound_ms / ms:.3f} of the bound, "
+          f"{4.0 * C * N * D / ms / 1e9:.1f} TFLOP/s of the two products "
+          f"achieved")
+    # the crossover's chain counts at the same data
+    for c in K1_CHAINS:
+        qc = qf[:c].contiguous()
+        occ = occupancy("f32", D)
+        splits = launch_splits(c, N, occ["blocks_per_sm"], occ["sms"])
+        ms_c = cuda_time_ms(lambda: logistic_value_and_grad(
+            qc, x, y, w, s2, planes=plane))
+        bc = logistic_bound(c, N, D)
+        print(f"[k1] {c} x {N} x {D} ({splits} splits of the observations "
+              f"a block of {BLOCK_CHAINS} chains): kernel {ms_c:.4f} ms, "
+              f"bound {bc['ms']:.5f} ms ({bc['by']}), "
+              f"{bc['ms'] / ms_c:.3f} of it, on {card}")
     return {"name": "logistic_value_and_grad", "route": "cuda",
             "source": "inplacedhmc_tpu_torch/csrc/logistic_vg.cu",
             "replaces": "inplacedhmc_tpu/ops/logistic_pallas.py:71",
             "launches": None, "max_abs_err": abs_err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms}
+
+
+def check_logistic_wide(card: str) -> None:
+    """K1 above D = 256 (``K1_WIDE``: chunks of 64 dimensions, each tile
+    streamed once for the forward and once for the backward) against its
+    plain version in float64, with one NaN chain, to ``LOGP_TOL`` and
+    ``GRAD_TOL``; timed beside its bound."""
+    import torch
+
+    from inplacedhmc_tpu_torch.models import synthetic_data
+    from inplacedhmc_tpu_torch.ops.logistic import (
+        LOGISTIC_VG, logistic_planes, logistic_value_and_grad,
+        logistic_value_and_grad_plain, occupancy)
+
+    c, n, d = K1_WIDE
+    x, y, beta = synthetic_data(SEED + 5, n, d, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    q = beta + 0.1 * torch.randn((c, d), generator=gen, device="cuda")
+    q[1, 3] = float("nan")
+    w = torch.ones_like(y)
+    before = LOGISTIC_VG.launches
+    logp, grad = logistic_value_and_grad(q, x, y, w, INV_VAR)
+    torch.cuda.synchronize()
+    if LOGISTIC_VG.launches != before + 1:
+        raise RuntimeError("the wrapper did not launch K1 at D = 300")
+    q64, x64, y64, w64 = (t.double() for t in (q, x, y, w))
+    lp_ref, g_ref = logistic_value_and_grad_plain(q64, x64, y64, w64,
+                                                  INV_VAR)
+    eta = q64 @ x64.T
+    scale = (w64 * (y64 * eta - torch.logaddexp(torch.zeros_like(eta), eta))
+             ).abs().sum(1) + 0.5 * INV_VAR * (q64 * q64).sum(1)
+    ok = torch.isfinite(lp_ref)
+    if not (torch.equal(torch.isfinite(logp), ok) and logp[1] == -torch.inf
+            and bool((grad[1] == 0).all())):
+        raise RuntimeError("K1 guard at D = 300")
+    lp_err = ((logp.double() - lp_ref).abs()[ok] / scale[ok]).max().item()
+    g_err = ((grad.double() - g_ref).abs()[ok].max()
+             / g_ref[ok].abs().max()).item()
+    q[1, 3] = 0.0
+    plane = logistic_planes(x, y, w)
+    ms = cuda_time_ms(lambda: logistic_value_and_grad(q, x, y, w, INV_VAR,
+                                                      planes=plane))
+    b = logistic_bound(c, n, d)
+    occ = occupancy("f32", d)
+    print(f"[k1] {c} x {n} x {d}: logp err / sum|terms| = {lp_err:.3e} "
+          f"(tol {LOGP_TOL:g}), grad err / max|grad| = {g_err:.3e} (tol "
+          f"{GRAD_TOL:g}); kernel {ms:.4f} ms, {b['text']}, "
+          f"{b['ms'] / ms:.3f} of it; {occ['registers']} registers, "
+          f"{occ['warps_per_sm']} warps an SM, on {card}")
+    if not (lp_err <= LOGP_TOL and g_err <= GRAD_TOL):
+        raise RuntimeError("K1 disagrees with its plain version at D = 300")
 
 
 def _rel_errors(logp, grad, lp_ref, g_ref, scale, gscale, ok):
@@ -592,7 +714,7 @@ def _packed_case(card: str, c: int, n: int, d: int, seed: int,
 
     from inplacedhmc_tpu_torch.models import synthetic_data
     from inplacedhmc_tpu_torch.ops.logistic import (
-        LOGISTIC_PACKED, logistic_value_and_grad,
+        LOGISTIC_PACKED, logistic_planes, logistic_value_and_grad,
         logistic_value_and_grad_packed, logistic_value_and_grad_packed_plain,
         split_bf16)
     from inplacedhmc_tpu_torch.sample import f32_matmuls
@@ -650,9 +772,12 @@ def _packed_case(card: str, c: int, n: int, d: int, seed: int,
                            f"{k1_rms:.3e}): the packed forward did not run")
     qf = q.clone()
     qf[1, min(3, d - 1)] = 0.0
+    planes = {f: logistic_planes(x, y, w, f, x_hi, x_lo)
+              for f in ("packed", "f32")}
     runs = {"K2": lambda: logistic_value_and_grad_packed(
-        qf, x_hi, x_lo, x, y, w, s2),
-        "K1": lambda: logistic_value_and_grad(qf, x, y, w, s2)}
+        qf, x_hi, x_lo, x, y, w, s2, planes=planes["packed"]),
+        "K1": lambda: logistic_value_and_grad(qf, x, y, w, s2,
+                                              planes=planes["f32"])}
     times = {"K2": [], "K1": []}
     for i in range(PAIRS):
         for name in (("K2", "K1") if i % 2 == 0 else ("K1", "K2")):
@@ -664,16 +789,13 @@ def _packed_case(card: str, c: int, n: int, d: int, seed: int,
         plain_ms = cuda_time_ms(lambda: logistic_value_and_grad_packed_plain(
             qf, x_hi, x_lo, x, y, w, s2))
         library_ms = cuda_time_ms(lambda: _library_logistic(qf, x, y, w, s2))
-    bound_ms, bound_by, flops, tc, sfu, nbytes = logistic_bound(c, n, d,
-                                                                "packed")
+    b = logistic_bound(c, n, d, "packed")
+    bound_ms, bound_by = b["ms"], b["by"]
     print(f"[k2] {card}: kernel {ms:.4f} ms, K1 on the same inputs "
           f"{k1_ms:.4f} ms (medians of {PAIRS} alternating pairs; K2 / K1 "
           f"{ratio:.4f}), plain {plain_ms:.4f} ms, library "
-          f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
-          f"{tc / 1e9:.2f} GFLOP bf16 at {PEAK_BF16_TC / 1e12:g} TFLOP/s "
-          f"{tc / PEAK_BF16_TC * 1e3:.4f} ms, {flops / 1e9:.2f} GFLOP fp32 "
-          f"{flops / PEAK_FP32_FLOPS * 1e3:.4f} ms, {sfu / 1e9:.3f} G special "
-          f"functions {sfu / PEAK_SFU * 1e3:.4f} ms, {nbytes / 1e6:.2f} MB)")
+          f"{library_ms:.4f} ms, {b['text']}, {bound_ms / ms:.3f} of the "
+          f"bound")
     out.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                bound_by=bound_by, library_ms=library_ms)
     return out
@@ -731,16 +853,12 @@ def check_packed_separates(card: str) -> None:
 
 def check_packed_kernel(card: str) -> dict:
     """K2 at config 3's shape (timed) and at ``PACKED_CASES``, the inputs
-    that tell it from K1 (``check_packed_separates``); prints the
-    registers, spills and tensor-core instructions (``HMMA``) of each
-    instantiation of the logistic body.  Returns config 3's case."""
+    that tell it from K1 (``check_packed_separates``).  Returns config 3's
+    case."""
     main = _packed_case(card, C, N, D, SEED, timing=True)
     for i, (c, n, d) in enumerate(PACKED_CASES):
         _packed_case(card, c, n, d, SEED + 10 + i)
     check_packed_separates(card)
-    from inplacedhmc_tpu_torch.ops.logistic import LOGISTIC_PACKED
-    sass_counts(LOGISTIC_PACKED, lambda name: "logistic_vg_kernel" in name,
-                ("LDL", "STL", "HMMA", "BAR"))
     return main
 
 
@@ -755,7 +873,8 @@ def check_grad_bf16_kernel(card: str) -> dict:
 
     from inplacedhmc_tpu_torch.models import synthetic_data
     from inplacedhmc_tpu_torch.ops.logistic import (
-        LOGISTIC_VG, logistic_value_and_grad, logistic_value_and_grad_plain)
+        LOGISTIC_VG, logistic_planes, logistic_value_and_grad,
+        logistic_value_and_grad_plain)
 
     x, y, beta = synthetic_data(SEED, N, D, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
@@ -786,20 +905,18 @@ def check_grad_bf16_kernel(card: str) -> dict:
                            "backward")
     qf = q.clone()
     qf[1, 3] = 0.0
-    ms = cuda_time_ms(lambda: logistic_value_and_grad(qf, x, y, w, INV_VAR,
-                                                      grad_bf16=True))
+    plane = logistic_planes(x, y, w, "grad_bf16")
+    ms = cuda_time_ms(lambda: logistic_value_and_grad(
+        qf, x, y, w, INV_VAR, grad_bf16=True, planes=plane))
     plain_ms = cuda_time_ms(lambda: logistic_value_and_grad_plain(
         qf, x, y, w, INV_VAR, grad_bf16=True))
     library_ms = cuda_time_ms(lambda: _library_logistic(
         qf, x, y, w, INV_VAR, grad_bf16=True))
-    bound_ms, bound_by, flops, tc, sfu, nbytes = logistic_bound(
-        C, N, D, "grad_bf16")
+    b = logistic_bound(C, N, D, "grad_bf16")
+    bound_ms, bound_by = b["ms"], b["by"]
     print(f"[k1-bf16] {card}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
           f"library (the backward a cuBLAS bf16 product) {library_ms:.4f} "
-          f"ms, bound {bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.2f} GFLOP "
-          f"fp32 {flops / PEAK_FP32_FLOPS * 1e3:.4f} ms, {tc / 1e9:.2f} GFLOP "
-          f"bf16 {tc / PEAK_BF16_TC * 1e3:.4f} ms, {sfu / 1e9:.3f} G special "
-          f"functions {sfu / PEAK_SFU * 1e3:.4f} ms, {nbytes / 1e6:.2f} MB)")
+          f"ms, {b['text']}, {bound_ms / ms:.3f} of the bound")
     return {"name": "logistic_value_and_grad_grad_bf16", "route": "cuda",
             "source": "inplacedhmc_tpu_torch/csrc/logistic_vg.cu",
             "replaces": "inplacedhmc_tpu/ops/logistic_pallas.py:131",
@@ -1940,7 +2057,8 @@ def sass_counts(kernel, keep, ops=("LDL", "STL", "LDG", "SHFL", "BAR")):
     from ``kernel``, the launcher that built its source) and the counts of
     ``ops`` in the SASS (``cuobjdump -sass`` beside ``nvcc``) of each kernel
     function of its library whose mangled name ``keep`` accepts: ``LDL``
-    and ``STL`` are local-memory loads and stores (spills)."""
+    and ``STL`` are local-memory loads and stores (spills).  Returns the
+    counts by name."""
     import re
 
     from inplacedhmc_tpu_torch.ops.cuda_build import find_nvcc
@@ -1957,6 +2075,7 @@ def sass_counts(kernel, keep, ops=("LDL", "STL", "LDG", "SHFL", "BAR")):
         elif name and "Used" in line and "registers" in line:
             usage[name] = (re.search(r"Used \d+ registers", line).group(0)
                            + ", " + usage.get(name, "spills not reported"))
+    counts = {}
     for block in sass.split("Function : ")[1:]:
         name = block.split("\n")[0].strip()
         if keep(name):
@@ -1964,6 +2083,8 @@ def sass_counts(kernel, keep, ops=("LDL", "STL", "LDG", "SHFL", "BAR")):
                      for op in ops}
             print(f"[sass] {name}: {usage.get(name, 'ptxas not reported')}; "
                   f"{count}")
+            counts[name] = count
+    return counts
 
 
 def check_dense_tree_kernel(card: str) -> dict:
@@ -3416,9 +3537,11 @@ def main() -> int:
           f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     t = time.perf_counter()
     kernels = build_kernels()
+    logistic_instantiations(card)
     print(f"[phase] build {time.perf_counter() - t:.2f} s")
     t = time.perf_counter()
     k1 = check_logistic_kernel(card)
+    check_logistic_wide(card)
     k1b = check_grad_bf16_kernel(card)
     k2 = check_packed_kernel(card)
     k3 = check_leapfrog_kernel(card)

@@ -209,6 +209,8 @@
 
 #include <type_traits>
 
+#include "bulk_copy.cuh"
+
 namespace tree {
 
 constexpr int TERM_MAX_DEPTH = 0;  // core/state.py::Termination
@@ -604,46 +606,7 @@ __host__ __device__ constexpr int64_t wide_bytes(int D, int md, bool bf16) {
 }
 
 // The staged [D, D] products (the comment at the top of this file, "The
-// dense metric"): the copy unit's asynchronous bulk copies
-// (cp.async.bulk, completed on an mbarrier) into shared memory.
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-__device__ __forceinline__ void bar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
-               :: "r"(smem_addr(bar)), "r"(count) : "memory");
-}
-// the barriers' initialisation visible to the copy unit
-__device__ __forceinline__ void bar_init_fence() {
-  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
-__device__ __forceinline__ void bar_expect(uint64_t* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
-               :: "r"(smem_addr(bar)) : "memory");
-}
-__device__ __forceinline__ void bar_wait(uint64_t* bar, unsigned parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}"
-        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
-  } while (!done);
-}
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
-                                          unsigned bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];"
-      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
+// dense metric") use the bulk copies of bulk_copy.cuh.
 
 // n floats from src (device memory) to dst (shared memory), both 16-byte
 // aligned, completed on bar (one arrival): the floats up to the last

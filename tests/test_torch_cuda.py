@@ -35,7 +35,7 @@ def _torch_port():
     test file, and the JAX suite's longest module (tests/test_sampling.py)
     peaks within a few memory mappings of the per-process limit
     (vm.max_map_count), which torch's libraries would push it over."""
-    global torch, LOGISTIC_VG, MAX_DIM, logistic_value_and_grad
+    global torch, LOGISTIC_VG, L, logistic_value_and_grad
     global logistic_value_and_grad_plain, lf, tree, philox, tp, models
     import torch
     import inplacedhmc_tpu_torch.models as models
@@ -43,9 +43,9 @@ def _torch_port():
     import inplacedhmc_tpu_torch.ops.leapfrog as lf
     import inplacedhmc_tpu_torch.ops.tree as tree
     import inplacedhmc_tpu_torch.utils.philox as philox
+    import inplacedhmc_tpu_torch.ops.logistic as L
     from inplacedhmc_tpu_torch.ops.logistic import (
-        LOGISTIC_VG, MAX_DIM, logistic_value_and_grad,
-        logistic_value_and_grad_plain)
+        LOGISTIC_VG, logistic_value_and_grad, logistic_value_and_grad_plain)
 
 
 def _needs_card():
@@ -103,11 +103,11 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take():
         logistic_value_and_grad(q.t().contiguous().t(), x, y, w, INV_VAR)
     with pytest.raises(ValueError):
         logistic_value_and_grad(q, x.cpu(), y, w, INV_VAR)
-    wide = torch.zeros((4, MAX_DIM + 1), device="cuda")
-    with pytest.raises(ValueError):
-        logistic_value_and_grad(wide, torch.zeros((8, MAX_DIM + 1),
-                                                  device="cuda"),
-                                y[:8], w[:8], INV_VAR)
+    # a plane of another form or shape than the launch reads
+    for form, xs in (("grad_bf16", x), ("f32", x[:32])):
+        plane = L.logistic_planes(xs, y[:len(xs)], w[:len(xs)], form)
+        with pytest.raises(ValueError):
+            logistic_value_and_grad(q, x, y, w, INV_VAR, planes=plane)
     assert LOGISTIC_VG.launches == before
 
 
@@ -1678,6 +1678,175 @@ def test_cuda_grad_bf16_matches_plain_version(c, n, d):
     top = g_ref[ok].abs().max()
     assert ((g.double() - g_ref).abs()[ok].max() / top) < 1e-4
     assert ((g32.double() - g_ref).abs()[ok].max() / top) > 1e-4
+
+
+#: the ragged shapes of the redesigned body (64-chain blocks of 4 warps,
+#: 32-observation tiles, 8-dimension k-steps up to 64, chunks of 64 above):
+#: every D at two (C, N), and every (C, N) at D = 17 and 300
+RAGGED_DIMS = (1, 8, 17, 50, 64, 65, 128, 256, 257, 300, 512)
+RAGGED_CN = [(c, n) for c in (1, 31, 33, 1000) for n in (1, 63, 65, 10000)]
+RAGGED = sorted({(c, n, d) for d in RAGGED_DIMS
+                 for c, n in ((33, 65), (1000, 10000))}
+                | {(c, n, d) for d in (17, 300) for c, n in RAGGED_CN})
+
+
+def _ragged(seed, c, n, d):
+    """Inputs at c x n x d (``_data``'s scales), one NaN chain where
+    c > 1 (chain c // 2) and, at c = 1, a second batch of one NaN chain."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    beta = rng.normal(size=d) * 0.5 / np.sqrt(d)
+    y = (rng.uniform(size=n) < 1 / (1 + np.exp(-x @ beta))).astype(np.float32)
+    q = (beta + 0.3 * rng.normal(size=(c, d)) / np.sqrt(d)).astype(np.float32)
+    if c > 1:
+        q[c // 2, min(2, d - 1)] = np.nan
+    return (torch.as_tensor(a, device="cuda") for a in (x, y, q))
+
+
+def _bf16_flips(q64, x64, y64, w64, eta):
+    """What ``grad_bf16``'s gradient may differ by where a residual rounds
+    to bfloat16 apart on the two sides: the kernel rounds its float32-grade
+    residual, the reference its float64 one, so a residual within their
+    difference (bounded by 1e-5 of sum_d |q x|, far above the products'
+    error) of a rounding boundary between two bfloat16 neighbours may land
+    one bfloat16 ulp apart.  Returns [C, D]: the sum over those
+    observations of that ulp times |x| rounded to bfloat16."""
+    r = (y64 - torch.sigmoid(eta)) * w64
+    mag = r.abs().clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    frac = (mag / ulp) % 1.0
+    near = (frac - 0.5).abs() * ulp <= 1e-5 * (q64.abs() @ x64.abs().T)
+    xb = x64.float().to(torch.bfloat16).double().abs()
+    return (near * ulp) @ xb
+
+
+def _ragged_check(form, c, n, d):
+    """One form of the body against its float64 plain version: logp to
+    ``chip_smoke.py``'s LOGP_TOL (1e-5) of sum|terms|, the gradient to its
+    GRAD_TOL (1e-4) of max|grad| (K2: each component to 1e-5 of
+    sum_n |resid x|, as ``test_cuda_packed_matches_plain_version``;
+    ``grad_bf16``: beside GRAD_TOL, each component by what its residuals'
+    bf16 rounding may move it, ``_bf16_flips``, which at N = 10⁴ is below
+    GRAD_TOL's room and at N = 65 is not), the guard on the NaN chain; and
+    the guard alone on a lone NaN chain."""
+    from inplacedhmc_tpu_torch.sample import f32_matmuls
+    x, y, q = _ragged(c * 7 + n + d, c, n, d)
+    w = torch.ones(n, device="cuda")
+    q64, x64, y64, w64 = (t.double() for t in (q, x, y, w))
+
+    def run(qq):
+        if form == "packed":
+            x_hi, x_lo = L.split_bf16(x)
+            got = L.logistic_value_and_grad_packed(qq, x_hi, x_lo, x, y, w,
+                                                   INV_VAR)
+            with f32_matmuls():
+                ref = L.logistic_value_and_grad_packed_plain(
+                    qq.double(), x_hi, x_lo, x64, y64, w64, INV_VAR)
+            return got, ref
+        bf16 = form == "grad_bf16"
+        return (logistic_value_and_grad(qq, x, y, w, INV_VAR, grad_bf16=bf16),
+                logistic_value_and_grad_plain(qq.double(), x64, y64, w64,
+                                              INV_VAR, grad_bf16=bf16))
+
+    (lp, g), (lp_ref, g_ref) = run(q)
+    torch.cuda.synchronize()
+    ok = torch.isfinite(lp_ref)
+    assert torch.equal(torch.isfinite(lp), ok)
+    assert bool((lp[~ok] == -torch.inf).all() and (g[~ok] == 0).all())
+    assert int((~ok).sum()) == (1 if c > 1 else 0)
+    eta = q64 @ x64.T
+    scale = (y64 * eta - torch.logaddexp(torch.zeros_like(eta), eta)
+             ).abs().sum(1) + 0.5 * INV_VAR * (q64 * q64).sum(1)
+    assert ((lp.double() - lp_ref).abs()[ok] / scale[ok]).max() < 1e-5
+    if form == "packed":
+        gscale = (y64 - torch.sigmoid(eta)).abs() @ x64.abs() \
+            + INV_VAR * q64.abs()
+        assert bool(((g.double() - g_ref).abs()[ok]
+                     <= 1e-5 * gscale[ok]).all())
+    elif form == "grad_bf16":
+        room = 1e-4 * g_ref[ok].abs().max() \
+            + _bf16_flips(q64, x64, y64, w64, eta)[ok]
+        assert bool(((g.double() - g_ref).abs()[ok] <= room).all())
+    else:
+        assert ((g.double() - g_ref).abs()[ok].max()
+                / g_ref[ok].abs().max()) < 1e-4
+    if c == 1:
+        nan_q = q.clone()
+        nan_q[0, 0] = float("nan")
+        (lp, g), _ = run(nan_q)
+        assert lp[0] == -torch.inf and bool((g == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,n,d", RAGGED)
+def test_cuda_k1_ragged_matches_plain_version(c, n, d):
+    """K1 (3xTF32 both products) at the ragged shapes, any D."""
+    _needs_card()
+    before = LOGISTIC_VG.launches
+    _ragged_check("f32", c, n, d)
+    assert LOGISTIC_VG.launches > before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,n,d", RAGGED)
+def test_cuda_grad_bf16_ragged_matches_plain_version(c, n, d):
+    """K1 with ``grad_bf16`` (the backward one bf16 pass) at the ragged
+    shapes: its logp is K1's without the option, to the bit."""
+    _needs_card()
+    before = LOGISTIC_VG.bf16_launches
+    _ragged_check("grad_bf16", c, n, d)
+    assert LOGISTIC_VG.bf16_launches > before
+    x, y, q = _ragged(c * 7 + n + d, c, n, d)
+    w = torch.ones(n, device="cuda")
+    assert torch.equal(
+        logistic_value_and_grad(q, x, y, w, INV_VAR, grad_bf16=True)[0],
+        logistic_value_and_grad(q, x, y, w, INV_VAR)[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,n,d", [s for s in RAGGED if s[2] <= 64])
+def test_cuda_k2_ragged_matches_plain_version(c, n, d):
+    """K2 (the packed forward, D <= 64) at the ragged shapes."""
+    _needs_card()
+    before = L.LOGISTIC_PACKED.launches
+    _ragged_check("packed", c, n, d)
+    assert L.LOGISTIC_PACKED.launches > before
+
+
+@pytest.mark.cuda
+def test_cuda_k1_fills_the_card():
+    """At config 3 (8,192 chains x 10,000 x 50) the launch keeps more than
+    8 warps an SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and
+    spreads over at least a wave of the card's SMs; the body spills
+    nothing at D <= 64."""
+    _needs_card()
+    for form in ("f32", "grad_bf16", "packed"):
+        occ = L.occupancy(form, 50)
+        assert occ["warps_per_sm"] > 8 and occ["local_bytes"] == 0
+        s = L.launch_splits(8192, 10000, occ["blocks_per_sm"], occ["sms"])
+        assert 128 * s >= occ["sms"]
+
+
+@pytest.mark.cuda
+def test_cuda_logistic_sample_at_d300_goes_through_k1():
+    """``sample()`` on a 300-D logistic regression (4,000 observations, 64
+    chains, a short dense warmup) runs on the card through the lockstep
+    tree and K1, which refused D > 256 before: K1 at every density,
+    finite draws, acceptance in the tuned band."""
+    _needs_card()
+    from inplacedhmc_tpu_torch import default_warmup_stages, sample
+    x, y, _ = models.synthetic_data(11, 4000, 300, device="cuda")
+    m = models.logistic_regression(x, y, device="cuda")
+    stages = default_warmup_stages(init_steps=30, middle_steps=20,
+                                   doubling_stages=2, terminating_steps=20,
+                                   metric="dense")
+    LOGISTIC_VG.launches = 0
+    res = sample(5, m, 50, 64, warmup_stages=stages, device="cuda")
+    torch.cuda.synchronize()
+    assert LOGISTIC_VG.launches > 0
+    assert bool(torch.isfinite(res.draws).all())
+    acc = float(res.stats.acceptance_rate.mean())
+    assert 0.5 < acc < 0.99
 
 
 @pytest.mark.cuda

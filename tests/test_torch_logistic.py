@@ -28,8 +28,9 @@ def _torch_port():
     slow every process of the run tenfold."""
     global torch, tlogistic, check_tensor, LOGISTIC_VG, logistic_value_and_grad
     global logistic_value_and_grad_plain, make_logistic_potential, NUTSKernel
-    global tbatched_logdensity_and_grad
+    global tbatched_logdensity_and_grad, tlogistic_ops
     import torch
+    import inplacedhmc_tpu_torch.ops.logistic as tlogistic_ops
     from inplacedhmc_tpu_torch.core.hamiltonian import \
         batched_logdensity_and_grad as tbatched_logdensity_and_grad
     from inplacedhmc_tpu_torch.models.logistic import \
@@ -46,23 +47,19 @@ C, N, D = 33, 300, 7
 INV_VAR = 0.01
 
 
-def _data(seed=0, dtype=np.float32):
+def _data(seed=0, dtype=np.float32, d=D):
     rng = np.random.default_rng(seed)
-    x = rng.normal(size=(N, D)).astype(dtype)
-    beta = rng.normal(size=D) * 0.5
+    x = rng.normal(size=(N, d)).astype(dtype)
+    beta = rng.normal(size=d) * 0.5 * min(1.0, np.sqrt(D / d))
     y = (rng.uniform(size=N) < 1 / (1 + np.exp(-x @ beta))).astype(dtype)
-    q = (beta + 0.3 * rng.normal(size=(C, D))).astype(dtype)
+    q = (beta + 0.3 * min(1.0, np.sqrt(D / d))
+         * rng.normal(size=(C, d))).astype(dtype)
     q[5, 2] = np.nan
     return x, y, q
 
 
-def test_plain_matches_pallas_interpret_kernel():
-    """f32 on both sides.  The Pallas kernel's forward is a 3-pass
-    split-bf16 product (f32-grade eta) and its backward a 1-pass bf16
-    product, so: logp to 2e-5 relative + 2e-3 absolute (f32 sums of 300
-    terms), grad to 2e-3 of its largest component (the bf16 backward),
-    the bounds of the JAX package's own kernel test."""
-    x, y, q = _data()
+def _plain_against_pallas_interpret(d):
+    x, y, q = _data(d=d)
     jpot = jmake(jnp.asarray(x), jnp.asarray(y), INV_VAR, block_c=64,
                  block_n=256, interpret=True)
     jlp, jg = (np.asarray(a) for a in jpot(jnp.asarray(q)))
@@ -74,6 +71,46 @@ def test_plain_matches_pallas_interpret_kernel():
     assert np.all(tg[5] == 0) and np.all(jg[5] == 0)
     np.testing.assert_allclose(tlp, jlp, rtol=2e-5, atol=2e-3)
     np.testing.assert_allclose(tg, jg, atol=2e-3 * np.abs(jg).max())
+
+
+def test_plain_matches_pallas_interpret_kernel():
+    """f32 on both sides.  The Pallas kernel's forward is a 3-pass
+    split-bf16 product (f32-grade eta) and its backward a 1-pass bf16
+    product, so: logp to 2e-5 relative + 2e-3 absolute (f32 sums of 300
+    terms), grad to 2e-3 of its largest component (the bf16 backward),
+    the bounds of the JAX package's own kernel test."""
+    _plain_against_pallas_interpret(D)
+
+
+def test_plain_matches_pallas_interpret_kernel_at_d300():
+    """The same at D = 300, above the 256 that the port's kernel once
+    refused (JAX's pads D to 384 lanes and takes any D); the coefficients
+    and the chains' spread are scaled by sqrt(7 / 300), so that eta keeps
+    the scale of the D = 7 case."""
+    _plain_against_pallas_interpret(300)
+
+
+def test_potential_takes_d300():
+    """``make_logistic_potential`` at D = 300 refuses nothing: on the CPU
+    it evaluates the plain version, and the plane that the card's launch
+    reads (any D: chunks of 64 dimensions) is made for it and holds X."""
+    x, y, q = _data(6, d=300)
+    q[5, 2] = 0.3
+    pot = make_logistic_potential(torch.as_tensor(x), torch.as_tensor(y),
+                                  INV_VAR)
+    lp, g = pot(torch.as_tensor(q))
+    want = logistic_value_and_grad_plain(
+        torch.as_tensor(q), torch.as_tensor(x), torch.as_tensor(y),
+        torch.ones(N), INV_VAR)
+    torch.testing.assert_close(lp, want[0], rtol=0, atol=0)
+    torch.testing.assert_close(g, want[1], rtol=0, atol=0)
+    assert not hasattr(tlogistic_ops, "MAX_DIM")
+    for form in ("f32", "grad_bf16"):
+        plane = tlogistic_ops.logistic_planes(
+            torch.as_tensor(x), torch.as_tensor(y), torch.ones(N), form)
+        assert tuple(plane.shape) == tlogistic_ops.plane_shape(N, 300, form)
+        assert plane.shape[:2] == (10, 5)   # 300 rows in tiles of 32, 5
+        #                                     chunks of 64 dimensions
 
 
 def test_plain_matches_jax_autodiff_in_float64():

@@ -448,9 +448,11 @@ def test_tile_sample_with_flagship_tree_opts():
 
 def test_build_hash_covers_included_headers(tmp_path, monkeypatch):
     """The library of a source is named by a hash that covers every file it
-    includes: changing the bytes of ``tree_kernel.cuh`` in a copy of the
-    sources moves every whole-tree kernel's library path, and only theirs;
-    changing the source alone moves its own."""
+    includes, nested includes too: changing the bytes of ``tree_kernel.cuh``
+    in a copy of the sources moves every whole-tree kernel's library path,
+    and only theirs; changing the source alone moves its own; changing
+    ``bulk_copy.cuh``, which ``tree_kernel.cuh`` and ``logistic_vg.cu``
+    include, moves them all."""
     src = tmp_path / "csrc"
     shutil.copytree(cuda_build.CSRC_DIR, src)
     monkeypatch.setattr(cuda_build, "CSRC_DIR", str(src))
@@ -461,7 +463,7 @@ def test_build_hash_covers_included_headers(tmp_path, monkeypatch):
     header = src / "tree_kernel.cuh"
     assert [os.path.basename(p) for p in
             cuda_build.source_files(str(src / "tree_funnel.cu"))] \
-        == ["tree_funnel.cu", "tree_kernel.cuh"]
+        == ["tree_funnel.cu", "tree_kernel.cuh", "bulk_copy.cuh"]
     header.write_bytes(header.read_bytes() + b"\n// changed\n")
     after = [k.library_path() for k in kernels]
     assert [a != b for a, b in zip(after, before)] == \
@@ -471,3 +473,7 @@ def test_build_hash_covers_included_headers(tmp_path, monkeypatch):
     again = [k.library_path() for k in kernels]
     assert [a != b for a, b in zip(again, after)] == \
         [name == "funnel" for name in tree.TREE_KERNELS] + [False]
+    copies = src / "bulk_copy.cuh"
+    copies.write_bytes(copies.read_bytes() + b"\n")
+    last = [k.library_path() for k in kernels]
+    assert all(a != b for a, b in zip(last, again))

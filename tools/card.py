@@ -7,6 +7,7 @@ import subprocess
 
 PEAK_FP32_FLOPS = 67e12           # H100 SXM, fp32 outside the tensor cores
 PEAK_BF16_TC = 989e12             # H100 SXM, dense bf16 on the tensor cores
+PEAK_TF32_TC = 495e12             # H100 SXM, dense TF32 on the tensor cores
 PEAK_BYTES = 3.35e12              # H100 SXM HBM3
 # special functions (expf, logf, log1pf, cosf, sqrtf: one MUFU instruction
 # each at the core of each) on an H100 SXM: 16 results per clock per SM

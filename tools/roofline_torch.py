@@ -15,8 +15,11 @@ its achieved rate is set against the card's peak:
   ratio of the single step's memory ideal to the time of a step
   (``single_step_hbm_ideal_us / step_us``) at the port's unpadded D;
 * K1, the logistic value and gradient (``logistic_value_and_grad``):
-  2048 chains x 10,000 x 50, 64 chained evaluations (q += 1e-6 grad);
-  achieved FLOP/s over the two products' 4 C N D.
+  2048 chains x 10,000 x 50, 64 chained evaluations (q += 1e-6 grad), the
+  plane of the data made once, as the potential makes it; achieved FLOP/s
+  over the two products' 4 C N D, against the fp32 rate and against the
+  rate of the float32-grade products as three TF32 passes on the tensor
+  cores (the lesser time of the two, ``chip_smoke.py::logistic_bound``).
 
 The host queues each chain of launches behind a sleep of the stream, so
 the events time the device's work, not Python's launch overhead.  Every
@@ -43,7 +46,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 import torch  # noqa: E402
 
-from tools.card import PEAK_BYTES, PEAK_FP32_FLOPS, card_line  # noqa: E402
+from tools.card import (PEAK_BYTES, PEAK_FP32_FLOPS,  # noqa: E402
+                        PEAK_TF32_TC, card_line)
 
 # the stream sleeps this many cycles per queued launch (and at least
 # MIN_SLEEP, as chip_smoke.py's cuda_time_ms) before the first of them runs: a
@@ -150,16 +154,18 @@ def bench_logistic(card: str, n_chains=2048, n_obs=10_000, n_feat=50,
     """K1: ``iters`` chained evaluations, each feeding the next."""
     from inplacedhmc_tpu_torch.models import synthetic_data
     from inplacedhmc_tpu_torch.ops.logistic import (LOGISTIC_VG,
+                                                    logistic_planes,
                                                     logistic_value_and_grad)
     x, y, _ = synthetic_data(0, n_obs, n_feat, device="cuda")
     w = torch.ones_like(y)
     gen = torch.Generator(device="cuda").manual_seed(2)
     q0 = 0.1 * torch.randn((n_chains, n_feat), generator=gen, device="cuda")
+    plane = logistic_planes(x, y, w)
 
     def chain():
         q = q0
         for _ in range(iters):
-            _, g = logistic_value_and_grad(q, x, y, w, 0.01)
+            _, g = logistic_value_and_grad(q, x, y, w, 0.01, planes=plane)
             q = q + 1e-6 * g
         return q
 
@@ -173,7 +179,9 @@ def bench_logistic(card: str, n_chains=2048, n_obs=10_000, n_feat=50,
             "obs": n_obs, "dim": n_feat, "evaluations": iters, "ms": ms,
             "eval_ms": ms / iters, "achieved_TFLOPs": tflops,
             "peak_TFLOPs_f32": PEAK_FP32_FLOPS / 1e12,
-            "roofline_frac": tflops * 1e12 / PEAK_FP32_FLOPS,
+            "peak_TFLOPs_tf32_3pass": PEAK_TF32_TC / 3 / 1e12,
+            "roofline_frac": tflops * 1e12 / max(PEAK_FP32_FLOPS,
+                                                 PEAK_TF32_TC / 3),
             "launches": LOGISTIC_VG.launches, "card": card}
 
 

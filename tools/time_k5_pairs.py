@@ -38,18 +38,25 @@ longest chain.  Cases:
   chains x 10,000 x 50, ``chip_smoke.logistic_problem``), dense M^-1 the
   Laplace covariance, eps half the stability limit, start drawn about the
   truth;
-* ``k1``: K1 (``csrc/logistic_vg.cu``) at config 3's shape, chains about
-  the true coefficients;
+* ``k1``, ``k1_bf16``, ``k2``: K1 (``csrc/logistic_vg.cu``), K1 with
+  ``grad_bf16`` and K2 (the packed forward) at config 3's data (10,000 x
+  50), chains about the true coefficients, at 1, 64, 1,024 and 8,192
+  chains; both sides held against the float64 plain version within
+  ``chip_smoke.py``'s tolerances (the two bodies sum in other orders, so
+  their outputs are not compared bit for bit), an older body called
+  through its own argument list; ``k1`` also at D = 300 (1,024 chains),
+  this checkout alone (an older body may refuse D > 256);
 * ``k3``: K3 (``csrc/leapfrog_gaussian.cu``) at 64 x 1000 (the lockstep
   1000-D run's step) and at 10,240 x 100.
 
-The K5 cases run max_depth 10, one transition drawing its momentum,
+The K5 and K3 cases' outputs must be equal bit for bit.  The K5 cases run
+max_depth 10, one transition drawing its momentum,
 direction and uniforms, the momentum through ``mass_chol`` (the refresh).
 With ``--paths`` the K5 cases time this checkout alone, forced through
 every staged path their shape admits, each output equal bit for bit to
 the plan's own::
 
-    python3 tools/time_k5_pairs.py --old DIR [--cases mvn k1 k3]
+    python3 tools/time_k5_pairs.py --old DIR [--cases mvn k1 k1_bf16 k2 k3]
         [--pairs 12] [--reps 5] [--paths]
 
 Needs a CUDA device.
@@ -66,7 +73,11 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
 
 CASES = ("gauss_dense", "stoch_vol", "stoch_vol_wide", "stoch_vol_wide_one",
-         "mvn", "dims", "small", "logistic", "diag", "k1", "k3")
+         "mvn", "dims", "small", "logistic", "diag", "k1", "k1_bf16", "k2",
+         "k3")
+#: the logistic cases (K1, K1 with grad_bf16, K2) and their chain counts
+LOGISTIC_LEAVES = ("k1", "k1_bf16", "k2")
+LEAF_CHAINS = (1, 64, 1024, 8192)
 #: the ``dims`` case's D: each side of the one-warp form's register bounds
 #: and of the plan's ring bound, and the largest one-warp D
 DIMS = (128, 129, 200, 256)
@@ -175,23 +186,14 @@ def _cases(name: str) -> list:
 
 
 def _leaf_cases(names):
-    """(label, attribute of ``ops.logistic`` or ``ops.leapfrog`` holding the
-    kernel, its module, call) of the K1 and K3 cases, on the card."""
+    """(label, attribute of ``ops.leapfrog`` holding the kernel, its
+    module, call) of the K3 cases, on the card."""
     import torch
 
     import chip_smoke as cs
-    from inplacedhmc_tpu_torch.models import synthetic_data
-    from inplacedhmc_tpu_torch.ops import leapfrog, logistic
+    from inplacedhmc_tpu_torch.ops import leapfrog
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 80)
     cases = []
-    if "k1" in names:
-        x, y, beta = synthetic_data(cs.SEED, cs.N, cs.D, device="cuda")
-        q = beta + 0.1 * torch.randn((cs.C, cs.D), generator=gen,
-                                     device="cuda")
-        w = torch.ones_like(y)
-        cases.append((f"k1, {cs.C} x {cs.N} x {cs.D}", "LOGISTIC_VG",
-                      logistic, lambda: logistic.logistic_value_and_grad(
-                          q, x, y, w, cs.INV_VAR)))
     if "k3" in names:
         for c, d in ((cs.S_CHAINS, cs.W_DIM), (cs.G_CHAINS, cs.G_DIM)):
             lam = 0.5 + torch.rand((d,), generator=gen, device="cuda")
@@ -204,6 +206,160 @@ def _leaf_cases(names):
                 lambda q3=q3, p3=p3, e=e, lam=lam, minv=minv:
                     leapfrog.fused_gaussian_leapfrog(q3, p3, e, lam, minv)))
     return cases
+
+
+def _logistic_pairs(names, old_dir: str, pairs: int, reps: int,
+                    card: str) -> None:
+    """The ``k1``, ``k1_bf16`` and ``k2`` cases: at each of
+    ``LEAF_CHAINS`` this checkout's wrapper (its plane made once, as the
+    potential makes it) and the older body's launcher, each held against
+    the float64 plain version (logp to ``LOGP_TOL`` of sum|terms|; K1's
+    gradient to ``GRAD_TOL`` of max|grad|, K2's each component to
+    ``LOGP_TOL`` of sum_n |resid x|), then timed in alternating pairs;
+    ``k1`` at D = 300 this checkout alone.  An older body that takes X
+    itself (no plane) is called with its own arguments."""
+    import ctypes
+
+    import torch
+
+    import chip_smoke as cs
+    from inplacedhmc_tpu_torch.models import synthetic_data
+    from inplacedhmc_tpu_torch.ops import logistic as L
+    from inplacedhmc_tpu_torch.ops.cuda_build import CudaKernel, build_all
+    from inplacedhmc_tpu_torch.sample import f32_matmuls
+
+    with open(os.path.join(old_dir, "inplacedhmc_tpu_torch", "csrc",
+                           "logistic_vg.cu")) as f:
+        old_planes = "const float* plane" in f.read()
+
+    class Old(CudaKernel):
+        @property
+        def source_path(self) -> str:
+            return os.path.join(old_dir, "inplacedhmc_tpu_torch", "csrc",
+                                self.source)
+
+    vp, f32, i64, i32 = (ctypes.c_void_p, ctypes.c_float, ctypes.c_int64,
+                         ctypes.c_int)
+    if old_planes:
+        old = {"vg": Old(L.LOGISTIC_VG.source, L.LOGISTIC_VG.symbol,
+                         L.LOGISTIC_VG.argtypes),
+               "packed": Old(L.LOGISTIC_PACKED.source,
+                             L.LOGISTIC_PACKED.symbol,
+                             L.LOGISTIC_PACKED.argtypes),
+               "occupancy": Old(L.LOGISTIC_OCCUPANCY.source,
+                                L.LOGISTIC_OCCUPANCY.symbol,
+                                L.LOGISTIC_OCCUPANCY.argtypes)}
+    else:
+        old = {"vg": Old("logistic_vg.cu", "logistic_vg_launch",
+                         [vp] * 4 + [f32, vp, vp, i64, i64, i32, i32, vp]),
+               "packed": Old("logistic_vg.cu", "logistic_packed_launch",
+                             [vp] * 6 + [f32, vp, vp, i64, i64, i32, vp])}
+    build_all([L.LOGISTIC_VG, old["vg"]])
+    n, d, s2 = cs.N, cs.D, cs.INV_VAR
+    x, y, beta = synthetic_data(cs.SEED, n, d, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 80)
+    q_all = beta + 0.1 * torch.randn((max(LEAF_CHAINS), d), generator=gen,
+                                     device="cuda")
+    w = torch.ones_like(y)
+    x_hi, x_lo = L.split_bf16(x)
+
+    def old_call(form, q):
+        c = q.shape[0]
+        logp = torch.empty((c,), device="cuda")
+        grad = torch.empty((c, d), device="cuda")
+        stream = torch.cuda.current_stream().cuda_stream
+        if old_planes:
+            out = (ctypes.c_int * len(L.OCCUPANCY_FIELDS))()
+            old["occupancy"].call(L.FORMS["packed" if form == "packed"
+                                         else "f32"], d,
+                                  ctypes.addressof(out))
+            splits = L.launch_splits(c, n, out[0], out[2])
+            part = torch.empty((splits * c * (d + 1),), device="cuda")
+            plane = planes[form]
+            head = (q.data_ptr(), plane.data_ptr(), s2, logp.data_ptr(),
+                    grad.data_ptr(), part.data_ptr(), c, n, d)
+            if form == "packed":
+                old["packed"].launch(*head, splits, stream)
+            else:
+                old["vg"].launch(*head, int(form == "grad_bf16"), splits,
+                                 stream)
+        elif form == "packed":
+            old["packed"].launch(q.data_ptr(), x_hi.data_ptr(),
+                                 x_lo.data_ptr(), x.data_ptr(), y.data_ptr(),
+                                 w.data_ptr(), s2, logp.data_ptr(),
+                                 grad.data_ptr(), c, n, d, stream)
+        else:
+            old["vg"].launch(q.data_ptr(), x.data_ptr(), y.data_ptr(),
+                             w.data_ptr(), s2, logp.data_ptr(),
+                             grad.data_ptr(), c, n, d,
+                             int(form == "grad_bf16"), stream)
+        return logp, grad
+
+    def new_call(form, q, xx=x, yy=y, ww=w, plane=None):
+        plane = planes[form] if plane is None else plane
+        if form == "packed":
+            return L.logistic_value_and_grad_packed(
+                q, x_hi, x_lo, xx, yy, ww, s2, planes=plane)
+        return L.logistic_value_and_grad(q, xx, yy, ww, s2,
+                                         grad_bf16=form == "grad_bf16",
+                                         planes=plane)
+
+    def check(label, form, q, out, xx=x, yy=y, ww=w):
+        q64, x64, y64, w64 = (t.double() for t in (q, xx, yy, ww))
+        if form == "packed":
+            with f32_matmuls():
+                lp_ref, g_ref = L.logistic_value_and_grad_packed_plain(
+                    q64, x_hi, x_lo, x64, y64, w64, s2)
+        else:
+            lp_ref, g_ref = L.logistic_value_and_grad_plain(
+                q64, x64, y64, w64, s2, grad_bf16=form == "grad_bf16")
+        eta = q64 @ x64.T
+        scale = (w64 * (y64 * eta - torch.logaddexp(torch.zeros_like(eta),
+                                                    eta))).abs().sum(1) \
+            + 0.5 * s2 * (q64 * q64).sum(1)
+        lp_err = ((out[0].double() - lp_ref).abs() / scale).max().item()
+        if form == "packed":
+            gscale = ((y64 - torch.sigmoid(eta)) * w64).abs() @ x64.abs() \
+                + s2 * q64.abs()
+            g_err = ((out[1].double() - g_ref).abs() / gscale).max().item()
+            g_tol = cs.LOGP_TOL
+        else:
+            g_err = ((out[1].double() - g_ref).abs().max()
+                     / g_ref.abs().max()).item()
+            g_tol = cs.GRAD_TOL
+        print(f"[pairs] {label}: logp err / sum|terms| {lp_err:.3e} (tol "
+              f"{cs.LOGP_TOL:g}), grad err {g_err:.3e} (tol {g_tol:g})")
+        if not (lp_err <= cs.LOGP_TOL and g_err <= g_tol):
+            raise RuntimeError(f"{label} disagrees with the plain version")
+
+    forms = {"k1": "f32", "k1_bf16": "grad_bf16", "k2": "packed"}
+    planes = {f: L.logistic_planes(x, y, w, f, x_hi, x_lo)
+              for f in forms.values()}
+    for name in (k for k in LOGISTIC_LEAVES if k in names):
+        form = forms[name]
+        for c in LEAF_CHAINS:
+            q = q_all[:c].contiguous()
+            label = f"{name}, {c} x {n} x {d}"
+            check(f"{label}, old", form, q, old_call(form, q))
+            check(f"{label}, new", form, q, new_call(form, q))
+            time_pairs(label, lambda: old_call(form, q),
+                       lambda: new_call(form, q), pairs, reps, card,
+                       same="each within the tolerances of the plain "
+                            "version")
+    if "k1" in names:
+        c, nw, dw = cs.K1_WIDE
+        xw, yw, bw = synthetic_data(cs.SEED + 5, nw, dw, device="cuda")
+        ww = torch.ones_like(yw)
+        q = (bw + 0.1 * torch.randn((c, dw), generator=gen,
+                                    device="cuda")).contiguous()
+        plane = L.logistic_planes(xw, yw, ww)
+        label = f"k1, {c} x {nw} x {dw}, new alone"
+        run = lambda: new_call("f32", q, xw, yw, ww, plane)  # noqa: E731
+        check(label, "f32", q, run(), xw, yw, ww)
+        times = [cs.cuda_time_ms(run, reps, 1) for _ in range(pairs)]
+        print(f"[pairs] {label}: median {statistics.median(times):.4f} ms "
+              f"(spread {min(times):.4f}-{max(times):.4f}), "
+              f"{cs.logistic_bound(c, nw, dw)['text']}, on {card}")
 
 
 def _products(physics: str, dense: bool, n_leaf: int) -> int:
@@ -245,7 +401,8 @@ def _time_paths(label, run, kernel, physics, d, dense, bf16, n_prod, ref,
 
 
 def time_pairs(label: str, run_old, run_new, pairs: int, reps: int,
-               card: str, n_prod: int = 0) -> None:
+               card: str, n_prod: int = 0,
+               same: str = "outputs equal bit for bit") -> None:
     """Time ``run_old()`` and ``run_new()`` in ``pairs`` alternating pairs
     (old first, then new first), each side the mean of ``reps`` calls
     queued back to back after one warm-up (``chip_smoke.cuda_time_ms``);
@@ -267,7 +424,7 @@ def time_pairs(label: str, run_old, run_new, pairs: int, reps: int,
     per = f"; per product on the longest chain old " \
         f"{mo / n_prod * 1e3:.2f} us, new {mn / n_prod * 1e3:.2f} us" \
         if n_prod else ""
-    print(f"[pairs] {label}, outputs equal bit for bit, on {card}: old "
+    print(f"[pairs] {label}, {same}, on {card}: old "
           f"median {mo:.4f} ms (spread {min(times['old']):.4f}-"
           f"{max(times['old']):.4f}), new median {mn:.4f} ms (spread "
           f"{min(times['new']):.4f}-{max(times['new']):.4f}); new / old "
@@ -292,7 +449,7 @@ def main() -> int:
 
     import chip_smoke as cs
     from inplacedhmc_tpu_torch.core.metric import dense_metric
-    from inplacedhmc_tpu_torch.ops import logistic, tree
+    from inplacedhmc_tpu_torch.ops import tree
     from inplacedhmc_tpu_torch.ops.cuda_build import CudaKernel, build_all
 
     old_dir = os.path.abspath(args.old)
@@ -316,9 +473,6 @@ def main() -> int:
             lacks[k.symbol] = {n - 3: -1}
         if not old_has("tree_kernel.cuh", "ckpt_bf16"):
             lacks[k.symbol][n - 4] = 0
-    if not old_has("logistic_vg.cu", "grad_bf16"):
-        lacks[logistic.LOGISTIC_VG.symbol] = \
-            {len(logistic.LOGISTIC_VG.argtypes) - 2: 0}
 
     class OldKernel(CudaKernel):
         def __init__(self, new: CudaKernel):
@@ -340,7 +494,8 @@ def main() -> int:
             super().launch(*(x for i, x in enumerate(a) if i not in self.at))
 
     k5_runs = [(name, run) for name in args.cases
-               if name not in ("k1", "k3") for run in _cases(name)]
+               if name not in (*LOGISTIC_LEAVES, "k3")
+               for run in _cases(name)]
 
     def kernels_of(run):
         """the launcher's dictionary and key: the dense one, or the
@@ -358,6 +513,7 @@ def main() -> int:
     build_all(list(new.values()))   # one nvcc per source and checkout
     build_all(list(old.values()))
     card = cs.card_line()
+    _logistic_pairs(args.cases, old_dir, args.pairs, args.reps, card)
     key = cs._key(cs.SEED + 71)
     for name, r in k5_runs:
         table, p = kernels_of(r)
