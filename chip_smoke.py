@@ -41,11 +41,15 @@ Phases, each printed with its wall time:
    (``mvn_target``) at 1,024 and 64 chains under a diagonal and under a
    dense metric, at three step sizes each, in the three forms, eight
    schools and the funnel under a dense metric; a dense sweep of 16
-   against 16 launches; K5-logistic (``csrc/tree_logistic.cu``) at 8192 x
-   10,000 x 50 from draws of the Laplace approximation, under its
-   covariance as a dense M^-1 and under the diagonal of it, at three step
-   sizes, in the three forms, with a sweep of 16 against 16 launches, and
-   the per-leaf library composition of the physics timed for reference;
+   against 16 launches; K5-logistic (``csrc/tree_logistic.cu``, the tile
+   form: a tile of chains in lockstep) at 8192 x 10,000 x 50 from draws
+   of the Laplace approximation, under its covariance as a dense M^-1 and
+   under the diagonal of it, at three step sizes, in the three forms; at
+   1, 64 and 1,000 chains (a partial tile), at D = 1, 17, 64, 200 and 256
+   on 2,049 observations (a ragged tile), with ``grad_bf16`` and with
+   ``ckpt_bf16``; sweeps of 16 against 16 launches (also with
+   ``grad_bf16`` and ``ckpt_bf16``), and the per-leaf library composition
+   of the physics timed for reference;
    K5-stoch_vol (``csrc/tree_stoch_vol.cu``, the AR(1) physics) at T = 100
    (D = 102) at 1,024 and 10,240 chains, under a diagonal and a dense
    metric, at three step sizes, every 16th chain started where f32 tanh
@@ -298,6 +302,13 @@ LOGISTIC_REPLACES = "1242"
 LOGISTIC_BLOCK_N = 2048
 INV_VAR = 0.01                    # the prior of logistic_regression()
 LOGISTIC_CROSSOVER_CHAINS = (1, 64, 1024, C)
+# K5-logistic's tile form beside config 3's shape: chain counts whose last
+# tile is partial (1,000 = 62 x 16 + 8), dimensions across its
+# instantiations and chunks of 64, and an observation count whose last
+# tile of 32 is ragged
+LOGISTIC_TILE_CHAINS = (1, 64, 1000)
+LOGISTIC_TILE_DIMS = (1, 17, 64, 200, 256)
+LOGISTIC_TILE_C, LOGISTIC_TILE_N = 1000, 2049
 # BASELINE config 5's model, stochastic volatility, at the examples' T = 100
 # (examples/baseline_configs.py:141-143: phi 0.97, s 0.15; D = 102) through
 # K5 with its AR(1) physics (csrc/tree_stoch_vol.cu), with the recipe of
@@ -1126,7 +1137,7 @@ def check_leapfrog_kernel(card: str) -> dict:
 
 def tree_bound(c: int, d: int, out, form: str = "array",
                physics: str = "gaussian", dense: bool = False,
-               n_obs: int = 0) -> tuple:
+               n_obs: int = 0, grad_bf16: bool = False) -> tuple:
     """K5's bound for one launch on these inputs, over the steps this data
     needs.  Operations: about 25 D flops per leapfrog leaf (the update 8,
     the two row sums 5, the guards 4, the momentum sum 1, the expected
@@ -1154,7 +1165,12 @@ def tree_bound(c: int, d: int, out, form: str = "array",
     4 D flops per observation for its two products, ``LOGISTIC_OBS_FLOPS``
     and ``LOGISTIC_OBS_SFU`` more per observation, and its observation
     matrix and two rows read once; a physics with special functions on its
-    lanes (``PHYSICS_LANE_SFU``) adds those per evaluation."""
+    lanes (``PHYSICS_LANE_SFU``) adds those per evaluation.  The two
+    products, 2 N D flops each, count as ``logistic_bound`` counts K1's,
+    whatever implements them: the float32-grade ones (both, or under
+    ``grad_bf16`` the forward) at the lesser of the fp32 FMA pipe and three
+    TF32 passes on the tensor cores, ``grad_bf16``'s backward one bf16
+    pass."""
     from inplacedhmc_tpu_torch.ops.tile_physics import PHYSICS
     k = out.q.shape[0] if out.q.ndim == 3 else 1
     steps = float(out.steps.sum())
@@ -1165,7 +1181,10 @@ def tree_bound(c: int, d: int, out, form: str = "array",
     lanes = {"gaussian": 0, "eight_schools": d - 2, "funnel": d - 1,
              "dense_gaussian": d, "logistic": d, "stoch_vol": d - 2}[physics]
     flops = 25.0 * d * steps + (lane_flops * lanes + chain_flops) * evals
-    flops += (4.0 * d + LOGISTIC_OBS_FLOPS) * n_obs * evals
+    flops += LOGISTIC_OBS_FLOPS * n_obs * evals
+    prod = 2.0 * d * n_obs * evals          # one of the two products
+    f32_grade = (1 if grad_bf16 else 2) * prod
+    bf16_flops = prod if grad_bf16 else 0.0
     phys_mat = PHYSICS[physics].matrix is not None
     products = phys_mat * evals
     if dense:
@@ -1189,7 +1208,10 @@ def tree_bound(c: int, d: int, out, form: str = "array",
             nbytes += 4.0 * draws
         else:
             flops += PHILOX_OPS * draws
-    return (*bound(flops, nbytes, sfu), steps)
+    fma = bound(flops + f32_grade, nbytes, sfu, tc_flops=bf16_flops)
+    tf32 = bound(flops, nbytes, sfu, tc_flops=bf16_flops,
+                 tf32_flops=3 * f32_grade)
+    return (*min(fma, tf32), steps)
 
 
 def _gamma(n: int) -> float:
@@ -1209,10 +1231,20 @@ def grad_bound(phys):
     gamma_D of its terms, ``|dq| |P| + 2 gamma_D |q| |P|``.  Logistic
     regression, ``grad = -inv_var q + sum_n r_n x_n``, with ``A = |X|^T |X|
     / 4 + inv_var I`` (the sigmoid's slope is at most 1/4): ``|dq| A`` (the
-    proposals' difference), ``2 gamma_D |q| A`` (each side's eta, carried
-    through the sigmoid), ``2 (gamma_N + 6 u) sum_n |x_n|`` (each side's
-    backward sum of N terms, and a few roundings of each residual, which is
-    at most 1)."""
+    proposals' difference); ``(gamma_D + t_f) |q| A``, each side's eta
+    carried through the sigmoid: the plain version's float32 sum within
+    gamma_D, the kernel's 3xTF32 product within ``t_f = 3 2^-22 + (k + 2)
+    2^-23 + n_c u`` of its terms' magnitudes (the dropped lo.lo term and
+    the halves' roundings, a tensor-core sum of k = min(D, 64) terms that
+    may truncate, 2^-23 a term, and the float32 adds of the n_c chunks of
+    64 dimensions: ``tests/test_torch_tf32.py``'s model of K1's products);
+    ``(gamma_N + 6 u + t_b + 6 u) sum_n |x_n|``, each side's backward sum
+    of N terms and a few roundings of each residual, which is at most 1:
+    the plain version's float32 sum within gamma_N, the kernel's within
+    ``t_b = 3 2^-22 + 34 2^-23 + gamma_(ceil(N / 32) + 18)`` (3xTF32
+    products summed 32 observations at a time on the tensor cores, then
+    added in float32 over the tiles and at most 16 groups of warps; under
+    grad_bf16 the products are exact and the 3 2^-22 drops)."""
     import torch
     if phys.name == "dense_gaussian":
         a = phys.matrix().abs().double()
@@ -1222,13 +1254,18 @@ def grad_bound(phys):
     if phys.name == "logistic":
         xa = phys.obs_matrix().abs().double()
         d = xa.shape[1]
+        n = int(phys.data["w"].sum())
+        u = 2.0 ** -24
         a = 0.25 * (xa.T @ xa) + phys.data["inv_var"] * torch.eye(
             d, dtype=torch.float64, device=xa.device)
-        g_d = _gamma(d)
-        col = 2 * (_gamma(int(phys.data["w"].sum())) + 6 * 2.0 ** -24) \
-            * xa.sum(0)
+        t_f = 3 * 2.0 ** -22 + (min(d, 64) + 2) * 2.0 ** -23 \
+            + math.ceil(d / 64) * u
+        t_b = (0.0 if phys.data["grad_bf16"] else 3 * 2.0 ** -22) \
+            + 34 * 2.0 ** -23 + _gamma(math.ceil(n / 32) + 18)
+        eta = _gamma(d) + t_f
+        col = (_gamma(n) + 6 * u + t_b + 6 * u) * xa.sum(0)
         return lambda qg, qw: ((qg - qw).abs().double() @ a
-                               + 2 * g_d * (qw.abs().double() @ a) + col)
+                               + eta * (qw.abs().double() @ a) + col)
     return None
 
 
@@ -1236,6 +1273,12 @@ def _n_obs(phys) -> int:
     """The observations of a physics with an observation matrix (the sum of
     its weights: the padding weighs 0), else 0."""
     return 0 if phys.obs_matrix() is None else int(phys.data["w"].sum())
+
+
+def _grad_bf16(phys) -> bool:
+    """Whether a physics rounds its backward product to bfloat16 (logistic
+    regression's ``grad_bf16``)."""
+    return bool(phys.data.get("grad_bf16", 0))
 
 
 def _long_sums(phys, d: int) -> bool:
@@ -1460,10 +1503,11 @@ def _key(seed: int):
 
 
 def _physics(name: str, data: dict):
-    """``name``'s physics bound to ``data`` on the card in float32."""
+    """``name``'s physics bound to ``data`` on the card in float32 (a tile
+    physics with its kernel's plane, ``ops.tree.bind``)."""
     import torch
 
-    from inplacedhmc_tpu_torch.ops.tile_physics import bind
+    from inplacedhmc_tpu_torch.ops.tree import bind
     return bind(name, data, "cuda", torch.float32)
 
 
@@ -1921,7 +1965,8 @@ _FORCED_SHAPES = set()
 
 def staged_paths(card: str, label: str, launch, ref, physics: str, d: int,
                  dense: bool, form: str, ms: float, n_leaf: int,
-                 bf16: bool = False, k: int = 1) -> str:
+                 bf16: bool = False, k: int = 1,
+                 grad_bf16: bool = False) -> str:
     """The staged products of a launch that has a ``[D, D]`` matrix: the
     launcher's plan (``ops.tree.plan_on_card``), which must be the Python
     mirror's (``stage_plan``); on the first state of each shape,
@@ -1930,14 +1975,19 @@ def staged_paths(card: str, label: str, launch, ref, physics: str, d: int,
     arithmetic in the same order; ``bits_equal``).  Prints and returns the
     plan, the ring's stages and bytes in flight, the chains a block, the
     blocks an SM holds, and the time per product on the longest chain
-    (``ms`` over its ``n_products``)."""
+    (``ms`` over its ``n_products``).  A physics of the tile form
+    (``TILED_PHYSICS``, its option ``grad_bf16``) prints its tile's plan
+    instead: chains a tile, observation tiles a batch, ring stages."""
     import torch
 
-    from inplacedhmc_tpu_torch.ops.tree import (PATHS, TreeOut,
-                                                plan_on_card, stage_plan)
+    from inplacedhmc_tpu_torch.ops.tree import (PATHS, TILED_PHYSICS,
+                                                TreeOut, plan_on_card,
+                                                stage_plan)
     refresh = form == "refresh"
-    plan, blocks = plan_on_card(physics, d, MAX_DEPTH, dense, refresh, bf16)
-    mirror = stage_plan(d, MAX_DEPTH, physics, dense, refresh, bf16)
+    plan, blocks = plan_on_card(physics, d, MAX_DEPTH, dense, refresh, bf16,
+                                grad_bf16=grad_bf16)
+    mirror = stage_plan(d, MAX_DEPTH, physics, dense, refresh, bf16,
+                        grad_bf16=grad_bf16)
     if plan != mirror:
         raise RuntimeError(f"{label}: the launcher plans {plan}, the mirror "
                            f"{mirror}")
@@ -1961,9 +2011,13 @@ def staged_paths(card: str, label: str, launch, ref, physics: str, d: int,
                                f"{plan.path} path in {differ}")
         same.append(path)
     n_prod = n_products(physics, dense, form, n_leaf, k)
-    line = (f"{plan.path} path, {plan.stages} stages of {plan.rows} rows "
-            f"({plan.in_flight(d)} bytes in flight), {plan.warps} chains a "
-            f"block, {blocks} blocks an SM ({blocks * plan.warps} chains); "
+    ring = (f"a tile of {plan.warps} chains, {plan.rows} observation tiles "
+            f"a batch, {plan.stages} ring stages, {plan.smem_bytes} bytes"
+            if physics in TILED_PHYSICS else
+            f"{plan.stages} stages of {plan.rows} rows ({plan.in_flight(d)} "
+            f"bytes in flight), {plan.warps} chains a block")
+    line = (f"{plan.path} path, {ring}, "
+            f"{blocks} blocks an SM ({blocks * plan.warps} chains); "
             f"longest chain {n_leaf} leaves, {n_prod} products, "
             f"{ms / n_prod * 1e3:.2f} us per product; "
             + (f"{', '.join(same) or 'no other path'} admitted, equal bit "
@@ -1989,13 +2043,15 @@ def library_product_ms(v, m) -> float:
 
 def dense_case(card: str, label: str, physics: str, data: dict, q0, minv,
                eps_list, forms=("array", "prng", "refresh"),
-               seed: int = 0, iters: int = 10) -> dict:
+               seed: int = 0, iters: int = 10, bf16: bool = False) -> dict:
     """K5 with ``physics`` and the metric ``minv`` (``[D]`` diagonal or
     ``[D, D]`` dense) against its plain version fed the kernel's own draws,
-    at each step size and in each form (``tree_form``), by
-    ``compare_tree``'s rule; each timed beside its bound (``iters``
-    launches, 3 where the trees average above depth 7).  Returns
-    ``{(eps, form): (ms, plain_ms, bound_ms, bound_by, max_abs_err)}``."""
+    at each step size and in each form (``tree_form``; ``bf16``: both with
+    bfloat16 checkpoint stacks), by ``compare_tree``'s rule (and under
+    ``grad_bf16`` ``grad_bf16_gate``); each timed beside its bound
+    (``iters`` launches, 3 where the trees average above depth 7).
+    Returns ``{(eps, form): (ms, plain_ms, bound_ms, bound_by,
+    max_abs_err)}``."""
     import torch
 
     from inplacedhmc_tpu_torch.core.metric import dense_metric
@@ -2022,7 +2078,7 @@ def dense_case(card: str, label: str, physics: str, data: dict, q0, minv,
         e = torch.full((c,), eps, device="cuda")
         for form in forms:
             launch, plain = tree_form(form, q0, p0, e, d32, unif, phys, minv,
-                                      key, md, scale)
+                                      key, md, scale, bf16)
             before = kern.launches
             got = launch()
             torch.cuda.synchronize()
@@ -2033,12 +2089,15 @@ def dense_case(card: str, label: str, physics: str, data: dict, q0, minv,
             tag = f"{label}, eps {eps:.4g}, {form}"
             err = compare_tree(got, want, tag, grad_bound(phys),
                                replay=plain, lsa_bound=_long_sums(phys, d))
+            if _grad_bf16(phys):
+                grad_bf16_gate(tag, phys, got)
             if not bool(torch.isfinite(got.q).all()):
                 raise RuntimeError(f"K5 ({tag}) returned a non-finite state")
             deep = float(want.depth.double().mean()) > 7
             ms = cuda_time_ms(launch, 3 if deep else iters, 1)
             bound_ms, bound_by, steps = tree_bound(c, d, want, form, physics,
-                                                   dense, _n_obs(phys))
+                                                   dense, _n_obs(phys),
+                                                   _grad_bf16(phys))
             print(f"[k5-dense] {tag} on {card}: kernel {ms:.4f} ms, plain "
                   f"{plain_ms:.2f} ms (wall); {steps:.0f} leapfrog steps, "
                   f"{steps / ms * 1e3:.4g} steps/s; bound {bound_ms:.4f} ms "
@@ -2047,7 +2106,8 @@ def dense_case(card: str, label: str, physics: str, data: dict, q0, minv,
             # products (tree_bound's count) run one after another
             if dense or phys.matrix() is not None:
                 staged_paths(card, tag, launch, got, physics, d, dense, form,
-                             ms, int(got.steps.max()))
+                             ms, int(got.steps.max()), bf16,
+                             grad_bf16=_grad_bf16(phys))
             times[(eps, form)] = (ms, plain_ms, bound_ms, bound_by, err)
     return times
 
@@ -2276,7 +2336,8 @@ def bf16_case(card: str, label: str, physics: str, phys, q0, p0, e, d32,
     slow = dense or d > 256 or float(want.depth.double().mean()) > 7
     reps = (3, 1) if slow else (20, 3)
     bound_ms, bound_by, steps = tree_bound(c, d, want, "prng", physics,
-                                           dense, _n_obs(phys))
+                                           dense, _n_obs(phys),
+                                           _grad_bf16(phys))
     note = ""
     if with_f32:
         launch32, _ = tree_form("prng", q0, p0, e, d32, None, phys, minv,
@@ -2437,7 +2498,7 @@ def check_ckpt_bf16(card: str) -> None:
 
 
 def sweep_case(card: str, label: str, phys, q0, minv, eps: float,
-               seed: int) -> None:
+               seed: int, ckpt_bf16: bool = False) -> None:
     """K5 with the physics ``phys`` under ``minv`` (``[D]`` or ``[D, D]``),
     eps ``eps``, 1 row in 1,000 padded: one launch of ``SWEEP_CHECK_K``
     transitions drawing everything itself against that many one-transition
@@ -2463,7 +2524,7 @@ def sweep_case(card: str, label: str, phys, q0, minv, eps: float,
     kern = (TREE_DENSE_KERNELS if dense else TREE_KERNELS)[phys.name]
     before = kern.launches
     swept = tree_sweep(q0, e, phys, minv, md, -1000.0, k, key=key,
-                       sqrt_mass=scale, valid=valid)
+                       sqrt_mass=scale, valid=valid, ckpt_bf16=ckpt_bf16)
     torch.cuda.synchronize()
     if kern.launches != before + 1:
         raise RuntimeError(f"the sweep ({label}) was not one K5 launch")
@@ -2473,7 +2534,8 @@ def sweep_case(card: str, label: str, phys, q0, minv, eps: float,
     for s in range(k):
         p = kernel_order_product(xi[s], scale) if dense else scale * xi[s]
         one = tree_sweep(q, e, phys, minv, md, -1000.0, momentum=p[None],
-                         dirs=dirs[s:s + 1], unif=unif[s:s + 1], valid=valid)
+                         dirs=dirs[s:s + 1], unif=unif[s:s + 1], valid=valid,
+                         ckpt_bf16=ckpt_bf16)
         differ += [f"{f}[{s}]" for f in TreeOut._fields if f != "grad"
                    and not torch.equal(getattr(swept, f)[s],
                                        getattr(one, f)[0])]
@@ -2490,13 +2552,13 @@ def sweep_case(card: str, label: str, phys, q0, minv, eps: float,
                            f"launches")
     ms = cuda_time_ms(lambda: tree_sweep(
         q0, e, phys, minv, md, -1000.0, k, key=key, sqrt_mass=scale,
-        valid=valid, out=swept), iters=3, warmup=1)
+        valid=valid, out=swept, ckpt_bf16=ckpt_bf16), iters=3, warmup=1)
     keys = [_key(seed + 1 + s) for s in range(k)]
     one_ms = cuda_time_ms(lambda: [tree_sweep(
         q0, e, phys, minv, md, -1000.0, key=kk, sqrt_mass=scale, valid=valid,
-        out=one) for kk in keys], iters=3, warmup=1)
+        out=one, ckpt_bf16=ckpt_bf16) for kk in keys], iters=3, warmup=1)
     bound_ms, bound_by, _ = tree_bound(c, d, swept, "refresh", phys.name,
-                                       dense, _n_obs(phys))
+                                       dense, _n_obs(phys), _grad_bf16(phys))
     print(f"[sweep] {label} on {card}: one launch of {k} {ms:.4f} ms "
           f"({ms / k:.4f} ms per transition), {k} launches of one "
           f"{one_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}); "
@@ -2526,34 +2588,84 @@ def logistic_problem():
     ``run_sample`` makes them), the physics' data (``logistic_data``,
     ``block_n`` ``LOGISTIC_BLOCK_N``), and the Laplace approximation's
     covariance at the coefficients that made the data, ``(X^T S X +
-    inv_var I)^-1`` with ``S = s (1 - s)`` (float64): the metric and the
-    start of the kernel checks."""
-    import torch
-
+    inv_var I)^-1`` with ``S = s (1 - s)`` (float64, ``_laplace``): the
+    metric and the start of the kernel checks."""
     from inplacedhmc_tpu_torch.models import synthetic_data
     from inplacedhmc_tpu_torch.ops.tile_physics import logistic_data
 
     x, y, beta = synthetic_data(SEED, N, D, device="cuda")
-    x64 = x.double()
-    s = torch.sigmoid(x64 @ beta.double())
-    h = x64.T @ (x64 * (s * (1 - s))[:, None]) \
-        + INV_VAR * torch.eye(D, dtype=torch.float64, device="cuda")
-    cov = torch.linalg.inv(h)
-    cov = 0.5 * (cov + cov.T)
+    h, cov = _laplace(x, y, beta)
     data = logistic_data(x, y, INV_VAR, block_n=LOGISTIC_BLOCK_N)
     return x, y, beta, h, cov, data
 
 
+def _laplace(x, y, beta):
+    """The Laplace approximation of a logistic regression at the
+    coefficients that made its data: ``(H, cov)``, ``H = X^T S X + inv_var
+    I`` with ``S = s (1 - s)`` and ``cov = H^-1`` (float64)."""
+    import torch
+    x64 = x.double()
+    s = torch.sigmoid(x64 @ beta.double())
+    h = x64.T @ (x64 * (s * (1 - s))[:, None]) \
+        + INV_VAR * torch.eye(x.shape[1], dtype=torch.float64, device="cuda")
+    cov = torch.linalg.inv(h)
+    return h, 0.5 * (cov + cov.T)
+
+
+def _limit(h, minv) -> float:
+    """The leapfrog's stability limit 2 / sqrt(lambda_max(M^-1 H))."""
+    import torch
+    chol = torch.linalg.cholesky(minv)
+    return 2.0 / torch.linalg.eigvalsh(chol.T @ h @ chol).max().item() ** 0.5
+
+
+def _laplace_draws(beta, cov, c: int, seed: int):
+    """``c`` draws of the Laplace approximation, float32 ``[c, D]``."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return (beta.double() + torch.randn(
+        (c, beta.shape[0]), generator=gen, dtype=torch.float64,
+        device="cuda") @ torch.linalg.cholesky(cov).T).float().contiguous()
+
+
+def grad_bf16_gate(tag: str, phys, got) -> None:
+    """Under ``grad_bf16``: the kernel's gradient at its own proposals
+    against the plain physics' there, within the bfloat16 rounding of one
+    residual, 2^-8 max |x|, beside TREE_RTOL (1 + |g|) (the float32 sums),
+    and not the float32 physics' gradient (the rounding is made):
+    ``tests/test_torch_cuda.py::test_cuda_logistic_grad_bf16``'s gate."""
+    _, g_plain = phys(got.q)
+    xmax = float(phys.obs_matrix().abs().max())
+    diff = (got.grad - g_plain).abs()
+    ok = bool((diff <= 2.0 ** -8 * xmax
+               + TREE_RTOL * (1 + g_plain.abs())).all())
+    g32 = _physics("logistic", {**phys.data, "grad_bf16": 0.0})(got.q)[1]
+    apart = float((g32 - got.grad).abs().max())
+    print(f"[k5-logistic] {tag}: the gradient at the kernel's proposals "
+          f"within 2^-8 max|x| + {TREE_RTOL:g} (1 + |g|) of the plain "
+          f"grad_bf16 physics' {ok} (max {float(diff.max()):.3e}); "
+          f"{apart:.3e} from the float32 physics'")
+    if not ok or not apart > 1e-6:
+        raise RuntimeError(f"K5-logistic's grad_bf16 gradient ({tag})")
+
+
 def check_logistic_tree_kernel(card: str) -> dict:
-    """K5-logistic (``csrc/tree_logistic.cu``) against its plain version at
-    full width, 8192 chains x 10,000 x 50 (``logistic_problem``), from
-    draws of the Laplace approximation, max_depth 10: under the dense
-    metric M^-1 = its covariance and under the diagonal of it, at 0.5, 1.5
-    (divergences) and 0.1 (deep trees) of the stability limit 2 /
-    sqrt(lambda_max(M^-1 H)), in the three forms (``dense_case``:
-    ``compare_tree`` with the logistic gradient's bound, ``grad_bound``, and
-    verified ties); then a sweep of 16 against 16 launches under the dense
-    metric at half the limit (``sweep_case``).  Prints the per-leaf library
+    """K5-logistic's tile form (``csrc/tree_logistic.cu``) against its
+    plain version at full width, 8192 chains x 10,000 x 50
+    (``logistic_problem``), from draws of the Laplace approximation,
+    max_depth 10: under the dense metric M^-1 = its covariance and under
+    the diagonal of it, at 0.5, 1.5 (divergences) and 0.1 (deep trees) of
+    the stability limit 2 / sqrt(lambda_max(M^-1 H)), in the three forms
+    (``dense_case``: ``compare_tree`` with the logistic gradient's bound,
+    ``grad_bound``, and verified ties); then, under the dense metric at
+    half the limit with the uniforms drawn: at 1, 64 and 1,000 chains (a
+    partial last tile) of the same data; on data drawn at D = 1, 17, 64,
+    200 and 256 with 2,049 observations (a ragged last tile), 1,000 chains
+    each; with ``grad_bf16`` (both sides round the backward's inputs; the
+    gradient at the kernel's proposals also held by ``grad_bf16_gate``) and
+    with ``ckpt_bf16`` (both sides with bfloat16 stacks); and a sweep of 16
+    against 16 launches (``sweep_case``), with float32 products, with
+    ``grad_bf16`` and with ``ckpt_bf16``.  Prints the per-leaf library
     composition of the physics (cuBLAS products and BCE-with-logits on the
     same padded data) for reference: no library call computes the whole
     tree.  Returns the kernels-line entry of the diagonal launcher (the
@@ -2561,13 +2673,13 @@ def check_logistic_tree_kernel(card: str) -> dict:
     uniforms."""
     import torch
 
+    from inplacedhmc_tpu_torch.models import synthetic_data
+    from inplacedhmc_tpu_torch.ops.tile_physics import logistic_data
+
     t = time.perf_counter()
     x, y, beta, h, cov, data = logistic_problem()
     phys = _physics("logistic", data)
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 40)
-    q0 = (beta.double() + torch.randn((C, D), generator=gen,
-                                      dtype=torch.float64, device="cuda")
-          @ torch.linalg.cholesky(cov).T).float().contiguous()
+    q0 = _laplace_draws(beta, cov, C, SEED + 40)
     lib_ms = cuda_time_ms(lambda: _library_logistic(
         q0, phys.data["x"], phys.data["y"], phys.data["w"], INV_VAR))
     print(f"[k5-logistic] {C} x {N} x {D} (padded to "
@@ -2577,19 +2689,14 @@ def check_logistic_tree_kernel(card: str) -> dict:
     entry = None
     for metric in ("dense", "diag"):
         minv = cov if metric == "dense" else torch.diag(torch.diag(cov))
-        chol = torch.linalg.cholesky(minv)
-        limit = 2.0 / torch.linalg.eigvalsh(chol.T @ h @ chol).max() \
-            .item() ** 0.5
+        limit = _limit(h, minv)
         m32 = (minv if metric == "dense" else torch.diag(cov)).float() \
             .contiguous()
         eps = (0.5 * limit, 1.5 * limit, 0.1 * limit)
         times = dense_case(card, f"logistic, {metric} metric, {C} x {D}",
                            "logistic", data, q0, m32, eps,
                            seed=5 + (metric == "diag"), iters=3)
-        if metric == "dense":
-            sweep_case(card, "logistic, dense metric", phys, q0, m32,
-                       0.5 * limit, SEED + 41)
-        else:
+        if metric == "diag":
             ms, plain_ms, bound_ms, bound_by, err = times[(eps[0], "prng")]
             entry = {"name": "tree_logistic", "route": "cuda",
                      "source": "inplacedhmc_tpu_torch/csrc/tree_logistic.cu",
@@ -2598,6 +2705,35 @@ def check_logistic_tree_kernel(card: str) -> dict:
                      "launches": None, "max_abs_err": err, "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": None}
+    m32 = cov.float().contiguous()
+    half = 0.5 * _limit(h, cov)
+    for c in LOGISTIC_TILE_CHAINS:
+        dense_case(card, f"logistic, dense metric, {c} x {D}", "logistic",
+                   data, q0[:c].contiguous(), m32, (half,), ("prng",),
+                   seed=7, iters=3)
+    for d in LOGISTIC_TILE_DIMS:
+        xd, yd, bd = synthetic_data(SEED + d, LOGISTIC_TILE_N, d,
+                                    device="cuda")
+        hd, cd = _laplace(xd, yd, bd)
+        dense_case(card, f"logistic, dense metric, {LOGISTIC_TILE_C} x "
+                   f"{LOGISTIC_TILE_N} x {d}", "logistic",
+                   logistic_data(xd, yd, INV_VAR, block_n=LOGISTIC_BLOCK_N),
+                   _laplace_draws(bd, cd, LOGISTIC_TILE_C, SEED + 42 + d),
+                   cd.float().contiguous(), (0.5 * _limit(hd, cd),),
+                   ("prng",), seed=8, iters=3)
+    bf16_data = {**data, "grad_bf16": 1.0}
+    dense_case(card, f"logistic, dense metric, {C} x {D}, grad_bf16",
+               "logistic", bf16_data, q0, m32, (half,), ("prng",), seed=9,
+               iters=3)
+    dense_case(card, f"logistic, dense metric, {C} x {D}, ckpt_bf16",
+               "logistic", data, q0, m32, (half,), ("prng",), seed=10,
+               iters=3, bf16=True)
+    sweep_case(card, "logistic, dense metric", phys, q0, m32, half,
+               SEED + 41)
+    sweep_case(card, "logistic, dense metric, grad_bf16",
+               _physics("logistic", bf16_data), q0, m32, half, SEED + 43)
+    sweep_case(card, "logistic, dense metric, ckpt_bf16", phys, q0, m32,
+               half, SEED + 44, ckpt_bf16=True)
     print(f"[k5-logistic] checks {time.perf_counter() - t:.2f} s")
     return entry
 
@@ -2685,7 +2821,7 @@ def tree_at_state(card: str, res, form: str = "prng", k: int = 1,
     if not slow:
         plain_ms = wall_ms(plain, 2, 1)
     bound_ms, bound_by, steps = tree_bound(c, d, out, form, physics, dense,
-                                           _n_obs(phys))
+                                           _n_obs(phys), _grad_bf16(phys))
     metric = "dense" if dense else "diagonal"
     print(f"[k5] {physics}, {c} chains at the tuned state ({metric} "
           f"metric), {form}, n_sweep "

@@ -1,8 +1,9 @@
 // The whole NUTS transition for a diagonal or dense inverse metric Minv and
 // a tile physics P (the model's log density and gradient, written by hand),
-// one chain per warp (above D = 256 one chain per block of warps), K
-// sequential transitions per launch, with the random numbers drawn inside
-// the kernel.  Included by one source per physics
+// one chain per warp (above D = 256 one chain per block of warps; for a
+// physics of the tile form, a tile of chains a block, a warp each, in
+// lockstep), K sequential transitions per launch, with the random numbers
+// drawn inside the kernel.  Included by one source per physics
 // (tree_gaussian.cu, tree_eight_schools.cu, tree_funnel.cu,
 // tree_dense_gaussian.cu, tree_logistic.cu, tree_stoch_vol.cu), each of
 // which defines its physics and its two extern "C" launchers with
@@ -38,13 +39,16 @@
 //   float value_grad(const float (&q)[NV], float (&g)[NV], T& team) const
 // value_grad returns the chain's log density, reduced over the team and the
 // same on every thread, and writes the thread's gradient entries, 0 past D
-// (there q is 0 and the rows read 0).  The kernel calls it for the start of
+// (there q is 0 and the rows read 0); a physics of the tile form
+// (P::kTile: logistic regression) computes it for the whole tile at once,
+// a call of every thread of the block (Tile, below).  The kernel calls it for the start of
 // each transition, at each leaf and for the final gradient, where the TPU
 // kernel calls its physics (tree_pallas.py:266, :538, :586, :630).  The
 // Gaussian's leaf keeps its log density and kinetic energy in one fused
 // loop (P::kFusedGaussian) under a diagonal metric.  A physics with a wide
 // form (P::kWide: the Gaussian, the dense Gaussian, stochastic volatility)
-// takes either team T; the others take Warp only.
+// takes either team T; a physics of the tile form takes Tile; the others
+// take Warp only.
 //
 // One body, tree_kernel<T, P, kDense>, in two forms chosen by D in
 // launch_physics, the team T (Warp or Block below) the only difference:
@@ -122,11 +126,14 @@
 // What differs from the TPU kernel, and why:
 //  * The TPU runs a tile of chains in lockstep: the leaf index is global to
 //    the tile and a leaf is skipped only when the whole tile is dead.  Here
-//    each chain has its own control flow: a warp leaves its subtree when its
-//    chain diverges or turns, its tree when the chain terminates, and an
-//    invalid (padding) row skips the tree at once.  The TPU kernel masks
-//    every update of a dead chain, so a dead chain's later leaves change
-//    nothing: the results are the same as the tile's.
+//    each chain has its own control flow (Warp, Block): a warp leaves its
+//    subtree when its chain diverges or turns, its tree when the chain
+//    terminates, and an invalid (padding) row skips the tree at once.  The
+//    TPU kernel masks every update of a dead chain, so a dead chain's later
+//    leaves change nothing: the results are the same as the tile's.  A
+//    physics that reads an [N, D] matrix at every leaf (logistic
+//    regression) takes the TPU kernel's lockstep instead (Tile, the tile
+//    form, below), so that its tile's chains share each slice of it.
 //  * Random numbers: the TPU's bits cannot be reproduced, so the kernel runs
 //    Philox4x32-10 (Salmon et al., SC'11) keyed by the launch's two words
 //    (read from device memory: the host never sees them), with one counter
@@ -186,9 +193,10 @@
 // but each panel costs its team a handshake with the copy unit, whatever
 // S, so a streamed product is held by its number of panels, and a launch
 // of many chains by L2's bandwidth.
-// Several chains sharing one stream of a matrix (a chain tile in lockstep,
-// or TMA multicast across a cluster), then 3xTF32 tensor cores on the
-// shared panels, are later work.
+// Several chains sharing one stream of a matrix (the tile form's lockstep,
+// built for logistic regression's observations, or TMA multicast across a
+// cluster), then 3xTF32 tensor cores on the shared panels, are later work
+// for the [D, D] products.
 // With the draws made here no uniform array crosses device memory.  One
 // warp per chain leaves 32 - D lanes idle where D < 32 (22 of 32 at D =
 // 10); a simple kernel that is right comes first, the tile shape is later
@@ -358,6 +366,7 @@ __device__ __forceinline__ void matvec(const float* __restrict__ m, int D,
 // is no warp edge.
 struct Warp {
   static constexpr bool kWide = false;
+  static constexpr bool kTile = false;
   static constexpr int base = 0;
   int lane;
 
@@ -392,6 +401,7 @@ struct Warp {
 // through shared memory (the forms at the top of this file).
 struct Block {
   static constexpr bool kWide = true;
+  static constexpr bool kTile = false;
   int lane, warp, nw, base;
   float* scratch;  // [2][WIDE_SCRATCH / 2]
   float* stage;    // [2][D]
@@ -517,6 +527,41 @@ struct Block {
       out[k] = base + lane + 32 * k < D ? acc[k] : 0.f;
   }
 };
+
+// Tile, the chain tile's (a physics with P::kTile: logistic regression): a
+// block of blockDim.x / 32 chains, one warp each in the one-warp layout
+// (Warp's row-wide operations, within the chain's warp), that walk their
+// trees in lockstep.  any(v) is the block's vote (__syncthreads_or) that
+// sets the trip counts of the doubling and leaf loops, and the physics'
+// value_grad is a collective call of the block; region, stages and batch
+// tell the physics where its shared memory starts (after the chains'
+// stacks) and its plan (tile_plan_of).
+struct Tile : Warp {
+  static constexpr bool kTile = true;
+  uint32_t region = 0;
+  int stages = 0, batch = 0;
+
+  __device__ __forceinline__ explicit Tile(float* s) : Warp(s) {}
+  __device__ __forceinline__ bool any(bool v) const {
+    return __syncthreads_or(v) != 0;
+  }
+};
+
+// Whether a physics takes the tile form (P::kTile; false where the physics
+// does not say)
+template <class P, class = void>
+struct TiledOf : std::false_type {};
+template <class P>
+struct TiledOf<P, std::void_t<decltype(P::kTile)>>
+    : std::bool_constant<P::kTile> {};
+template <class P>
+constexpr bool kTiledOf = TiledOf<P>::value;
+// The threads of a tile form's block at most: 32 P::kTileChains
+template <class P, class = void>
+struct TileThreads : std::integral_constant<int, 0> {};
+template <class P>
+struct TileThreads<P, std::void_t<decltype(P::kTileChains)>>
+    : std::integral_constant<int, 32 * P::kTileChains> {};
 
 // sum_d a_d b_d over the chain's row
 template <class T, int NV>
@@ -780,18 +825,38 @@ constexpr bool kStagedOf =
     (kDense || P::kMatrix) && !T::kWide && P::kStaging;
 
 // The transition of one chain by the team T (Warp: a chain per warp, up to
-// MAX_WARPS a block; Block: a chain per block of up to MAX_WIDE_WARPS).
+// MAX_WARPS a block; Block: a chain per block of up to MAX_WIDE_WARPS;
+// Tile: a tile of chains, a warp each, in lockstep).
 // Every branch depends on values that are the same on every thread of the
 // team (its sums), so every thread of a block reaches every barrier.
 // A launch of the one-warp form with a [D, D] matrix (a dense M^-1, or a
 // physics' own) stages its products (Staged, kStagedOf); its blocks hold up
 // to MAX_STAGED_WARPS chains at 128 registers a thread (D <= 128), 8 at 255.
+//
+// The tile form (T = Tile) runs the one-warp form's arithmetic for each
+// chain, with the control flow of the TPU kernel's tile (tree_pallas.py's
+// leaf_body, :254-275, and guarded_leaf, :437-447): the doubling loop and
+// the leaf loop go round while any chain of the tile is alive (the block's
+// vote, Tile::any), and a chain that has diverged, turned or terminated,
+// or that never started (valid = 0, or a row past C in the last tile),
+// goes round them with its updates masked (`live`, `on`): it draws no
+// uniform, counts no step and changes no record, and it takes part in
+// every value_grad of the tile (the transition's start, each leaf, the
+// final gradient), whose result for it is ignored.  A draw depends on
+// (chain, s, stream, slot) only, so every chain's records and draws are
+// those of the one-warp form.  Barriers: every __syncthreads of the tile
+// form (the votes, and those inside the physics' value_grad) is reached by
+// every thread of the block on every path: the votes' results are the
+// same on every thread, the leaf and doubling loops end only on them, the
+// sweep loop's count is the launch's, and no thread of a tile leaves early
+// (the `return` past C is the other forms').
 template <class T, class P, bool kDense>
 __global__ void __launch_bounds__(
     T::kWide                     ? 32 * MAX_WIDE_WARPS
+    : T::kTile                   ? TileThreads<P>::value
     : kStagedOf<T, P, kDense>    ? 32 * (P::kNV > 4 ? 8 : MAX_STAGED_WARPS)
                                  : 32 * MAX_WARPS,
-    T::kWide || P::kNV > 4 || kStagedOf<T, P, kDense> ? 1 : 4)
+    T::kWide || T::kTile || P::kNV > 4 || kStagedOf<T, P, kDense> ? 1 : 4)
 tree_kernel(const Args a) {
   constexpr int NV = P::kNV;
   constexpr bool kStaged = kStagedOf<T, P, kDense>;
@@ -824,7 +889,11 @@ tree_kernel(const Args a) {
     }
     if (a.path == PATH_RESIDENT) __syncthreads();
   }
-  if (c >= a.C) return;  // the whole warp (team) leaves together
+  // a row of the tile form's last tile past C stays, inactive: it reads
+  // none of the chains' arrays and writes nothing
+  const bool real = !T::kTile || c < a.C;
+  if constexpr (!T::kTile)
+    if (c >= a.C) return;  // the whole warp (team) leaves together
   const int64_t C = a.C;
   const int D = a.D, md = a.md;
   const int n_unif = (1 << md) - 1 + md;
@@ -863,11 +932,16 @@ tree_kernel(const Args a) {
     }
   }
   const int base = team.base;
+  if constexpr (T::kTile) {
+    team.region = (uint32_t)((blockDim.x >> 5) * stack_len);
+    team.stages = a.ring_stages;
+    team.batch = a.ring_rows;
+  }
 
   const Key key = a.key ? Key{(uint32_t)a.key[0], (uint32_t)a.key[1]}
                         : Key{0u, 0u};
-  const bool valid = a.valid == nullptr || a.valid[c] != 0;
-  const float eps = a.eps[c];
+  const bool valid = real && (a.valid == nullptr || a.valid[c] != 0);
+  const float eps = real ? a.eps[c] : 0.f;
 
   bool in[NV];
   float minv[NV];
@@ -878,7 +952,7 @@ tree_kernel(const Args a) {
 #pragma unroll
   for (int k = 0; k < NV; ++k) {
     const int d = base + lane + 32 * k;
-    in[k] = d < D;
+    in[k] = real && d < D;
     minv[k] = (in[k] && !kDense) ? a.minv[d] : 0.f;
     propq[k] = in[k] ? a.q0[row + d] : 0.f;  // the sweep's carry
   }
@@ -926,7 +1000,8 @@ tree_kernel(const Args a) {
     }
     const float pi0 = sub(logp0, mul(0.5f, team.sum(kin_part)));
     const uint32_t dirs = a.refresh ? draw_direction(key, (uint32_t)c, s)
-                                    : (uint32_t)a.dirs[(int64_t)s * C + c];
+                          : real    ? (uint32_t)a.dirs[(int64_t)s * C + c]
+                                    : 0u;
     const float* unif_s = a.unif ? a.unif + (int64_t)s * n_unif * C : nullptr;
     auto uniform = [&](int slot) -> float {
       return unif_s ? unif_s[(int64_t)slot * C + c]
@@ -938,7 +1013,10 @@ tree_kernel(const Args a) {
     int i_left = 0, i_right = 0, steps = 0, depth = 0;
     int term = TERM_MAX_DEPTH, tl = 1, tr = 0;  // REACHED_MAX_DEPTH (1, 0)
 
-    for (int d = 0; valid && d < md; ++d) {
+    bool live = valid;  // the tile form: the chain's tree goes on
+    for (int d = 0; (T::kTile || valid) && d < md; ++d) {
+      if constexpr (T::kTile)
+        if (!team.any(live)) break;
       const bool isf = (dirs >> d) & 1u;
       const int signi = isf ? 1 : -1;
       const float eps_signed = mul(isf ? 1.f : -1.f, eps);
@@ -957,9 +1035,14 @@ tree_kernel(const Args a) {
       int die_l = 0, die_r = 0;
 
       for (int n = 0; n < n_leaves; ++n) {
+        // the tile form: the chain's subtree goes on (a chain whose subtree
+        // or tree has ended takes the leaf masked)
+        const bool on = !T::kTile || (live && !died_div && !died_turn);
+        if constexpr (T::kTile)
+          if (!team.any(on)) break;
         // the leaf's proposal uniform, drawn before the leapfrog so that the
         // generator's registers are free again when the leaf's are live
-        const float log_u = logf(uniform(n_leaves - 1 + n));
+        const float log_u = on ? logf(uniform(n_leaves - 1 + n)) : 0.f;
         // leapfrog leaf
         float qn[NV], pn[NV], gn[NV], psn[NV];
         float logp_new, kin_leaf = 0.f;
@@ -1012,6 +1095,10 @@ tree_kernel(const Args a) {
             }
           }
         }
+        // the tile form: a chain whose subtree has ended took the leaf for
+        // the tile's physics only
+        if constexpr (T::kTile)
+          if (!on) continue;
         const float kin_new = mul(0.5f, team.sum(kin_leaf));
         // any non-finite joint density is -inf, a NaN delta is -inf
         float joint = sub(logp_new, isfinite(kin_new) ? kin_new : INFINITY);
@@ -1118,20 +1205,20 @@ tree_kernel(const Args a) {
         if (divergent) {
           died_div = true;
           die_l = die_r = i_new;
-          break;
+          if constexpr (!T::kTile) break;
         }
-        if (turning) {
+        if (turning) {  // (never when divergent)
           died_turn = true;
           die_l = min(turn_pos, i_new);
           die_r = max(turn_pos, i_new);
-          break;
+          if constexpr (!T::kTile) break;
         }
       }
 
       // merge the subtree into the trajectory (biased progressive sampling)
       const bool ok = !(died_div || died_turn);
       bool turn_top = false;
-      if (ok) {
+      if ((!T::kTile || live) && ok) {
         if (logf(uniform((1 << md) - 1 + d)) < sub(omega_sub, omega)) {
           copy(propq, subq);
           prop_delta = sub_delta;
@@ -1160,12 +1247,12 @@ tree_kernel(const Args a) {
       if (!ok) {
         tl = die_l;
         tr = die_r;
-        break;
+        if constexpr (T::kTile) live = false; else break;
       }
       if (turn_top) {
         tl = i_left;
         tr = i_right;
-        break;
+        if constexpr (T::kTile) live = false; else break;
       }
     }
 
@@ -1173,7 +1260,7 @@ tree_kernel(const Args a) {
 #pragma unroll
     for (int k = 0; k < NV; ++k)
       if (in[k]) a.q_out[at * D + base + lane + 32 * k] = propq[k];
-    if (team.leader()) {
+    if (real && team.leader()) {
       a.logp_out[at] = prop_logp;
       a.energy_out[at] = add(prop_delta, pi0);
       a.lsa_out[at] = logf(sum_alpha);
@@ -1270,6 +1357,32 @@ inline cudaError_t plan_of(int D, int md, bool bf16, int n, int force,
   return cudaSuccess;
 }
 
+// The tile form's plan (a physics with P::kTile): the most chains a tile
+// (at most P::kTileChains), then two sets of the physics' ring of
+// observation tiles before one, then the most observation tiles a batch
+// (at most MAX_BATCH_TILES), whose block fits SMEM_LIMIT: the chains'
+// stacks and the physics' region (P::region_bytes, for `opt`, the
+// physics' option: logistic regression's grad_bf16).  The plan's warps
+// are the tile's chains, its stages the ring's, its rows the observation
+// tiles a batch; its path the register path (the [D, D] products of a
+// dense metric read M^-1 through the read-only cache, as Warp's).
+constexpr int MAX_BATCH_TILES = 4;
+template <class P>
+cudaError_t tile_plan_of(int D, int md, bool bf16, int opt, Plan* out) {
+  const int64_t stack = stack_bytes(D, md, bf16);
+  for (int tc = P::kTileChains; tc >= 1; --tc)
+    for (int sets = 2; sets >= 1; --sets)
+      for (int bt = MAX_BATCH_TILES; bt >= 1; --bt) {
+        const int64_t bytes =
+            tc * stack + P::region_bytes(D, tc, bt, sets, opt);
+        if (bytes <= SMEM_LIMIT) {
+          *out = {PATH_REGISTER, tc, P::ring_stages(D, bt, sets), bt, bytes};
+          return cudaSuccess;
+        }
+      }
+  return cudaErrorInvalidValue;
+}
+
 // The launch launch_physics makes: the instantiation, its grid, threads,
 // dynamic shared memory and plan
 struct Shape {
@@ -1280,53 +1393,93 @@ struct Shape {
   Plan plan;
 };
 
-// The one dispatch by D, md, the stack type and what the launch stages, for
-// C chains: the one-warp form (D <= 256, NV by D) puts plan.warps chains in
-// a block, the wide form (P::kWide, 256 < D <= MAX_DIM) one chain in a
-// block of ceil(D / 256) warps; the plan (plan_of) by shape, before the
-// launch.  cudaErrorInvalidValue where neither form takes the shape or the
-// plan refuses `force`.
+// shape_of's dispatch for a physics of the tile form (P::kTile): NV by D
+// (up to 256), the plan tile_plan_of, the register path only
 template <template <int> class P, bool kDense>
-cudaError_t shape_of(int64_t C, int D, int md, bool bf16, bool refresh,
-                     int force, Shape* s) {
-  if (D > WARP_DIM && !(P<8>::kWide && D <= MAX_DIM))
-    return cudaErrorInvalidValue;
-  const int n = !P<1>::kStaging ? 0
-                : (kDense ? 1 + (refresh ? 1 : 0) : 0) + (P<1>::kMatrix ? 1 : 0);
+cudaError_t tile_shape_of(int64_t C, int D, int md, bool bf16, int force,
+                          int opt, Shape* s) {
+  if (D > WARP_DIM || force > PATH_REGISTER) return cudaErrorInvalidValue;
   Plan pl;
-  cudaError_t err = plan_of(D, md, bf16, n, force, &pl);
-  if (err != cudaSuccess) return err;
-  if (D <= WARP_DIM) {
-    void (*kernel)(const Args) = D <= 32    ? tree_kernel<Warp, P<1>, kDense>
-                                 : D <= 64  ? tree_kernel<Warp, P<2>, kDense>
-                                 : D <= 128 ? tree_kernel<Warp, P<4>, kDense>
-                                            : tree_kernel<Warp, P<8>, kDense>;
-    *s = {kernel, (C + pl.warps - 1) / pl.warps, 32 * pl.warps, pl.bytes, pl};
-  } else if constexpr (P<8>::kWide) {
-    *s = {tree_kernel<Block, P<8>, kDense>, C,
-          32 * ((D + WARP_DIM - 1) / WARP_DIM), pl.bytes, pl};
+  void (*kernel)(const Args);
+  cudaError_t err;
+  if (D <= 32) {
+    err = tile_plan_of<P<1>>(D, md, bf16, opt, &pl);
+    kernel = tree_kernel<Tile, P<1>, kDense>;
+  } else if (D <= 64) {
+    err = tile_plan_of<P<2>>(D, md, bf16, opt, &pl);
+    kernel = tree_kernel<Tile, P<2>, kDense>;
+  } else if (D <= 128) {
+    err = tile_plan_of<P<4>>(D, md, bf16, opt, &pl);
+    kernel = tree_kernel<Tile, P<4>, kDense>;
+  } else {
+    err = tile_plan_of<P<8>>(D, md, bf16, opt, &pl);
+    kernel = tree_kernel<Tile, P<8>, kDense>;
   }
-  if (s->bytes > SMEM_LIMIT || s->grid > 0x7fffffff)
-    return cudaErrorInvalidValue;
+  if (err != cudaSuccess) return err;
+  *s = {kernel, (C + pl.warps - 1) / pl.warps, 32 * pl.warps, pl.bytes, pl};
+  if (s->grid > 0x7fffffff) return cudaErrorInvalidValue;
   return cudaFuncSetAttribute(s->kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)s->bytes);
 }
 
+// The one dispatch by D, md, the stack type and what the launch stages, for
+// C chains: the one-warp form (D <= 256, NV by D) puts plan.warps chains in
+// a block, the wide form (P::kWide, 256 < D <= MAX_DIM) one chain in a
+// block of ceil(D / 256) warps, the tile form (P::kTile, D <= 256) a tile
+// of plan.warps chains in a block (tile_plan_of, for the physics' option
+// `opt`); the plan (plan_of) by shape, before the launch.
+// cudaErrorInvalidValue where neither form takes the shape or the plan
+// refuses `force`.
+template <template <int> class P, bool kDense>
+cudaError_t shape_of(int64_t C, int D, int md, bool bf16, bool refresh,
+                     int force, int opt, Shape* s) {
+  if constexpr (kTiledOf<P<1>>) {
+    return tile_shape_of<P, kDense>(C, D, md, bf16, force, opt, s);
+  } else {
+    if (D > WARP_DIM && !(P<8>::kWide && D <= MAX_DIM))
+      return cudaErrorInvalidValue;
+    const int n = !P<1>::kStaging ? 0
+                  : (kDense ? 1 + (refresh ? 1 : 0) : 0)
+                        + (P<1>::kMatrix ? 1 : 0);
+    Plan pl;
+    cudaError_t err = plan_of(D, md, bf16, n, force, &pl);
+    if (err != cudaSuccess) return err;
+    if (D <= WARP_DIM) {
+      void (*kernel)(const Args) = D <= 32    ? tree_kernel<Warp, P<1>, kDense>
+                                   : D <= 64  ? tree_kernel<Warp, P<2>, kDense>
+                                   : D <= 128 ? tree_kernel<Warp, P<4>, kDense>
+                                              : tree_kernel<Warp, P<8>, kDense>;
+      *s = {kernel, (C + pl.warps - 1) / pl.warps, 32 * pl.warps, pl.bytes,
+            pl};
+    } else if constexpr (P<8>::kWide) {
+      *s = {tree_kernel<Block, P<8>, kDense>, C,
+            32 * ((D + WARP_DIM - 1) / WARP_DIM), pl.bytes, pl};
+    }
+    if (s->bytes > SMEM_LIMIT || s->grid > 0x7fffffff)
+      return cudaErrorInvalidValue;
+    return cudaFuncSetAttribute(s->kernel,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)s->bytes);
+  }
+}
+
 // The plan of the launch launch_physics makes for D, md, the stack type,
-// the metric form and refresh, with `force` as shape_of takes it
-// (TREE_LAUNCHERS' tree_<name>_plan): out[0..5] the path, the chains
-// a block of the one-warp form, the ring's stages and rows a panel, the
-// dynamic shared memory and the blocks an SM holds (the CUDA occupancy
-// calculator: registers, shared memory, threads)
+// the metric form, refresh and the physics' option, with `force` as
+// shape_of takes it (TREE_LAUNCHERS' tree_<name>_plan): out[0..5] the
+// path, the chains a block of the one-warp form (of a tile), the ring's
+// stages and rows a panel (the tile form: its ring's stages and
+// observation tiles a batch), the dynamic shared memory and the blocks an
+// SM holds (the CUDA occupancy calculator: registers, shared memory,
+// threads)
 template <template <int> class P, bool kDense>
 int plan_physics(int D, int md, int ckpt_bf16, int refresh, int force,
-                 int* out) {
+                 int opt, int* out) {
   if (!out || D < P<1>::kMinDim || md < 1 || md > 30)
     return (int)cudaErrorInvalidValue;
   Shape sh;
   cudaError_t err = shape_of<P, kDense>(1, D, md, ckpt_bf16 != 0,
-                                        refresh != 0, force, &sh);
+                                        refresh != 0, force, opt, &sh);
   if (err != cudaSuccess) return (int)err;
   int blocks = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
@@ -1394,7 +1547,7 @@ int launch_physics(TREE_LAUNCH_PARAMS) {
                        {obs_row0, obs_row1}, n_obs, D};
   Shape sh;
   cudaError_t err = shape_of<P, kDense>(C, D, md, ckpt_bf16 != 0,
-                                        refresh != 0, path, &sh);
+                                        refresh != 0, path, s1 != 0.f, &sh);
   if (err != cudaSuccess) return (int)err;
   const Args a{q0,       p0,       eps,        dirs,    valid,
                key,      unif,     pd,         minv,    q_out,
@@ -1413,9 +1566,10 @@ int launch_physics(TREE_LAUNCH_PARAMS) {
 // A physics source's two extern "C" launchers: tree_<name>_launch with a
 // diagonal Minv [D] and tree_<name>_dense_launch with a dense Minv [D, D],
 // each tree::launch_physics<PHYS> with TREE_LAUNCH_PARAMS; and
-// tree_<name>_plan(D, md, ckpt_bf16, dense, refresh, path, out), the plan
-// of the launch either would make and the blocks an SM holds
-// (tree::plan_physics; it launches nothing).
+// tree_<name>_plan(D, md, ckpt_bf16, dense, refresh, path, opt, out), the
+// plan of the launch either would make for the physics' option `opt` (its
+// second scalar's being nonzero: logistic regression's grad_bf16) and the
+// blocks an SM holds (tree::plan_physics; it launches nothing).
 #define TREE_LAUNCHERS(name, PHYS)                                        \
   extern "C" int tree_##name##_launch(TREE_LAUNCH_PARAMS) {               \
     return tree::launch_physics<PHYS, false>(TREE_LAUNCH_ARGS);           \
@@ -1425,9 +1579,11 @@ int launch_physics(TREE_LAUNCH_PARAMS) {
   }                                                                       \
   extern "C" int tree_##name##_plan(int D, int md, int ckpt_bf16,         \
                                     int dense, int refresh, int path,     \
-                                    int* out) {                           \
+                                    int opt, int* out) {                  \
     return dense ? tree::plan_physics<PHYS, true>(D, md, ckpt_bf16,       \
-                                                  refresh, path, out)     \
+                                                  refresh, path, opt,     \
+                                                  out)                    \
                  : tree::plan_physics<PHYS, false>(D, md, ckpt_bf16,      \
-                                                   refresh, path, out);   \
+                                                   refresh, path, opt,    \
+                                                   out);                  \
   }

@@ -40,7 +40,12 @@ physics and metric form (``csrc/tree_<physics>.cu`` over
 up to ``D = 256``, and above it, for the physics of ``WIDE_PHYSICS``, one
 chain per block of ``ceil(D / 256)`` warps whose row sums, neighbour
 exchanges and ``[D, D]`` products go through shared memory, up to
-``MAX_DIM`` within the shared-memory bound of :func:`takes`;
+``MAX_DIM`` within the shared-memory bound of :func:`takes`; for the
+physics of ``TILED_PHYSICS`` (logistic regression), a tile of chains a
+block, a warp each, walking their trees in lockstep as the TPU kernel's
+tile does, its physics a call of the whole tile on the tensor cores with
+the observations streamed through shared memory from the plane of
+:func:`tile_plane` (:func:`tile_plan`);
 on a CPU tensor it runs :func:`tree_sweep_plain`, the lockstep form over all
 chains in plain torch, drawing the same Philox numbers.  There is no other
 path: a CUDA tensor launches the kernel or raises.  The ``gaussian_*``
@@ -82,8 +87,9 @@ from ..core.state import EvalPoint, Termination, TreeStats
 from ..utils import philox
 from ..utils.bits import checkpoint_slot, direction_bit, trailing_ones
 from . import tile_physics
-from .common import check_tensor
+from .common import chain_tiles, check_tensor
 from .cuda_build import CudaKernel
+from .logistic import CHUNK_DIMS, logistic_planes, plane_shape
 
 _P = ctypes.c_void_p
 _TREE_ARGS = ([_P] * 14 + [ctypes.c_int64] + [ctypes.c_float] * 2
@@ -112,7 +118,7 @@ CKPT_BF16_LAUNCHES: dict = {}
 #: by :func:`plan_on_card` and :func:`blocks_per_sm`
 TREE_PLAN = {
     name: CudaKernel(f"tree_{name}.cu", f"tree_{name}_plan",
-                     [ctypes.c_int] * 6 + [ctypes.c_void_p])
+                     [ctypes.c_int] * 7 + [ctypes.c_void_p])
     for name in tile_physics.PHYSICS}
 #: the Gaussian source's second launcher: it writes what the kernel's generator
 #: draws (the check of the generator against ``utils/philox.py``)
@@ -154,8 +160,19 @@ _MAX_WARPS = 4
 #: path (``kStaging = false`` in their source: the card measured them
 #: slower staged, eight schools' 3 % at D = 10, where the leaf's special
 #: functions set the time, and logistic regression's 0.5 %, whose leaf
-#: streams the observations through the L1 the staged matrix takes)
+#: streamed the observations through the L1 the staged matrix takes; the
+#: tile form's dense products stay on it, the register path being the
+#: only one its plan admits)
 UNSTAGED_PHYSICS = frozenset({"eight_schools", "logistic"})
+#: the physics whose kernel takes the tile form (``tree_kernel.cuh``'s
+#: ``Tile``: a block of chains, a warp each, walking their trees in
+#: lockstep, the physics a call of the whole block) and its plan
+#: (``tile_plan_of``): at most ``TILE_CHAINS`` chains a tile (8 above
+#: D = 128, where a thread holds 255 registers), ``MAX_BATCH_TILES``
+#: observation tiles a batch of its ring
+TILED_PHYSICS = frozenset({"logistic"})
+TILE_CHAINS = 16
+MAX_BATCH_TILES = 4
 
 
 class TreeOut(NamedTuple):
@@ -255,7 +272,10 @@ class StagePlan(NamedTuple):
     ``plan_of``): ``path`` (one of :data:`PATHS`), the chains a block of
     the one-warp form holds (``warps``; 1 in the wide form), the ring's
     ``stages`` and ``rows`` a panel (0 off the ring), and the block's
-    dynamic shared memory ``smem_bytes``."""
+    dynamic shared memory ``smem_bytes``.  In the tile form
+    (:data:`TILED_PHYSICS`, :func:`tile_plan`) ``warps`` is the tile's
+    chains, ``stages`` its ring of observation tiles' stages and ``rows``
+    the observation tiles a batch."""
 
     path: str
     warps: int
@@ -266,6 +286,8 @@ class StagePlan(NamedTuple):
     def in_flight(self, dim: int) -> int:
         """Bytes of the matrix a team has on their way while it reads a
         panel: ``stages - 1`` panels on the ring, 0 off it."""
+        if self.path != "ring":
+            return 0
         return 4 * max(self.stages - 1, 0) * self.rows * dim
 
 
@@ -314,9 +336,82 @@ def n_staged(physics: str, dense: bool, refresh: bool = False) -> int:
     return (1 + bool(refresh)) * bool(dense) + own
 
 
+def _conflict_free(words: int) -> int:
+    """The smallest multiple of 8 words at least ``words`` that is 8 or 24
+    mod 32: a row stride free of bank conflicts for the tile physics'
+    fragments (``tree_logistic.cu::conflict_free``)."""
+    r = -(-words // 8) * 8
+    while r % 32 not in (8, 24):
+        r += 8
+    return r
+
+
+class TileLayout(NamedTuple):
+    """The tile physics' shared memory after the chains' stacks
+    (``tree_logistic.cu::tile_layout``): chunks of 64 dimensions ``nc``,
+    n-tiles of 8 ``ndn``, the ring's ``stages`` of ``tw`` words, the row
+    strides in words of Q, R and GP (``qs``, ``rs``, ``gs``), the gradient's
+    ``groups`` and the byte offsets of the ring's barriers, the ring, Q, R
+    and GP, and the region's ``bytes``."""
+
+    nc: int
+    ndn: int
+    stages: int
+    tw: int
+    qs: int
+    rs: int
+    gs: int
+    groups: int
+    bar: int
+    ring: int
+    q: int
+    r: int
+    gp: int
+    bytes: int
+
+
+def tile_layout(dim: int, chains: int, batch: int, sets: int,
+                grad_bf16: bool = False) -> TileLayout:
+    """:class:`TileLayout` of a tile of ``chains`` chains whose ring holds
+    ``sets`` sets of ``batch`` observation tiles, each tile the plane's
+    (``ops.logistic.plane_shape``: form ``"grad_bf16"`` or ``"f32"``)."""
+    nc, ndn = -(-dim // CHUNK_DIMS), -(-dim // 8)
+    stages = sets * batch * nc
+    tw = plane_shape(1, 1, "grad_bf16" if grad_bf16 else "f32")[2]
+    qs, rs, gs = _conflict_free(16 * ndn), 32 * batch + 8, \
+        _conflict_free(8 * ndn)
+    groups = 1 if ndn >= chains else min(chains // ndn, 2 * batch)
+    ring = _round16(8 * stages)
+    q = ring + 4 * stages * tw
+    r = _round16(q + 4 * chains * qs)
+    gp = _round16(r + 4 * chains * rs)
+    return TileLayout(nc, ndn, stages, tw, qs, rs, gs, groups, 0, ring, q, r,
+                      gp, _round16(gp + 4 * groups * chains * gs))
+
+
+def tile_plan(dim: int, max_depth: int, ckpt_bf16: bool = False,
+              grad_bf16: bool = False) -> StagePlan:
+    """The tile form's plan (``tree_kernel.cuh::tile_plan_of``): the most
+    chains a tile (at most ``TILE_CHAINS``, 8 above D = 128), then two sets
+    of the ring before one, then the most observation tiles a batch (at
+    most ``MAX_BATCH_TILES``) whose block fits ``SMEM_LIMIT``: the chains'
+    stacks and :func:`tile_layout`'s region.  ``StagePlan("register",
+    chains, stages, batch, bytes)``; ``ValueError`` where nothing fits."""
+    stack = stack_bytes(dim, max_depth, ckpt_bf16)
+    most = TILE_CHAINS if dim <= 128 else TILE_CHAINS // 2
+    for tc in range(most, 0, -1):
+        for sets in (2, 1):
+            for bt in range(MAX_BATCH_TILES, 0, -1):
+                lay = tile_layout(dim, tc, bt, sets, grad_bf16)
+                if tc * stack + lay.bytes <= SMEM_LIMIT:
+                    return StagePlan("register", tc, lay.stages, bt,
+                                     tc * stack + lay.bytes)
+    raise ValueError(f"no tile plan fits D = {dim}, max_depth {max_depth}")
+
+
 def stage_plan(dim: int, max_depth: int, physics: str, dense: bool,
                refresh: bool = False, ckpt_bf16: bool = False,
-               path: str = None) -> StagePlan:
+               path: str = None, grad_bf16: bool = False) -> StagePlan:
     """The plan of the launch :func:`tree_sweep` makes, as the launcher
     decides it by shape before the launch (``tree_kernel.cuh::plan_of``,
     which :func:`plan_on_card` reads back).  The register path is the
@@ -336,7 +431,17 @@ def stage_plan(dim: int, max_depth: int, physics: str, dense: bool,
     (one of :data:`PATHS`) asks for a path: ``ValueError`` where the shape
     does not admit it.  A launch
     without a matrix to stage and the wide form admit the register path
-    only."""
+    only.  A physics of :data:`TILED_PHYSICS` takes :func:`tile_plan` (for
+    its ``grad_bf16``), on the register path only."""
+    if physics in TILED_PHYSICS:
+        if path not in (None, "register"):
+            if path not in PATHS:
+                raise ValueError(f"path must be one of {PATHS}, got "
+                                 f"{path!r}")
+            raise ValueError(
+                f"the {physics} kernel's tile form admits the register path "
+                f"only, not the {path} path")
+        return tile_plan(dim, max_depth, ckpt_bf16, grad_bf16)
     n = n_staged(physics, dense, refresh)
     stack = stack_bytes(dim, max_depth, ckpt_bf16)
     vrow = _round16(4 * dim)
@@ -390,29 +495,58 @@ def stage_plan(dim: int, max_depth: int, physics: str, dense: bool,
 
 def plan_on_card(physics: str, dim: int, max_depth: int, dense: bool,
                  refresh: bool = False, ckpt_bf16: bool = False,
-                 path: str = None):
+                 path: str = None, grad_bf16: bool = False):
     """The launcher's own plan (``tree_<physics>_plan``) for the launch
-    :func:`tree_sweep` would make, and the blocks of it one SM holds at
-    once by the CUDA occupancy calculator (registers, shared memory,
-    threads): ``(StagePlan, blocks)``.  Raises where the launcher refuses
-    ``path``.  Needs the card."""
+    :func:`tree_sweep` would make (for a tile physics' ``grad_bf16``, its
+    option), and the blocks of it one SM holds at once by the CUDA
+    occupancy calculator (registers, shared memory, threads):
+    ``(StagePlan, blocks)``.  Raises where the launcher refuses ``path``.
+    Needs the card."""
     out = (ctypes.c_int * 6)()
     TREE_PLAN[physics].call(
         dim, max_depth, int(ckpt_bf16), int(dense), int(refresh),
-        -1 if path is None else PATHS.index(path), out)
+        -1 if path is None else PATHS.index(path), int(grad_bf16), out)
     return StagePlan(PATHS[out[0]], *out[1:5]), out[5]
 
 
 def blocks_per_sm(physics: str, dim: int, max_depth: int,
                   dense: bool = False, ckpt_bf16: bool = False,
-                  refresh: bool = False, path: str = None) -> int:
+                  refresh: bool = False, path: str = None,
+                  grad_bf16: bool = False) -> int:
     """Blocks of the launch :func:`tree_sweep` would make for ``physics`` at
     ``dim`` and ``max_depth`` that one SM holds at once, by the CUDA
     occupancy calculator (:func:`plan_on_card`): a block is
-    ``stage_plan(...).warps`` chains of the one-warp form, or one chain of
-    the wide form.  Needs the card."""
+    ``stage_plan(...).warps`` chains of the one-warp form (of a tile), or
+    one chain of the wide form.  Needs the card."""
     return plan_on_card(physics, dim, max_depth, dense, refresh, ckpt_bf16,
-                        path)[1]
+                        path, grad_bf16)[1]
+
+
+def tile_plane(phys: tile_physics.Bound):
+    """``(plane, n)``: the tile kernel's plane of a logistic physics' data,
+    ``ops.logistic.logistic_planes`` of its ``x``, ``y`` and ``w`` up to
+    the last observation of nonzero weight (``n`` of them: the padding
+    after it adds exactly nothing) in the form of its ``grad_bf16``
+    (``"grad_bf16"`` or ``"f32"``): the one :func:`bind` attached, else
+    made here."""
+    if "plane" in phys.data:
+        return phys.data["plane"], phys.data["plane_n"]
+    x, y, w = phys.data["x"], phys.data["y"], phys.data["w"]
+    nz = torch.nonzero(w).flatten()
+    n = int(nz[-1]) + 1 if len(nz) else 0
+    form = "grad_bf16" if phys.data["grad_bf16"] else "f32"
+    return logistic_planes(x[:n], y[:n], w[:n], form), n
+
+
+def bind(physics: str, data: dict, device=None,
+         dtype=None) -> tile_physics.Bound:
+    """``tile_physics.bind``, and for a physics of :data:`TILED_PHYSICS`
+    bound on a CUDA device its kernel's plane (:func:`tile_plane`), made
+    once, here."""
+    b = tile_physics.bind(physics, data, device, dtype)
+    if physics in TILED_PHYSICS and b.data["x"].device.type == "cuda":
+        b.data["plane"], b.data["plane_n"] = tile_plane(b)
+    return b
 
 
 def _check_max_depth(max_depth: int) -> None:
@@ -774,15 +908,23 @@ def _launch(q0, eps, phys, minv, max_depth: int, min_delta: float, k: int,
             checks.append((f"out.{name}", t, shape, dtype))
     for name, t, shape, dtype in checks:
         check_tensor("tree kernel", name, t, shape, dev, dtype)
+    tiled = phys.name in TILED_PHYSICS
+    if tiled:
+        plane, n_plane = tile_plane(phys)
+        form = "grad_bf16" if phys.data["grad_bf16"] else "f32"
+        check_tensor("tree kernel", "plane", plane,
+                     plane_shape(n_plane, d, form), dev, torch.float32)
     if path is not None:
-        stage_plan(d, max_depth, phys.name, dense, refresh, ckpt_bf16, path)
+        stage_plan(d, max_depth, phys.name, dense, refresh, ckpt_bf16, path,
+                   tiled and bool(phys.data["grad_bf16"]))
     staged = [("matrix", mat), ("minv", minv if dense else None),
-              ("sqrt_mass", sqrt_mass if dense and refresh else None)]
+              ("sqrt_mass", sqrt_mass if dense and refresh else None),
+              ("plane", plane if tiled else None)]
     for name, t in staged:
         if t is not None and t.data_ptr() % 16:
             raise ValueError(
                 f"tree kernel: {name} must start 16-byte aligned for the "
-                f"staged products' bulk copies (address {t.data_ptr():#x})")
+                f"bulk copies (address {t.data_ptr():#x})")
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -790,6 +932,8 @@ def _launch(q0, eps, phys, minv, max_depth: int, min_delta: float, k: int,
     row_ptrs = [t.data_ptr() for t in rows] + [None] * (3 - len(rows))
     obs_ptrs = [t.data_ptr() for t in obs_rows] \
         + [None] * (2 - len(obs_rows))
+    if tiled:   # the kernel reads the plane alone
+        obs_mat, obs_ptrs, n_obs = plane, [None, None], n_plane
     scalars = phys.scalars() + [0.0] * (2 - len(phys.scalars()))
     kernel = (TREE_DENSE_KERNELS if dense else TREE_KERNELS)[phys.name]
     with torch.cuda.device(dev):
@@ -953,6 +1097,39 @@ def _stats(out: TreeOut, dtype) -> TreeStats:
                      steps=out.steps)
 
 
+def _pad_chains(c: int, block_c: int, q, eps, momentum, dirs, unif):
+    """The inputs of ``c`` chains padded to ``chain_tiles(c, block_c)``
+    rows (``q``, ``eps``: zeros; the momentum and direction words: zeros;
+    the uniforms: ones), with the ``valid`` column that starts the padded
+    rows inactive, or ``None`` where no row is padded.  The chain axis is
+    the last but one of ``q`` and ``momentum`` and the last of the
+    others."""
+    cpad, _ = chain_tiles(c, block_c)
+    if cpad == c:
+        return q, eps, momentum, dirs, unif, None
+
+    def pad(t, fill, axis):
+        if t is None:
+            return None
+        shape = list(t.shape)
+        shape[axis] = cpad - c
+        return torch.cat([t, torch.full(shape, fill, dtype=t.dtype,
+                                        device=t.device)], dim=axis)
+
+    valid = torch.zeros((cpad,), dtype=torch.int32, device=q.device)
+    valid[:c] = 1
+    return (pad(q, 0, -2), pad(eps, 0, -1), pad(momentum, 0, -2),
+            pad(dirs, 0, -1), pad(unif, 1, -1), valid)
+
+
+def _rows(out: TreeOut, c: int, lead: tuple) -> TreeOut:
+    """The first ``c`` chains of a (possibly padded) launch's outputs."""
+    if out.q.shape[len(lead)] == c:
+        return out
+    return TreeOut(*(t[:c] if f == "grad" or not lead else t[:, :c]
+                     for f, t in zip(TreeOut._fields, out)))
+
+
 def make_tree_transition(physics: str, data: dict, dim: int, metric_inv, *,
                          max_depth: int = 10, min_delta: float = -1000.0,
                          block_c: int = 512, refresh_inside: bool = False,
@@ -978,6 +1155,10 @@ def make_tree_transition(physics: str, data: dict, dim: int, metric_inv, *,
     transitions and returns ``(z_final, q_draws [K, C, D], stats [K, C])``;
     without ``refresh_inside`` it then needs ``momentum [K, C, D]`` and
     ``directions [K, C]`` (``unif`` is ``[K, 2^md - 1 + md, C]``).
+
+    For a physics of ``TILED_PHYSICS`` the transition pads the chains to
+    ``chain_tiles(C, block_c)`` rows as JAX pads them to its tiles, the
+    padded rows not valid (they start inactive), and returns the first C.
 
     ``padded_io`` (needs ``refresh_inside``): returns ``(transition,
     run_padded)``; ``run_padded(gen, q_state, eps_col, valid_col) ->
@@ -1013,14 +1194,14 @@ def make_tree_transition(physics: str, data: dict, dim: int, metric_inv, *,
                          f"{dim}-dimensional model")
     # the momentum's scale: the sqrt-mass row, or mass_chol^T (p = xi @ it)
     scale = metric.mass_chol.transpose(-1, -2) if dense else metric.sqrt_mass
+    tiled = physics in TILED_PHYSICS
     consts_cache = {}
 
     def consts(dev, dt):
         """the bound physics, M^-1 and the momentum scale on ``dev`` in
         ``dt``, cast once per device and dtype"""
         if (dev, dt) not in consts_cache:
-            consts_cache[(dev, dt)] = (tile_physics.bind(physics, data, dev,
-                                                         dt),) + tuple(
+            consts_cache[(dev, dt)] = (bind(physics, data, dev, dt),) + tuple(
                 torch.as_tensor(t, device=dev).to(dt).contiguous()
                 for t in (metric.inv, scale))
         return consts_cache[(dev, dt)]
@@ -1062,14 +1243,22 @@ def make_tree_transition(physics: str, data: dict, dim: int, metric_inv, *,
         d32 = None if directions is None else direction_words_int32(
             torch.as_tensor(directions, device=dev))
         u = None if unif is None else cast(unif)
+        if tiled:
+            # the chains padded to block_c tiles as JAX pads them, the rows
+            # past c not valid (they start inactive and return their
+            # inputs); the draws of a chain depend on its row only
+            q_in, eps_c, mom, d32, u, draws["valid"] = _pad_chains(
+                c, block_c, q_in, eps_c, mom, d32, u)
         if n_sweep == 1:
             out = tree_transition(q_in, mom, eps_c, d32, u, phys, minv,
                                   max_depth, min_delta, **draws)
+            out = _rows(out, c, ())
             return (EvalPoint(q=out.q.to(q.dtype), logp=out.logp.to(q.dtype),
                               grad=out.grad.to(q.dtype)),
                     _stats(out, q.dtype))
         out = tree_sweep(q_in, eps_c, phys, minv, max_depth, min_delta,
                          n_sweep, momentum=mom, dirs=d32, unif=u, **draws)
+        out = _rows(out, c, (n_sweep,))
         z_new = EvalPoint(q=out.q[-1].to(q.dtype),
                           logp=out.logp[-1].to(q.dtype),
                           grad=out.grad.to(q.dtype))
@@ -1141,8 +1330,10 @@ def make_logistic_tree_transition(x, y, inv_var: float, metric_inv, *,
     card and in the plain version, under ``"chunked"`` only: JAX's ``"vjp"``
     form never reads it; ``block_n`` pads the observations to a
     multiple of it (``ops/tile_physics.py::logistic_data``) and sets the
-    plain version's chunk; the kernel walks eight observations per step
-    whatever it is."""
+    plain version's chunk; the kernel walks the plane's tiles of 32
+    observations whatever it is (:func:`tile_plane`, made once per device
+    with the bound physics).  ``block_c`` (JAX's default 128, a multiple of
+    the kernel's tile) pads the chains."""
     x = torch.as_tensor(x)
     data = tile_physics.logistic_data(x, y, inv_var,
                                       physics_mode=physics_mode,

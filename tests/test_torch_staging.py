@@ -122,8 +122,8 @@ def test_forced_path_refused_where_not_admitted(dim, md, bf16):
 @pytest.mark.parametrize("dim,md,bf16,physics,dense,refresh,path,warps,stages", [
     (10, 10, False, "eight_schools", True, False, "register", 4, 0),
     (10, 10, False, "funnel", True, False, "resident", 1, 0),
-    (50, 10, False, "logistic", True, False, "register", 4, 0),
-    (50, 10, False, "logistic", True, True, "register", 4, 0),
+    (50, 10, False, "logistic", True, False, "register", 16, 8),
+    (50, 10, False, "logistic", True, True, "register", 16, 8),
     (100, 10, False, "gaussian", True, False, "resident", 8, 0),
     (100, 10, False, "gaussian", True, True, "resident", 16, 0),
     (102, 10, False, "stoch_vol", True, False, "resident", 8, 0),
@@ -152,7 +152,9 @@ def test_plan_at_the_main_paths_shapes(dim, md, bf16, physics, dense,
     past it where it holds as many chains an SM as the ring; a ring at the
     250-D ``mvn``, at D = 200 and at 129 with three matrices; the register
     path for eight schools and logistic regression (the card measured
-    their products slower staged), where the card measured the
+    their products slower staged; logistic regression's tile form: a tile
+    of 16 chains and its ring of 8 observation tiles' stages, two sets of
+    a batch of 4, at config 3's shape), where the card measured the
     ring slower than it (the wide form:
     config 5's T = 1,000, D = 2,048), where neither staging fits
     beside the stacks (the wide form at D = 2,048, max_depth 13 with

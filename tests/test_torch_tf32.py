@@ -239,14 +239,16 @@ def test_planes_hold_the_data(n, d, form):
 
 def test_tile_constants_match_the_kernel_source():
     """The layout the planes and the split plan mirror is the one
-    ``csrc/logistic_vg.cu`` declares (its ``constexpr int`` lines,
-    evaluated in order), and a tile is a whole number of 16-byte units, as
-    a bulk copy moves."""
-    src = os.path.join(os.path.dirname(L.__file__), "..", "csrc",
-                       "logistic_vg.cu")
+    ``csrc/logistic_mma.cuh`` (the tiles, shared with the whole-tree
+    kernel) and ``csrc/logistic_vg.cu`` declare (their ``constexpr int``
+    lines, evaluated in order), and a tile is a whole number of 16-byte
+    units, as a bulk copy moves."""
+    csrc = os.path.join(os.path.dirname(L.__file__), "..", "csrc")
+    text = "".join(open(os.path.join(csrc, f)).read()
+                   for f in ("logistic_mma.cuh", "logistic_vg.cu"))
     env = {}
     for name, expr in re.findall(r"^constexpr int (\w+) = ([^;]+);",
-                                 open(src).read(), re.M):
+                                 text, re.M):
         env[name] = eval(expr.replace("/", "//"), {}, dict(env))
     assert env["BC"] == L.BLOCK_CHAINS and env["BN"] == L.TILE_OBS
     assert env["DC"] == L.CHUNK_DIMS and env["XS"] == L.ROW_WORDS

@@ -34,6 +34,13 @@ longest chain.  Cases:
   0.3), stochastic volatility (1,024 chains at T = 100 and 1,000, eps
   0.02) and logistic regression (the ``logistic`` case under its
   covariance's diagonal), M^-1 ``0.5 + U(0, 1)`` but for logistic;
+* ``moved``: the instantiations whose SASS ``tools/compare_sass.py``
+  found moved by PR 17's tile form (their source unchanged in effect),
+  beside those the cases above take: the Gaussian's diagonal launcher at
+  D = 10, 50 and 200 (1,024 chains, eps 0.3), its wide form at 1,024 x
+  1,000 under a diagonal and an SPD M^-1, the dense Gaussian's wide form
+  at 256 x 512 (a Wishart precision) under its diagonal and an SPD M^-1,
+  and stochastic volatility's diagonal launcher at T = 21 and 50;
 * ``logistic``: K5-logistic's dense launcher, BASELINE config 3 (8,192
   chains x 10,000 x 50, ``chip_smoke.logistic_problem``), dense M^-1 the
   Laplace covariance, eps half the stability limit, start drawn about the
@@ -49,7 +56,9 @@ longest chain.  Cases:
 * ``k3``: K3 (``csrc/leapfrog_gaussian.cu``) at 64 x 1000 (the lockstep
   1000-D run's step) and at 10,240 x 100.
 
-The K5 and K3 cases' outputs must be equal bit for bit.  The K5 cases run
+The K5 and K3 cases' outputs must be equal bit for bit, but for
+K5-logistic against an older one-warp body (``old_rows``): both sides are
+then held against the plain version (``chip_smoke.compare_tree``).  The K5 cases run
 max_depth 10, one transition drawing its momentum,
 direction and uniforms, the momentum through ``mass_chol`` (the refresh).
 With ``--paths`` the K5 cases time this checkout alone, forced through
@@ -73,8 +82,8 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
 
 CASES = ("gauss_dense", "stoch_vol", "stoch_vol_wide", "stoch_vol_wide_one",
-         "mvn", "dims", "small", "logistic", "diag", "k1", "k1_bf16", "k2",
-         "k3")
+         "mvn", "dims", "small", "logistic", "diag", "moved", "k1",
+         "k1_bf16", "k2", "k3")
 #: the logistic cases (K1, K1 with grad_bf16, K2) and their chain counts
 LOGISTIC_LEAVES = ("k1", "k1_bf16", "k2")
 LEAF_CHAINS = (1, 64, 1024, 8192)
@@ -172,6 +181,40 @@ def _cases(name: str) -> list:
         log = _cases("logistic")[0]
         return runs + [{**log, "minv": torch.diagonal(log["minv"])
                         .contiguous()}]
+    if name == "moved":
+        runs = []
+        for d in (10, 50, 200, 1000):
+            phys = cs._physics("gaussian",
+                               {"lam": torch.ones((d,), device="cuda")})
+            q0 = torch.randn((cs.E_CHAINS, d), generator=gen, device="cuda")
+            runs.append(dict(physics="gaussian", phys=phys, q0=q0,
+                             minv=0.5 + torch.rand((d,), generator=gen,
+                                                   device="cuda"), eps=0.3))
+            if d == 1000:
+                runs.append(dict(physics="gaussian", phys=phys, q0=q0,
+                                 minv=cs._spd(d, gen).contiguous(),
+                                 eps=0.3))
+        d = 512
+        x = torch.randn((d, 2 * d), generator=gen, device="cuda")
+        prec = (x @ x.T / (2 * d)).contiguous()
+        phys = cs._physics("dense_gaussian",
+                           {"prec": (0.5 * (prec + prec.T)).contiguous()})
+        q0 = 0.5 * torch.randn((256, d), generator=gen, device="cuda")
+        runs += [dict(physics="dense_gaussian", phys=phys, q0=q0,
+                      minv=(1.0 / torch.diagonal(prec)).contiguous(),
+                      eps=0.25),
+                 dict(physics="dense_gaussian", phys=phys, q0=q0,
+                      minv=cs._spd(d, gen).contiguous(), eps=0.25)]
+        for t in (21, 50):
+            st = cs.tile_model("stoch_vol", t).structure
+            runs.append(dict(
+                physics="stoch_vol",
+                phys=cs._physics("stoch_vol",
+                                 {**st["data"], **st["scalars"]}),
+                q0=cs.tile_start("stoch_vol", cs.E_CHAINS, gen, sv_t=t),
+                minv=0.5 + torch.rand((t + 2,), generator=gen,
+                                      device="cuda"), eps=0.02))
+        return runs
     t = cs.SV_WIDE_T if name.startswith("stoch_vol_wide") else cs.SV_T
     st = cs.tile_model("stoch_vol", t).structure
     phys = cs._physics("stoch_vol", {**st["data"], **st["scalars"]})
@@ -474,9 +517,17 @@ def main() -> int:
         if not old_has("tree_kernel.cuh", "ckpt_bf16"):
             lacks[k.symbol][n - 4] = 0
 
+    # an older logistic body of one warp a chain (before the tile form)
+    # reads x, y and w, not the plane this checkout's launch passes: its
+    # launch gets them back in their places (obs_mat, obs_row0, obs_row1,
+    # n_obs), and its outputs, in another arithmetic, are held with this
+    # checkout's against the plain version, not compared bit for bit
+    old_rows = not old_has("tree_logistic.cu", "kTile")
+
     class OldKernel(CudaKernel):
         def __init__(self, new: CudaKernel):
             self.at = lacks.get(new.symbol, {})
+            self.obs = None
             types = [t for i, t in enumerate(new.argtypes)
                      if i not in self.at]
             super().__init__(new.source, new.symbol, types)
@@ -491,6 +542,10 @@ def main() -> int:
                 if a[i] != default:
                     raise ValueError(f"the old {self.symbol} lacks an "
                                      f"argument this call sets")
+            if self.obs is not None:
+                a = list(a)
+                a[11:15] = [*(t.data_ptr() for t in self.obs),
+                            self.obs[0].shape[0]]
             super().launch(*(x for i, x in enumerate(a) if i not in self.at))
 
     k5_runs = [(name, run) for name in args.cases
@@ -534,11 +589,23 @@ def main() -> int:
             finally:
                 table[p] = new[sym]
 
+        rows = old_rows and p in tree.TILED_PHYSICS
+        if rows:
+            old[sym].obs = tuple(phys.data[k] for k in ("x", "y", "w"))
         a, b = run(old[sym]), run(new[sym])
-        differ = [f for f in tree.TreeOut._fields
-                  if not cs.bits_equal(getattr(a, f), getattr(b, f))]
-        if differ:
-            raise RuntimeError(f"{name}: old and new differ in {differ}")
+        if rows:
+            plain = cs._first(tree.tree_sweep_plain(
+                q0, e, phys, minv, cs.MAX_DEPTH, -1000.0, key=key,
+                sqrt_mass=scale, ckpt_bf16=bf16))
+            for side, out in (("old", a), ("new", b)):
+                cs.compare_tree(cs._first(out), plain, f"{name}, {side}",
+                                cs.grad_bound(phys),
+                                lsa_bound=cs._long_sums(phys, q0.shape[1]))
+        else:
+            differ = [f for f in tree.TreeOut._fields
+                      if not cs.bits_equal(getattr(a, f), getattr(b, f))]
+            if differ:
+                raise RuntimeError(f"{name}: old and new differ in {differ}")
         c, d = q0.shape
         plan, blocks = tree.plan_on_card(p, d, cs.MAX_DEPTH, dense, True,
                                          bf16)
