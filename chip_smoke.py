@@ -73,11 +73,16 @@ Phases, each printed with its wall time:
    flight, chains a block, blocks an SM: the launcher's, held to
    ``ops.tree.stage_plan``) and its time per product on the longest chain,
    runs the launch again through every other path its shape admits
-   (outputs equal bit for bit; once for each shape, on its first state),
-   and times the per-leaf library yardstick (one float32 ``torch.mm`` of
-   every chain's vector by the matrix: ``library_leaf_ms`` in the kernels
-   line, whose ``library_ms`` stays null, as no library call computes a
-   transition);
+   (outputs equal bit for bit; once for each shape, on its first state;
+   in the wide form under a dense metric through whichever of K = 1, the
+   register path, and the thread-block cluster of 4 or 8 blocks a chain
+   (which the wrapper asks for where a launch's chains in flight are few)
+   the wrapper did not take, on every state, timed on the first of its
+   shape, with the chains in flight, the wrapper's K and the clusters the
+   card holds at once), and times the
+   per-leaf library yardstick (one float32 ``torch.mm`` of every chain's
+   vector by the matrix: ``library_leaf_ms`` in the kernels line, whose
+   ``library_ms`` stays null, as no library call computes a transition);
 3. ``sample()`` on BASELINE config 3 (logistic regression, 10,000 x 50 data
    from a seed, 8192 chains, dense metric, a short warmup schedule, 128
    draws) through K1; the same with ``fused_opts={"fwd_precision":
@@ -120,8 +125,13 @@ Phases, each printed with its wall time:
    transition, 50 draws in blocks of 25 with split moments over every
    coordinate (R-hat from them held to R-hat of the stored draws; R-hat
    printed, not gated), through K5-stoch_vol's wide form with bfloat16
-   checkpoint stacks, and its two launchers at the tuned state against
-   their plain versions, timed with both stack types;
+   checkpoint stacks (its dense launches on a cluster counted:
+   ``ops.tree.CLUSTER_LAUNCHES``), whether its dense launch at the tuned
+   state is bound by its deepest chain (``tail_at_state``: every chain
+   valid against the deepest alone, at K = 1 and on a cluster, and the
+   wrapper's own K there, which must be a cluster), and its two launchers
+   at the tuned state against their plain versions, timed with both stack
+   types;
 10. ``sample()`` on the 250-D multivariate normal of Hoffman and Gelman
    (2014) with a Wishart precision of 300 degrees of freedom (``mvn``) at
    1,024 chains, 4 dense windows, 300 draws: K5 with the dense Gaussian's
@@ -1980,9 +1990,10 @@ def staged_paths(card: str, label: str, launch, ref, physics: str, d: int,
     instead: chains a tile, observation tiles a batch, ring stages."""
     import torch
 
-    from inplacedhmc_tpu_torch.ops.tree import (PATHS, TILED_PHYSICS,
-                                                TreeOut, plan_on_card,
-                                                stage_plan)
+    from inplacedhmc_tpu_torch.ops.tree import (
+        CLUSTER_PATHS, PATHS, TILED_PHYSICS, WARP_DIM, TreeOut,
+        active_clusters, chains_in_flight, cluster_of, plan_on_card,
+        stage_plan)
     refresh = form == "refresh"
     plan, blocks = plan_on_card(physics, d, MAX_DEPTH, dense, refresh, bf16,
                                 grad_bf16=grad_bf16)
@@ -1995,7 +2006,8 @@ def staged_paths(card: str, label: str, launch, ref, physics: str, d: int,
     first = shape not in _FORCED_SHAPES
     _FORCED_SHAPES.add(shape)
     same = []
-    for path in PATHS if first else ():
+    for path in (p for p in PATHS if p not in CLUSTER_PATHS) if first \
+            else ():
         try:
             stage_plan(d, MAX_DEPTH, physics, dense, refresh, bf16, path)
         except ValueError:
@@ -2016,7 +2028,39 @@ def staged_paths(card: str, label: str, launch, ref, physics: str, d: int,
             if physics in TILED_PHYSICS else
             f"{plan.stages} stages of {plan.rows} rows ({plan.in_flight(d)} "
             f"bytes in flight), {plan.warps} chains a block")
-    line = (f"{plan.path} path, {ring}, "
+    cluster = ""
+    if dense and d > WARP_DIM:
+        # the wide form: K = 1 (the register path, one block a chain) and
+        # the cluster a launch waiting on its deepest chain takes; on every
+        # state the one the wrapper's timed launches did not take (their K
+        # is cluster_of's for this launch's chains in flight: the record
+        # they read) bit for bit to the wrapper's own launch, timed on each
+        # shape's first state beside them
+        k = cluster_of(d)
+        spread = chains_in_flight(ref.steps)
+        taken = cluster_of(d, spread)
+        other = "register" if taken > 1 else f"cluster{k}"
+        got = launch(other)
+        torch.cuda.synchronize()
+        differ = [f for f in TreeOut._fields
+                  if not bits_equal(getattr(got, f), getattr(ref, f))]
+        if differ:
+            raise RuntimeError(f"{label}: the {other} path differs from "
+                               f"the wrapper's launch in {differ}")
+        held = active_clusters(physics, d, MAX_DEPTH, dense, refresh, bf16,
+                               f"cluster{k}")
+        cluster = (f"{spread:.1f} chains in flight, the wrapper's K "
+                   f"{taken}; K = 1 and K = {k} ({held} clusters at once) "
+                   f"equal bit for bit")
+        if first:
+            o_ms = cuda_time_ms(lambda: launch(other), 3, 1)
+            reg_ms, clu_ms = (o_ms, ms) if taken > 1 else (ms, o_ms)
+            cluster += (f" (K = 1 {reg_ms:.4f} ms, {reg_ms / n_prod * 1e3:.2f}"
+                        f" us per product; K = {k} {clu_ms:.4f} ms, "
+                        f"{clu_ms / n_prod * 1e3:.2f} us; K = {k} / K = 1 "
+                        f"{clu_ms / reg_ms:.4f})")
+        cluster += "; "
+    line = (f"{plan.path} path, {cluster}{ring}, "
             f"{blocks} blocks an SM ({blocks * plan.warps} chains); "
             f"longest chain {n_leaf} leaves, {n_prod} products, "
             f"{ms / n_prod * 1e3:.2f} us per product; "
@@ -2412,6 +2456,85 @@ def bf16_at_state(card: str, ws, physics: str, data: dict, label: str,
     return bf16_case(card, label, physics, _physics(physics, data), q0, p0, e,
                      d32, ws.metric.inv.contiguous(), _key(SEED + 5),
                      name=name)
+
+
+def tail_at_state(card: str, ws, physics: str, data: dict, label: str,
+                  bf16: bool = True) -> None:
+    """Whether a dense launch at a run's tuned state is bound by its
+    deepest chain (the tail) or by what all chains share: the launch of
+    ``bf16_at_state``'s inputs with every chain valid against only its
+    deepest chain valid (the ``valid`` column: an invalid row skips its
+    tree at once), at K = 1 (the register path, one block a chain) and on
+    the cluster a launch waiting on its deepest chain takes
+    (``ops.tree.cluster_of``), with the time per ``[D, D]`` product of that
+    chain alone.  Within about 20 % of each other, the launch waits for
+    its deepest chain's serial products; far apart, for L2's bandwidth
+    over all chains.  The deepest chain's records alone equal its records
+    beside the others bit for bit.  The wrapper's own launch, once the
+    record of one launch of the state has reached the host, must run the
+    cluster ``cluster_of`` picks for its chains in flight, a cluster at the
+    tuned state.  Returns that K."""
+    import torch
+
+    from inplacedhmc_tpu_torch.core.metric import sample_momentum
+    from inplacedhmc_tpu_torch.ops import tree as tree_ops
+    from inplacedhmc_tpu_torch.ops.tree import (TreeOut, chains_in_flight,
+                                                cluster_of,
+                                                direction_words_int32,
+                                                tree_transition)
+
+    q0 = ws.z.q.contiguous()
+    c, d = q0.shape
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    p0 = sample_momentum(ws.metric, gen, q0.shape, q0.dtype).contiguous()
+    d32 = direction_words_int32(torch.randint(
+        0, 2 ** 32, (c,), generator=gen, dtype=torch.int64, device="cuda"))
+    e = torch.exp(ws.log_eps).expand(c).contiguous()
+    minv, key, phys = ws.metric.inv.contiguous(), _key(SEED + 5), \
+        _physics(physics, data)
+    tail_k = cluster_of(d)
+    for path in ("register", f"cluster{tail_k}"):
+        def run(valid=None, path=path):
+            return tree_transition(q0, p0, e, d32, None, phys, minv,
+                                   MAX_DEPTH, -1000.0, key=key, valid=valid,
+                                   ckpt_bf16=bf16, path=path)
+        ref = run()
+        deep = int(torch.argmax(ref.steps))
+        one = torch.zeros((c,), dtype=torch.int32, device="cuda")
+        one[deep] = 1
+        alone = run(one)
+        for f in TreeOut._fields:
+            if not bits_equal(getattr(alone, f)[deep], getattr(ref, f)[deep]):
+                raise RuntimeError(f"{label}: the deepest chain alone "
+                                   f"differs in {f}")
+        t_all = cuda_time_ms(run, 3, 1)
+        t_one = cuda_time_ms(lambda: run(one), 3, 1)
+        n_leaf = int(ref.steps[deep])
+        n_prod = n_products(physics, True, "prng", n_leaf)
+        k = tail_k if path != "register" else 1
+        print(f"[tail] {label}, K = {k} ({path}) on {card}: every chain "
+              f"valid {t_all:.4f} ms, the deepest chain (row {deep}, "
+              f"{n_leaf} leaves) alone {t_one:.4f} ms, alone / all "
+              f"{t_one / t_all:.4f}; {t_one / n_prod * 1e3:.2f} us per "
+              f"product on that chain alone ({n_prod} products); its "
+              f"records equal bit for bit")
+    # the wrapper's own choice: its second launch of the state reads the
+    # first's record
+    sym = tree_ops.TREE_DENSE_KERNELS[physics].symbol
+    run(path=None)
+    torch.cuda.synchronize()
+    before = tree_ops.CLUSTER_LAUNCHES.get(sym, 0)
+    own = run(path=None)
+    torch.cuda.synchronize()
+    spread = chains_in_flight(own.steps)
+    k = cluster_of(d, spread)
+    ran = tree_ops.CLUSTER_LAUNCHES.get(sym, 0) - before
+    print(f"[tail] {label}: {spread:.2f} chains in flight, the wrapper's K "
+          f"{k}, {ran} cluster launch of 1")
+    if ran != (k > 1) or k == 1:
+        raise RuntimeError(f"{label}: the wrapper's launch at the tuned "
+                           f"state ran {ran} cluster launches for K = {k}")
+    return k
 
 
 def check_ckpt_bf16(card: str) -> None:
@@ -3337,6 +3460,7 @@ def run_sv_sample(card: str, kernels, t_len: int = SV_T,
     for k in kernels:
         k.launches = 0
     tree_ops.CKPT_BF16_LAUNCHES.clear()
+    tree_ops.CLUSTER_LAUNCHES.clear()
     t0 = time.perf_counter()
     res = sample(SEED, model, n_draws, SV_CHAINS, warmup_stages=stages,
                  reporter=timer, device="cuda", thin=thin, **opts)
@@ -3344,6 +3468,11 @@ def run_sv_sample(card: str, kernels, t_len: int = SV_T,
     wall = time.perf_counter() - t0
     launches = launch_counts(kernels)
     bf16 = dict(tree_ops.CKPT_BF16_LAUNCHES)
+    clusters = dict(tree_ops.CLUSTER_LAUNCHES)
+    # the dense launches the wrapper ran on a cluster (the wide form's,
+    # where the last launch's chains in flight were few: ops.tree.
+    # cluster_of); no other launcher has one
+    dense_sym = "tree_stoch_vol_dense_launch"
     tag = f"[stoch_vol {SV_CHAINS} x {model.dim}" \
         + (", config 5's recipe]" if recipe else "]")
     for stage, sec in timer.stages:
@@ -3351,11 +3480,16 @@ def run_sv_sample(card: str, kernels, t_len: int = SV_T,
     print(f"{tag} total {wall:.2f} s on {card}; launches "
           f"{ {k: v for k, v in launches.items() if v} }, expected {mine}"
           + (f"; with bfloat16 stacks {bf16}; ASIS hook calls "
-             f"{len(hooks)} of {n_trans} transitions" if recipe else ""))
+             f"{len(hooks)} of {n_trans} transitions" if recipe else "")
+          + f"; on a cluster {clusters}")
     if any(launches[k] != v for k, v in mine.items()) or any(
             v for k, v in launches.items() if k not in mine):
         raise RuntimeError(f"the stoch_vol path did not go through "
                            f"K5-stoch_vol alone: {launches}")
+    if set(clusters) - {dense_sym} or \
+            clusters.get(dense_sym, 0) > launches[dense_sym]:
+        raise RuntimeError(f"cluster launches {clusters} of the launches "
+                           f"{launches}")
     if recipe and (bf16 != {k: v for k, v in mine.items() if v}
                    or len(hooks) != n_trans):
         raise RuntimeError(f"the recipe's transitions did not all run K5 "
@@ -3852,6 +3986,13 @@ def main() -> int:
     svw_data = {**st["data"], **st["scalars"]}
     svw_state = res.warmup_state
     del res
+    # the wide dense launch's bound at the tuned state: the deepest chain
+    # alone against every chain, at K = 1 and on a cluster, and the
+    # wrapper's K there
+    svw_k = tail_at_state(card, svw_state, "stoch_vol", svw_data,
+                          f"stoch_vol, {SV_CHAINS} x {SV_WIDE_T + 2}, the "
+                          f"recipe's tuned state, dense metric, bfloat16 "
+                          f"stacks")
     svw, svw32 = [], []
     for dense in (False, True):
         ws = svw_state if dense else svw_state._replace(metric=diag_metric(
@@ -3872,6 +4013,9 @@ def main() -> int:
                               physics="stoch_vol", data=svw_data, name=name)
         entry["launches"] = launches_d[sym]
         svw32.append(entry)
+        if dense:   # the wrapper's blocks a chain at the tuned state
+            for e in (svw[-1], entry):
+                e["cluster"] = svw_k
         del res_d
     svw += svw32
     print(f"[stoch_vol {SV_WIDE_T}] K5-stoch_vol (wide, bfloat16 stacks) "
@@ -3947,11 +4091,13 @@ def main() -> int:
               lambda c, gen: torch.randn((c, W_DIM), generator=gen,
                                          device="cuda"),
               CROSSOVER_CHAINS)
+    # (to 1,024 chains: the 10,240-chain point, 15.6x in K5's favour, and
+    # its 7 s lockstep transition were cut to keep the script's budget)
     crossover(card, "stoch_vol", svw_state,
               tile_model("stoch_vol", SV_WIDE_T),
               lambda c, gen: svw_state.z.q[torch.randint(
                   0, SV_CHAINS, (c,), generator=gen, device="cuda")],
-              CROSSOVER_CHAINS)
+              CROSSOVER_CHAINS[:-1])
     print(f"[phase] crossover {time.perf_counter() - t:.2f} s")
     print(f"[k5-wide] stochastic volatility's long sums over the run: the "
           f"largest K needed by field {LONG_SUM_NEED} (LONG_SUM_K "

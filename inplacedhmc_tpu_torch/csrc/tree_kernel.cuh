@@ -57,7 +57,9 @@
 //    a row sum is a fixed-order sum per lane and a butterfly shuffle
 //    (warp_sum), a coordinate's value reaches every lane by __shfl_sync;
 //  * T = Block, 256 < D <= MAX_DIM: one chain per block of W =
-//    ceil(D / 256) warps, NV = 8; warp w holds coordinates [256 w, 256 w +
+//    ceil(D / 256) warps, NV = 8 (T = Cluster: the same, its [D, D]
+//    products split across a cluster of such blocks); warp w holds
+//    coordinates [256 w, 256 w +
 //    256) in the one-warp layout (coordinate 256 w + lane + 32 k in
 //    register k), so the loads, stores, stacks and elementwise updates are
 //    the one-warp ones per warp.  Every row-wide operation goes through
@@ -114,14 +116,24 @@
 // a multiple of 4, the matrices start 16-byte aligned (the wrapper
 // checks), and the at most three floats of a matrix past its last multiple
 // of 16 bytes are copied by the issuing thread before its arrival, which
-// releases them to the waiters.  The register path (matvec below: v_i
-// broadcast from its lane, row i read through the read-only cache by the
-// 32 lanes at once; Block::matvec: rows in batches of MATVEC_ROWS) stays in
-// the wide form, where the matrix does not fit and a ring over the block
-// measured slower (each panel a handshake of all its warps with the issuing
-// thread), and for eight schools and logistic regression, whose products
-// the card measured slower staged (kStagedOf); elsewhere it is a launch's
-// to ask for (path, a check's hook).
+// releases them to the waiters.  In the wide form under a dense metric a
+// chain's products are split by columns across a thread-block cluster of
+// K blocks (Cluster, below: the team T = Cluster, K = 4 or 8, asked for
+// by the wrapper where a launch waits on its deepest chain, ops/tree.py::
+// cluster_of), each block streaming its own column panel of the matrix
+// through its own ring by bulk copies, so that no handshake spans the
+// chain's blocks (a ring over
+// one block of the chain's warps measured slower than the register path:
+// each panel a handshake of all its warps with the issuing thread).  The
+// register path (matvec below: v_i broadcast from its lane, row i read
+// through the read-only cache by the 32 lanes at once; Block::matvec: rows
+// in batches of MATVEC_ROWS, one block a chain, K = 1) stays for eight
+// schools and logistic regression, whose products the card measured
+// slower staged (kStagedOf), and in the wide form under a diagonal metric
+// (the dense Gaussian's P q alone), and under a dense metric wherever
+// the wrapper does not ask for a cluster (a launch of many chains that
+// does not wait on its deepest chain) or no cluster's ring fits beside
+// the stacks; elsewhere it is a launch's to ask for (path).
 //
 // What differs from the TPU kernel, and why:
 //  * The TPU runs a tile of chains in lockstep: the leaf index is global to
@@ -192,7 +204,11 @@
 // reads shared memory only, and a ring keeps S - 1 panels on their way,
 // but each panel costs its team a handshake with the copy unit, whatever
 // S, so a streamed product is held by its number of panels, and a launch
-// of many chains by L2's bandwidth.
+// of many chains by L2's bandwidth.  On a cluster a product's time is its
+// blocks' walks over the D rows of their panels (each column's sum one
+// dependent chain of D adds, each row's loads from shared memory) and
+// two cluster barriers; a cluster holds K SMs' worth of blocks, so a
+// launch of many chains holds fewer of them at once.
 // Several chains sharing one stream of a matrix (the tile form's lockstep,
 // built for logistic regression's observations, or TMA multicast across a
 // cluster), then 3xTF32 tensor cores on the shared panels, are later work
@@ -206,7 +222,7 @@
 // (__launch_bounds__), which caps it at 128 registers a thread; above that
 // the sweep loop and the generator would leave room for 3 blocks only.  The
 // wide form allows blocks of up to MAX_WIDE_WARPS warps, one per SM at
-// least: 255 registers a thread.
+// least: 255 registers a thread, the cluster's helpers too (one kernel).
 
 #pragma once
 
@@ -245,6 +261,16 @@ constexpr int PATH_RING = 2;          // panels of rows streamed through a
                                       // ring of stages
 constexpr int RING_MIN_DIM = 128;     // the plan's own ring: the one-warp
                                       // form above it (plan_of)
+// the wide form's products split across a cluster (Cluster, below)
+constexpr int PATH_CLUSTER = 3;       // paths 3, 4: clusters of 4, 8
+constexpr int CLUSTER_PATHS = 2;      // blocks a chain
+constexpr int CLUSTER_STAGES = 4;     // stages of each block's ring
+constexpr int MAX_PANEL_COLS = 4;     // a panel's columns a thread sums
+constexpr int ROW_BATCH = 16;         // rows whose loads go out together
+constexpr int CMD_SLOT = WIDE_SCRATCH / 2 - 1;  // the command's word in the
+                                      // leader's scratch (no row sum's)
+constexpr int CMD_DONE = 3;           // the command after the last product
+                                      // (0..2 name a matrix: MatKind)
 
 // utils/philox.py: streams, constants
 constexpr uint32_t STREAM_MOMENTUM = 0;
@@ -367,6 +393,7 @@ __device__ __forceinline__ void matvec(const float* __restrict__ m, int D,
 struct Warp {
   static constexpr bool kWide = false;
   static constexpr bool kTile = false;
+  static constexpr bool kCluster = false;
   static constexpr int base = 0;
   int lane;
 
@@ -402,6 +429,7 @@ struct Warp {
 struct Block {
   static constexpr bool kWide = true;
   static constexpr bool kTile = false;
+  static constexpr bool kCluster = false;
   int lane, warp, nw, base;
   float* scratch;  // [2][WIDE_SCRATCH / 2]
   float* stage;    // [2][D]
@@ -783,6 +811,336 @@ struct Staged : Warp {
   }
 };
 
+// The wide form's products on a thread-block cluster (the paths
+// PATH_CLUSTER.. : K = 4 or 8 blocks a chain on neighbouring SMs).  A
+// chain's [D, D] product is split by output columns: block r of the
+// cluster sums columns [r wk, r wk + wk) (wk = panel_cols(D, K)), each over
+// i = 0 .. D-1 in order with the register path's mul and add, so the
+// outputs are the register path's bit for bit whatever K.  Block rank 0,
+// the leader, runs the chain's tree as Block does (its stacks, row sums
+// and barriers unchanged); ranks 1 .. K-1, the helpers, hold no chain state
+// and serve the leader's products until it is done (serve).  The wrapper
+// packs each matrix once into K column panels [K, D, wk] (ops/tree.py::
+// cluster_panels; columns past D zero), and each block streams its own
+// panel through its own ring of CLUSTER_STAGES stages of R rows by the
+// copy unit's bulk copies, one issuing thread and a `full` mbarrier per
+// stage, a stage refilled after the block's __syncthreads: every handshake
+// stays within one block, none spans the chain's blocks.  A product:
+//  1. every block's first panels are on their way (start: those guessed
+//     and issued after the last product, or, where the guess was another
+//     matrix, issued now after the guessed ones have landed); the leader
+//     stages v in its shared memory (stage[0, D)) and writes the matrix's
+//     kind into every block's command word (distributed shared memory);
+//  2. a cluster barrier (release / acquire);
+//  3. each helper copies v from the leader's shared memory into its own;
+//     every block sums its columns and stores them into the leader's
+//     stage[D, 2D);
+//  4. a cluster barrier; the leader's threads read their coordinates back,
+//     and every block issues the first panels of its guess of the next
+//     product's matrix (guess: the one of three products ago).
+// Every block reaches every cluster barrier: the leader calls matvec from
+// the team's uniform code (an invalid row still takes its start's
+// products), a helper's loop ends only on the leader's command after its
+// last product (finish: CMD_DONE), and a final barrier keeps the leader's
+// shared memory until every helper has read that command; a helper's own
+// shared memory is read by no other block.  The ring sits after the wide
+// form's shared memory (cluster_base) in every block of the cluster.
+__host__ __device__ constexpr int cluster_size(int path) {
+  return path >= PATH_CLUSTER ? 4 << (path - PATH_CLUSTER) : 1;
+}
+__host__ __device__ constexpr int panel_cols(int D, int K) {
+  return ((D + K - 1) / K + 3) / 4 * 4;
+}
+__host__ __device__ constexpr int64_t cluster_base(int D, int md, bool bf16) {
+  return round16(wide_bytes(D, md, bf16));
+}
+
+// a barrier of every thread of the cluster: what a thread wrote before it
+// is seen by every thread of the cluster after it
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\n\t"
+               "barrier.cluster.wait.acquire;" ::: "memory");
+}
+// the block's rank in its cluster
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+// p, an address in this block's shared memory, at the same place in the
+// shared memory of the cluster's block r (distributed shared memory)
+template <class V>
+__device__ __forceinline__ V* in_rank(V* p, unsigned r) {
+  uint64_t q;
+  asm volatile("mapa.u64 %0, %1, %2;"
+               : "=l"(q) : "l"(reinterpret_cast<uint64_t>(p)), "r"(r));
+  return reinterpret_cast<V*>(q);
+}
+
+// a float and four floats (16-byte aligned) at a shared-memory address:
+// shared-memory loads with 32-bit addresses (a generic pointer costs each
+// load its own address arithmetic), issued in program order, so that a
+// batch's loads all go out before its first use
+__device__ __forceinline__ float lds(uint32_t a) {
+  float x;
+  asm volatile("ld.shared.f32 %0, [%1];" : "=f"(x) : "r"(a));
+  return x;
+}
+__device__ __forceinline__ float4 lds4(uint32_t a) {
+  float4 x;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(x.x), "=f"(x.y), "=f"(x.z), "=f"(x.w) : "r"(a));
+  return x;
+}
+
+struct Cluster : Block {
+  static constexpr bool kCluster = true;
+  int K = 1, S = 0, R = 0, wk = 0;
+  unsigned rank = 0, rph = 0;  // rph: bit s the parity of stage s's next
+  float* ring = nullptr;       // completion
+  uint64_t* full = nullptr;
+  int pend = -1;     // the matrix whose first panels are on their way
+  unsigned hist = 0; // the last three products' matrices, 2 bits each
+  const float* mats[3] = {nullptr, nullptr, nullptr};  // by MatKind
+
+  __device__ __forceinline__ explicit Cluster(float* s) : Block(s) {}
+
+  __device__ __forceinline__ int* command() {
+    return reinterpret_cast<int*>(scratch) + CMD_SLOT;
+  }
+
+  // the launch's cluster, the block's ring and its barriers (every block);
+  // the packed panels of M^-1 (dense), mass_chol^T (dense, refresh) and
+  // the physics' own matrix
+  __device__ __forceinline__ void setup(const Args& a, unsigned char* smem,
+                                        bool dense) {
+    K = cluster_size(a.path);
+    S = a.ring_stages;
+    R = a.ring_rows;
+    wk = panel_cols(a.D, K);
+    rank = cluster_rank();
+    unsigned char* at = smem + cluster_base(a.D, a.md, a.ckpt_bf16 != 0);
+    full = reinterpret_cast<uint64_t*>(at);
+    ring = reinterpret_cast<float*>(at + round16(8 * (int64_t)S));
+    mats[MAT_MINV] = dense ? a.minv : nullptr;
+    mats[MAT_SCALE] = dense && a.refresh ? a.p0 : nullptr;
+    mats[MAT_OWN] = a.pd.mat;
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < S; ++s) bar_init(full + s, 1);
+      bar_init_fence();
+    }
+    __syncthreads();
+    cluster_sync();  // every block runs before any reaches into another
+  }
+
+  // rows [p R, min(p R + R, D)) of the block's panel of g into stage s
+  __device__ __forceinline__ void issue(const float* g, int D, int p, int s) {
+    const int i0 = p * R;
+    const unsigned bytes = 4u * (unsigned)(min(R, D - i0) * wk);
+    bar_expect(full + s, bytes);
+    bulk_copy(ring + (int64_t)s * R * wk,
+              g + ((int64_t)rank * D + i0) * wk, bytes, full + s);
+  }
+  // the first S panels of a product on their way (thread 0)
+  __device__ __forceinline__ void prefetch(const float* g, int D) {
+    if (threadIdx.x != 0) return;
+    const int np = (D + R - 1) / R;
+    for (int p = 0; p < min(S, np); ++p) issue(g, D, p, p);
+  }
+  // the panels of a product of matrix `kind` on their way: those prefetched
+  // after the last product if it guessed this matrix; else the guessed
+  // ones are waited for (no copy may be left landing in a stage) and this
+  // matrix's issued.  The __syncthreads: every thread has seen the guessed
+  // copies complete before their barriers are armed again.
+  __device__ __forceinline__ void start(int kind, int D) {
+    if (pend != kind) {
+      drain(D);
+      prefetch(mats[kind], D);
+    }
+    pend = -1;
+    hist = ((hist << 2) | (unsigned)kind) & 63u;
+  }
+  // the guess for the next product: the matrix of three products ago (a
+  // dense metric's leaf under the dense Gaussian takes M^-1, P, M^-1; every
+  // other leaf one matrix), its first panels issued now, while the leader
+  // works on the tree
+  __device__ __forceinline__ void guess(int D) {
+    pend = (int)((hist >> 4) & 3u);
+    if (mats[pend] == nullptr) {
+      pend = -1;
+      return;
+    }
+    prefetch(mats[pend], D);
+  }
+  // wait for the guessed panels still landing (before a wrong guess is
+  // replaced, and before the block leaves)
+  __device__ __forceinline__ void drain(int D) {
+    if (pend < 0) return;
+    const int np = (D + R - 1) / R;
+    for (int p = 0; p < min(S, np); ++p) {
+      bar_wait(full + p, (rph >> p) & 1u);
+      rph ^= 1u << p;
+    }
+    pend = -1;
+    __syncthreads();
+  }
+
+  // rows [0, n) of a stage (row: the shared-memory address of this
+  // thread's first column in the stage's first row; vp: of v at the
+  // stage's first row) into the thread's nc <= NC column sums: batches of
+  // ROW_BATCH rows whose loads all go out before their products (a batch
+  // waits for shared memory once, not once a row; v by 16-byte loads: a
+  // stage's first row is a multiple of ROW_BATCH, cluster_fit), then the
+  // rows after the batches one by one; each column's products and sums in
+  // row order
+  template <int NC>
+  __device__ __forceinline__ void walk(uint32_t row, uint32_t vp, int n,
+                                       int nc,
+                                       float (&acc)[MAX_PANEL_COLS]) const {
+    const uint32_t rs = 4u * (uint32_t)wk, cs = 4u * blockDim.x;
+    int i = 0;
+    for (; i + ROW_BATCH <= n;
+         i += ROW_BATCH, row += ROW_BATCH * rs, vp += 4 * ROW_BATCH) {
+      float vv[ROW_BATCH];
+#pragma unroll
+      for (int r = 0; r < ROW_BATCH; r += 4) {
+        const float4 v4 = lds4(vp + 4 * r);
+        vv[r] = v4.x;
+        vv[r + 1] = v4.y;
+        vv[r + 2] = v4.z;
+        vv[r + 3] = v4.w;
+      }
+      float m[ROW_BATCH][NC];
+#pragma unroll
+      for (int r = 0; r < ROW_BATCH; ++r)
+#pragma unroll
+        for (int j = 0; j < NC; ++j)
+          m[r][j] = j < nc ? lds(row + r * rs + j * cs) : 0.f;
+#pragma unroll
+      for (int r = 0; r < ROW_BATCH; ++r)
+#pragma unroll
+        for (int j = 0; j < NC; ++j)
+          if (j < nc) acc[j] = add(acc[j], mul(m[r][j], vv[r]));
+    }
+    for (; i < n; ++i, row += rs, vp += 4) {
+      const float vi = lds(vp);
+#pragma unroll
+      for (int j = 0; j < NC; ++j)
+        if (j < nc) acc[j] = add(acc[j], mul(lds(row + j * cs), vi));
+    }
+  }
+
+  // the block's columns of v M (v in this block's shared memory, vs) into
+  // dst, the leader's stage[D, 2D): thread t sums columns t + j blockDim.x
+  // of the panel (nc of them), rows in order, a stage of the ring at a time
+  __device__ __forceinline__ void columns(const float* g, int D,
+                                          const float* vs, float* dst) {
+    const int T = blockDim.x, t = threadIdx.x;
+    const int cols = min(wk, D - (int)rank * wk);
+    const int most = (cols + T - 1) / T;  // the block's most a thread
+    const int nc = cols > t ? (cols - t + T - 1) / T : 0;
+    const int np = (D + R - 1) / R;
+    float acc[MAX_PANEL_COLS];
+#pragma unroll
+    for (int j = 0; j < MAX_PANEL_COLS; ++j) acc[j] = 0.f;
+    int s = 0;
+    for (int p = 0; p < np; ++p) {
+      bar_wait(full + s, (rph >> s) & 1u);
+      rph ^= 1u << s;
+      const int i0 = p * R, n = min(R, D - i0);
+      const uint32_t row = smem_addr(ring + (int64_t)s * R * wk + t);
+      const uint32_t vp = smem_addr(vs + i0);
+      if (most <= 1)
+        walk<1>(row, vp, n, nc, acc);
+      else if (most <= 2)
+        walk<2>(row, vp, n, nc, acc);
+      else
+        walk<MAX_PANEL_COLS>(row, vp, n, nc, acc);
+      // the block has read stage s: refilled with panel p + S
+      __syncthreads();
+      if (t == 0 && p + S < np) issue(g, D, p + S, s);
+      s = s + 1 == S ? 0 : s + 1;
+    }
+#pragma unroll
+    for (int j = 0; j < MAX_PANEL_COLS; ++j)
+      if (j < nc) dst[(int)rank * wk + t + j * T] = acc[j];
+  }
+
+  // the command `kind` to every block (each its own copy, in its scratch),
+  // by the leader before the barrier that publishes it
+  __device__ __forceinline__ void post(int kind) {
+    if (threadIdx.x < (unsigned)K)
+      *in_rank(command(), threadIdx.x) = kind;
+  }
+
+  // the leader's product out = v M (out may alias v): v in its stage[0,
+  // D), which each helper copies, then every block's columns into the
+  // leader's stage[D, 2D)
+  template <int NV>
+  __device__ __forceinline__ void matvec(Mat m, int D, const float (&v)[NV],
+                                         float (&out)[NV]) {
+    float* vs = stage;
+    float* res = stage + D;
+    start(m.kind, D);
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      const int d = base + lane + 32 * k;
+      if (d < D) vs[d] = v[k];
+    }
+    post(m.kind);
+    cluster_sync();  // v and the command reach every block
+    columns(mats[m.kind], D, vs, res);
+    cluster_sync();  // every block's columns in res
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      const int d = base + lane + 32 * k;
+      out[k] = d < D ? res[d] : 0.f;
+    }
+    guess(D);
+  }
+
+  // a helper: the leader's products until its command is CMD_DONE
+  __device__ __forceinline__ void serve(int D) {
+    const volatile int* cmd = command();
+    const float* lead_v = in_rank(stage, 0);
+    float* lead_res = in_rank(stage + D, 0);
+    for (;;) {
+      cluster_sync();  // the command in this block's shared memory
+      const int kind = *cmd;
+      if (kind == CMD_DONE) break;
+      start(kind, D);
+      // v from the leader into this block's stage[0, D): every remote load
+      // out before the stores (D <= 8 blockDim.x)
+      float v8[8];
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const int i = threadIdx.x + r * blockDim.x;
+        v8[r] = i < D ? lead_v[i] : 0.f;
+      }
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const int i = threadIdx.x + r * blockDim.x;
+        if (i < D) stage[i] = v8[r];
+      }
+      __syncthreads();
+      columns(mats[kind], D, stage, lead_res);
+      cluster_sync();
+      guess(D);
+    }
+    drain(D);
+    cluster_sync();
+  }
+
+  // the leader, after its last product: the helpers leave, and the leader
+  // after every helper has read the command
+  __device__ __forceinline__ void finish(int D) {
+    drain(D);
+    post(CMD_DONE);
+    cluster_sync();
+    cluster_sync();
+  }
+};
+
 // The plan of a launch's staged products: the path, the chains of a block
 // of the one-warp form (warps), the ring's stages and rows a panel, and the
 // block's dynamic shared memory.  The one-warp form's staged instantiations
@@ -826,7 +1184,9 @@ constexpr bool kStagedOf =
 
 // The transition of one chain by the team T (Warp: a chain per warp, up to
 // MAX_WARPS a block; Block: a chain per block of up to MAX_WIDE_WARPS;
-// Tile: a tile of chains, a warp each, in lockstep).
+// Cluster: a chain per cluster of such blocks, the tree on block rank 0,
+// the other blocks serving its products until it is done; Tile: a tile of
+// chains, a warp each, in lockstep).
 // Every branch depends on values that are the same on every thread of the
 // team (its sums), so every thread of a block reaches every barrier.
 // A launch of the one-warp form with a [D, D] matrix (a dense M^-1, or a
@@ -864,8 +1224,10 @@ tree_kernel(const Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int64_t c = T::kWide ? (int64_t)blockIdx.x
-                             : (int64_t)blockIdx.x * (blockDim.x >> 5) + warp;
+  const int64_t c =
+      T::kCluster ? (int64_t)(blockIdx.x / cluster_size(a.path))
+      : T::kWide  ? (int64_t)blockIdx.x
+                  : (int64_t)blockIdx.x * (blockDim.x >> 5) + warp;
   // the resident matrices (M^-1, mass_chol^T under refresh, the physics'
   // own: the slots of MatKind, the last the own slot) after the block's
   // stacks and vector rows, their barrier after them, copied in by thread
@@ -905,6 +1267,15 @@ tree_kernel(const Args a) {
   unsigned char* stk_s = smem + (T::kWide ? 0 : warp * stack_len);
   unsigned char* stk_ps = stk_s + (int64_t)md * D * (bf16 ? 2 : 4);
   Team team(reinterpret_cast<float*>(smem + stack_len));
+  if constexpr (T::kCluster) {
+    // every block of the chain's cluster: its ring; the helpers serve the
+    // leader's products and leave
+    team.setup(a, smem, kDense);
+    if (team.rank != 0) {
+      team.serve(D);
+      return;
+    }
+  }
   if constexpr (kStaged) {
     // each warp's vector row after the block's stacks, then the resident
     // matrices, or each warp's ring and its barriers
@@ -1277,6 +1648,31 @@ tree_kernel(const Args a) {
 #pragma unroll
   for (int k = 0; k < NV; ++k)
     if (in[k]) a.grad_out[row + base + lane + 32 * k] = lg[k];
+  if constexpr (T::kCluster) team.finish(D);
+}
+
+// The cluster path of K blocks (Cluster) at D, md and the stack type:
+// each block's ring of CLUSTER_STAGES stages of the most rows of its panel
+// that fit beside the wide form's shared memory (at most ceil(D /
+// CLUSTER_STAGES): a product's panels then all go out at once), a multiple
+// of ROW_BATCH where there are that many (Cluster::walk); false where
+// a stage of one row does not fit or a thread would sum more than
+// MAX_PANEL_COLS of a panel's columns.
+inline bool cluster_fit(int D, int md, bool bf16, int K, Plan* out) {
+  const int wk = panel_cols(D, K);
+  const int threads = 32 * ((D + WARP_DIM - 1) / WARP_DIM);
+  if ((wk + threads - 1) / threads > MAX_PANEL_COLS) return false;
+  const int64_t head = cluster_base(D, md, bf16)
+                       + round16(8 * (int64_t)CLUSTER_STAGES);
+  int64_t r = (SMEM_LIMIT - head) / (4LL * CLUSTER_STAGES * wk);
+  const int64_t most = (D + CLUSTER_STAGES - 1) / CLUSTER_STAGES;
+  if (r > most) r = most;
+  if (r >= ROW_BATCH) r = r / ROW_BATCH * ROW_BATCH;
+  if (r < 1) return false;
+  const int path = PATH_CLUSTER + (K >= 8);
+  *out = {path, 1, CLUSTER_STAGES, (int)r,
+          head + 4LL * CLUSTER_STAGES * r * wk};
+  return true;
 }
 
 // The plan for D, md, the stack type and the n matrices a launch stages
@@ -1294,17 +1690,23 @@ tree_kernel(const Args a) {
 // at most 512 bytes) the ring ran 1.3 to 3.2 times slower than the
 // register path, and a ring over the wide form's block, whose warps also
 // hand each stage back to the issuing thread, 1.25 to 3.2 times slower at
-// D = 1,002 (the wide form keeps the register path); from D = 200 to 256
+// D = 1,002; from D = 200 to 256
 // it ran 1.2 to 2.1 times faster; the resident path ran faster than both
 // wherever it fitted, from D = 10 (the funnel: 1.7 % faster) to D = 128
 // (2.2 times, at 3 chains an SM against 16), but for the physics that
 // keep the register path (kStagedOf).  The ring
 // stays admitted at D <= 128 where the plan does not take it, for a
-// launch that asks for it.  `force` (-1 for the plan's own) asks for a
-// path: cudaErrorInvalidValue where the shape does not admit it (n = 0
-// and the wide form admit the register path only).
-inline cudaError_t plan_of(int D, int md, bool bf16, int n, int force,
-                           Plan* out) {
+// launch that asks for it.  The wide form's own path is the register
+// path; under a dense metric it admits a cluster of 4 or 8 blocks a chain
+// where cluster_fit does, which the wrapper asks for where a launch waits
+// on its deepest chain (ops/tree.py::cluster_of: the card measured the
+// cluster faster there, and slower where many chains share the card).
+// `force` (-1 for the plan's own) asks for a path: cudaErrorInvalidValue
+// where the shape does not admit it (n = 0 admits the register path only;
+// the wide form the register path, and its clusters under a dense
+// metric).
+inline cudaError_t plan_of(int D, int md, bool bf16, int n, bool dense,
+                           int force, Plan* out) {
   const bool wide = D > WARP_DIM;
   const int64_t stack = stack_bytes(D, md, bf16);
   const Plan reg = wide ? Plan{PATH_REGISTER, 1, 0, 0,
@@ -1341,11 +1743,22 @@ inline cudaError_t plan_of(int D, int md, bool bf16, int n, int force,
         ring = {PATH_RING, reg.warps, S, R, bytes};
     }
   }
+  // the wide form under a dense metric: a cluster of 4 or 8 blocks a chain
+  Plan clu[CLUSTER_PATHS];
+  bool clu_ok[CLUSTER_PATHS] = {false, false};
+  if (wide && dense && n > 0)
+    for (int i = 0; i < CLUSTER_PATHS; ++i)
+      clu_ok[i] = cluster_fit(D, md, bf16, 4 << i, &clu[i]);
   const bool ring_own = ring.path >= 0 && D > RING_MIN_DIM;
-  if (force < 0)
+  if (force < 0 && wide)
+    *out = reg;
+  else if (force < 0)
     *out = res.path >= 0 && (!ring_own || res_chains >= reg_chains) ? res
            : ring_own                                               ? ring
                                                                     : reg;
+  else if (force >= PATH_CLUSTER && force < PATH_CLUSTER + CLUSTER_PATHS &&
+           clu_ok[force - PATH_CLUSTER])
+    *out = clu[force - PATH_CLUSTER];
   else if (force == PATH_REGISTER)
     *out = reg;
   else if (force == PATH_RESIDENT && res.path >= 0)
@@ -1391,6 +1804,7 @@ struct Shape {
   int threads;
   int64_t bytes;
   Plan plan;
+  int cluster;  // blocks a cluster (1: no cluster)
 };
 
 // shape_of's dispatch for a physics of the tile form (P::kTile): NV by D
@@ -1416,7 +1830,8 @@ cudaError_t tile_shape_of(int64_t C, int D, int md, bool bf16, int force,
     kernel = tree_kernel<Tile, P<8>, kDense>;
   }
   if (err != cudaSuccess) return err;
-  *s = {kernel, (C + pl.warps - 1) / pl.warps, 32 * pl.warps, pl.bytes, pl};
+  *s = {kernel, (C + pl.warps - 1) / pl.warps, 32 * pl.warps, pl.bytes, pl,
+        1};
   if (s->grid > 0x7fffffff) return cudaErrorInvalidValue;
   return cudaFuncSetAttribute(s->kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1443,7 +1858,7 @@ cudaError_t shape_of(int64_t C, int D, int md, bool bf16, bool refresh,
                   : (kDense ? 1 + (refresh ? 1 : 0) : 0)
                         + (P<1>::kMatrix ? 1 : 0);
     Plan pl;
-    cudaError_t err = plan_of(D, md, bf16, n, force, &pl);
+    cudaError_t err = plan_of(D, md, bf16, n, kDense, force, &pl);
     if (err != cudaSuccess) return err;
     if (D <= WARP_DIM) {
       void (*kernel)(const Args) = D <= 32    ? tree_kernel<Warp, P<1>, kDense>
@@ -1451,10 +1866,20 @@ cudaError_t shape_of(int64_t C, int D, int md, bool bf16, bool refresh,
                                    : D <= 128 ? tree_kernel<Warp, P<4>, kDense>
                                               : tree_kernel<Warp, P<8>, kDense>;
       *s = {kernel, (C + pl.warps - 1) / pl.warps, 32 * pl.warps, pl.bytes,
-            pl};
+            pl, 1};
     } else if constexpr (P<8>::kWide) {
-      *s = {tree_kernel<Block, P<8>, kDense>, C,
-            32 * ((D + WARP_DIM - 1) / WARP_DIM), pl.bytes, pl};
+      const int threads = 32 * ((D + WARP_DIM - 1) / WARP_DIM);
+      if (pl.path < PATH_CLUSTER) {
+        *s = {tree_kernel<Block, P<8>, kDense>, C, threads, pl.bytes, pl, 1};
+      } else {
+        if constexpr (kDense) {
+          const int k = cluster_size(pl.path);
+          *s = {tree_kernel<Cluster, P<8>, kDense>, C * k, threads, pl.bytes,
+                pl, k};
+        } else {
+          return cudaErrorInvalidValue;  // (plan_of: a dense metric's only)
+        }
+      }
     }
     if (s->bytes > SMEM_LIMIT || s->grid > 0x7fffffff)
       return cudaErrorInvalidValue;
@@ -1462,6 +1887,24 @@ cudaError_t shape_of(int64_t C, int D, int md, bool bf16, bool refresh,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 (int)s->bytes);
   }
+}
+
+// The launch configuration of a cluster shape: its grid of clusters of
+// sh.cluster blocks (the attribute in `at`, which must outlive it)
+inline cudaLaunchConfig_t cluster_config(const Shape& sh, void* stream,
+                                         cudaLaunchAttribute (&at)[1]) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)sh.grid);
+  cfg.blockDim = dim3(sh.threads);
+  cfg.dynamicSmemBytes = (size_t)sh.bytes;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = (unsigned)sh.cluster;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  return cfg;
 }
 
 // The plan of the launch launch_physics makes for D, md, the stack type,
@@ -1481,12 +1924,18 @@ int plan_physics(int D, int md, int ckpt_bf16, int refresh, int force,
   cudaError_t err = shape_of<P, kDense>(1, D, md, ckpt_bf16 != 0,
                                         refresh != 0, force, opt, &sh);
   if (err != cudaSuccess) return (int)err;
-  int blocks = 0;
+  int blocks = 0, clusters = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       &blocks, sh.kernel, sh.threads, (size_t)sh.bytes);
-  const int vals[6] = {sh.plan.path, sh.plan.warps, sh.plan.stages,
-                       sh.plan.rows, (int)sh.bytes, blocks};
-  for (int i = 0; i < 6; ++i) out[i] = vals[i];
+  if (err == cudaSuccess && sh.cluster > 1) {
+    cudaLaunchAttribute at[1];
+    cudaLaunchConfig_t cfg = cluster_config(sh, nullptr, at);
+    err = cudaOccupancyMaxActiveClusters(&clusters, (const void*)sh.kernel,
+                                         &cfg);
+  }
+  const int vals[7] = {sh.plan.path, sh.plan.warps, sh.plan.stages,
+                       sh.plan.rows, (int)sh.bytes, blocks, clusters};
+  for (int i = 0; i < 7; ++i) out[i] = vals[i];
   return (int)err;
 }
 
@@ -1556,6 +2005,11 @@ int launch_physics(TREE_LAUNCH_PARAMS) {
                D,        md,       n_sweep,    refresh, ckpt_bf16,
                min_delta, sh.plan.path, sh.plan.stages, sh.plan.rows};
   void* args[] = {(void*)&a};
+  if (sh.cluster > 1) {  // a failed cluster launch returns its error
+    cudaLaunchAttribute at[1];
+    const cudaLaunchConfig_t cfg = cluster_config(sh, stream, at);
+    return (int)cudaLaunchKernelExC(&cfg, (const void*)sh.kernel, args);
+  }
   return (int)cudaLaunchKernel((const void*)sh.kernel, dim3((unsigned)sh.grid),
                                dim3(sh.threads), args, (size_t)sh.bytes,
                                static_cast<cudaStream_t>(stream));

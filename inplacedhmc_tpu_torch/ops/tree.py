@@ -53,12 +53,15 @@ functions are these with the Gaussian physics of precision ``lam``.
 
 Every ``[D, D]`` product of a launch (a dense ``M^-1``, the refresh's
 ``mass_chol^T``, the dense Gaussian's ``P``) reads its matrix from shared
-memory, filled by the copy unit's asynchronous bulk copies: resident in
-the block where the launch's matrices fit beside its chains' stacks, else
-streamed through each chain's ring of row panels, except where the card
-measured the ring slower than reading the rows from L2 (the wide form);
-:func:`stage_plan` is the launcher's choice by shape, :func:`plan_on_card`
-asks the launcher.
+memory, filled by the copy unit's asynchronous bulk copies: in the one-warp
+form resident in the block where the launch's matrices fit beside its
+chains' stacks, else streamed through each chain's ring of row panels; in
+the wide form under a dense metric, where a launch waits on its deepest
+chain (:func:`cluster_of`), split by columns across a thread-block cluster
+of 4 or 8 blocks a chain, each block streaming its own column panel of the
+matrix (packed once per matrix by :func:`cluster_panels`) through its own
+ring.  :func:`stage_plan` is the launcher's choice by shape,
+:func:`plan_on_card` asks the launcher.
 The arithmetic and its order are those of the kernel before staging, so
 the outputs are too, bit for bit, on every path.
 
@@ -77,6 +80,8 @@ shared-memory bound (item 1 (h)).
 from __future__ import annotations
 
 import ctypes
+import functools
+import weakref
 from typing import NamedTuple
 
 import torch
@@ -113,6 +118,10 @@ TREE_GAUSSIAN = TREE_KERNELS["gaussian"]
 #: that launcher's ``launches`` (the stack type is an argument of the one
 #: kernel), counted where it launches
 CKPT_BF16_LAUNCHES: dict = {}
+#: launches whose ``[D, D]`` products ran on a cluster of blocks (the wide
+#: form's cluster paths, :func:`cluster_of`), by launcher symbol: a subset
+#: of that launcher's ``launches``, counted where it launches
+CLUSTER_LAUNCHES: dict = {}
 #: each source's plan query (``tree_<physics>_plan``: the staged products'
 #: plan of a launch and the blocks an SM holds; it launches nothing), read
 #: by :func:`plan_on_card` and :func:`blocks_per_sm`
@@ -143,10 +152,12 @@ _STACK_ALIGN = 16
 #: the chain tile of JAX's ``make_logistic_tree_transition`` (its default)
 LOGISTIC_BLOCK_C = 128
 #: the staged ``[D, D]`` products (``tree_kernel.cuh``'s ``plan_of``): the
-#: paths, by their number in the launch; an SM's shared memory and what of
-#: it each block reserves; a ring's most stages; the most chains a block of
-#: the staged one-warp form holds (D <= 128; 8 above)
-PATHS = ("register", "resident", "ring")
+#: paths, by their number in the launch (``"clusterK"``: the wide form's
+#: products split across a cluster of K blocks a chain); an SM's shared
+#: memory and what of it each block reserves; a ring's most stages; the
+#: most chains a block of the staged one-warp form holds (D <= 128; 8
+#: above)
+PATHS = ("register", "resident", "ring", "cluster4", "cluster8")
 SM_SMEM = 233472
 BLOCK_RESERVED = 1024
 MAX_STAGES = 8
@@ -154,6 +165,16 @@ MAX_STAGED_WARPS = 16
 #: the plan's own ring: the one-warp form above this D
 #: (``tree_kernel.cuh::RING_MIN_DIM``, set by the card's measurements)
 RING_MIN_DIM = 128
+#: the wide form's cluster paths under a dense metric, which the launcher
+#: alone plans (``tree_kernel.cuh``'s ``cluster_fit``; :func:`stage_plan`
+#: mirrors the rest)
+CLUSTER_PATHS = PATHS[3:]
+#: :func:`cluster_of`: a cluster has 8 blocks from this D, 4 below it; it is
+#: asked for where a launch's chains in flight are fewer than
+#: ``TAIL_CHAINS`` (times ``(TAIL_DIM / D)^2`` above ``TAIL_DIM``)
+CLUSTER8_DIM = 768
+TAIL_CHAINS = 64
+TAIL_DIM = 1024
 #: chains a block of the one-warp form holds on the register path
 _MAX_WARPS = 4
 #: the physics whose dense launcher keeps its products on the register
@@ -283,12 +304,21 @@ class StagePlan(NamedTuple):
     rows: int
     smem_bytes: int
 
+    @property
+    def cluster(self) -> int:
+        """Blocks a chain: K on a ``"clusterK"`` path, else 1."""
+        return cluster_size(self.path)
+
     def in_flight(self, dim: int) -> int:
         """Bytes of the matrix a team has on their way while it reads a
-        panel: ``stages - 1`` panels on the ring, 0 off it."""
-        if self.path != "ring":
-            return 0
-        return 4 * max(self.stages - 1, 0) * self.rows * dim
+        panel: ``stages - 1`` panels on the ring (on a cluster path, each
+        block's, of its panel's :func:`panel_cols` columns), 0 off it."""
+        if self.path == "ring":
+            return 4 * max(self.stages - 1, 0) * self.rows * dim
+        if self.cluster > 1:
+            return 4 * max(self.stages - 1, 0) * self.rows \
+                * panel_cols(dim, self.cluster)
+        return 0
 
 
 def _round16(b: int) -> int:
@@ -323,6 +353,127 @@ def _ring_fit(dim: int, room: int):
         return 0, unit
     s = room // (4 * r * dim)
     return (min(s, MAX_STAGES) if s >= 2 else 0), r
+
+
+def cluster_size(path: str) -> int:
+    """Blocks a chain on ``path``: K for ``"clusterK"``, else 1."""
+    return int(path[len("cluster"):]) if path.startswith("cluster") else 1
+
+
+def panel_cols(dim: int, k: int) -> int:
+    """Columns of each of a cluster's K column panels: ``ceil(D / K)``
+    rounded up to a multiple of 4, so that a panel's rows are whole
+    16-byte units for the bulk copies (``tree_kernel.cuh::panel_cols``)."""
+    cols = -(-dim // k)
+    return -(-cols // 4) * 4
+
+
+def cluster_panels(m: torch.Tensor, k: int) -> torch.Tensor:
+    """``m [D, D]`` as a cluster's K column panels ``[K, D, wk]``
+    (``wk = panel_cols(D, K)``; panel ``r`` holds columns ``[r wk, r wk +
+    wk)`` row by row, zero past column D): what block ``r`` of a chain's
+    cluster streams.  Packed once per matrix: the result is kept while
+    ``m`` lives and is not modified in place (its version counter), so a
+    sampling loop that hands the same metric to every launch packs it
+    once."""
+    key = id(m)
+    hit = _PANELS.get(key)
+    if hit is not None and hit[0]() is m and hit[1] == (m._version, k):
+        return hit[2]
+    d = m.shape[0]
+    wk = panel_cols(d, k)
+    packed = torch.nn.functional.pad(m, (0, k * wk - d)) \
+        .reshape(d, k, wk).transpose(0, 1).contiguous()
+    _PANELS[key] = (weakref.ref(m, lambda _, key=key: _PANELS.pop(key, None)),
+                    (m._version, k), packed)
+    return packed
+
+
+#: the packed panels of the matrices a launch was handed, by ``id``
+#: (:func:`cluster_panels`)
+_PANELS: dict = {}
+
+
+def cluster_of(dim: int, spread: float = 1.0) -> int:
+    """The blocks a chain of the wide form's launch under a dense metric
+    (1: the register path, one block a chain) whose chains in flight are
+    ``spread`` (:func:`chains_in_flight`): a cluster of 4 below
+    ``CLUSTER8_DIM``, 8 from it, where ``spread`` is below ``TAIL_CHAINS``
+    (times ``(TAIL_DIM / D)^2`` above ``TAIL_DIM``), else 1.  A cluster
+    runs one chain's products several times faster but holds K SMs a
+    chain, so it wins where the launch waits on its deepest chain's serial
+    products and loses where many chains keep the card busy.  The card's
+    measurements set these bounds (``tools/time_k5_pairs.py --paths``,
+    ``chip_smoke.py``, ``PERF.md`` section 6): the cluster ran faster at 96
+    chains in flight at D = 257, 66 at 1,002 (38 at config 5's tuned
+    state) and 1 at every D, slower at 120 at D = 512, 98 at 1,002 and 36
+    at 2,048.  A cluster of 8 ran a lone chain fastest at every D, and
+    config 5's tuned state as fast as a cluster of 4."""
+    if dim <= WARP_DIM:
+        return 1
+    bound = TAIL_CHAINS * min(1.0, (TAIL_DIM / dim) ** 2)
+    if spread >= bound:
+        return 1
+    return 4 if dim < CLUSTER8_DIM else 8
+
+
+def chains_in_flight(steps: torch.Tensor) -> float:
+    """A launch's chains in flight from its ``steps [K, C]`` (or ``[C]``):
+    the leaves of all its chains over those of its deepest chain (each
+    chain's leaves summed over a sweep's K transitions).  The launch lasts
+    at least its deepest chain's leaves one after another; it is that long
+    where the card runs at least this many chains at once."""
+    per_chain = steps.reshape(-1, steps.shape[-1]).sum(0)
+    top = int(per_chain.max()) if per_chain.numel() else 0
+    return float(per_chain.sum()) / top if top else float(steps.shape[-1])
+
+
+class _Tail:
+    """The chains in flight of each wide dense launch's last record that
+    has reached the host, by launcher symbol, C, D and max depth: a launch
+    copies its ``steps`` to the host behind it (when no copy of the same
+    key is on its way) and the next launch of the key reads the copy if it
+    has landed.  It never waits for one, so the choice trails the chains
+    by a launch or more; before any record, the launch's C."""
+
+    def __init__(self):
+        self.seen = {}
+
+    def spread(self, key, c: int) -> float:
+        rec = self.seen.get(key)
+        if rec is None:
+            return float(c)
+        if rec[1] is not None and rec[1][0].query():
+            rec[0] = chains_in_flight(rec[1][1])
+            rec[1] = None
+        return rec[0]
+
+    def record(self, key, c: int, steps: torch.Tensor) -> None:
+        rec = self.seen.setdefault(key, [float(c), None])
+        if rec[1] is None:
+            host = torch.empty(steps.shape, dtype=steps.dtype,
+                               pin_memory=True)
+            host.copy_(steps, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+            rec[1] = (done, host)
+
+
+_TAIL = _Tail()
+
+
+@functools.lru_cache(maxsize=None)
+def _cluster_admitted(physics: str, dim: int, max_depth: int, refresh: bool,
+                      ckpt_bf16: bool, path: str) -> bool:
+    """Whether the launcher admits the cluster ``path`` for the wide form's
+    dense launch of this shape (its ``cluster_fit``: each block's ring
+    beside the stacks).  Needs the card."""
+    try:
+        _plan_query(physics, dim, max_depth, True, refresh, ckpt_bf16, path,
+                    False)
+    except RuntimeError:
+        return False
+    return True
 
 
 def n_staged(physics: str, dense: bool, refresh: bool = False) -> int:
@@ -427,12 +578,15 @@ def stage_plan(dim: int, max_depth: int, physics: str, dense: bool,
     else the register path (the card's measurements,
     ``tree_kernel.cuh::plan_of``: the ring lost to the register path at
     D <= 128 and over the wide form's block, the resident path won wherever
-    it fitted, from D = 10 to 128, but for ``UNSTAGED_PHYSICS``).  ``path``
-    (one of :data:`PATHS`) asks for a path: ``ValueError`` where the shape
-    does not admit it.  A launch
-    without a matrix to stage and the wide form admit the register path
-    only.  A physics of :data:`TILED_PHYSICS` takes :func:`tile_plan` (for
-    its ``grad_bf16``), on the register path only."""
+    it fitted, from D = 10 to 128, but for ``UNSTAGED_PHYSICS``).  The wide
+    form's plan is the register path; its clusters (:data:`CLUSTER_PATHS`)
+    are the launcher's to plan (:func:`plan_on_card`), and asking this
+    mirror for one raises ``ValueError``.  ``path`` (one of
+    :data:`PATHS`) asks for a path: ``ValueError`` where the shape does
+    not admit it.  A launch without a matrix to stage and the wide form
+    admit the register path only.  A physics of :data:`TILED_PHYSICS`
+    takes :func:`tile_plan` (for its ``grad_bf16``), on the register path
+    only."""
     if physics in TILED_PHYSICS:
         if path not in (None, "register"):
             if path not in PATHS:
@@ -481,6 +635,10 @@ def stage_plan(dim: int, max_depth: int, physics: str, dense: bool,
         if res is not None and (not ring_own or res_chains >= reg_chains):
             return res
         return ring if ring_own else reg
+    if path in CLUSTER_PATHS:
+        raise ValueError(f"the {physics} kernel's {path} path is the "
+                         f"launcher's to plan (plan_on_card); this mirror "
+                         f"does not admit it")
     plans = {"register": reg, "resident": res, "ring": ring}
     if path not in plans:
         raise ValueError(f"path must be one of {PATHS}, got {path!r}")
@@ -493,6 +651,23 @@ def stage_plan(dim: int, max_depth: int, physics: str, dense: bool,
     return plans[path]
 
 
+def _check_path(dim: int, max_depth: int, physics: str, dense: bool,
+                refresh: bool, ckpt_bf16: bool, path: str,
+                grad_bf16: bool = False) -> None:
+    """``ValueError`` where ``path`` is not one of :data:`PATHS` or the
+    shape does not admit it: :func:`stage_plan`'s paths by its mirror, a
+    cluster (:data:`CLUSTER_PATHS`) in the wide form under a dense metric
+    only (the launcher refuses one whose ring does not fit)."""
+    if path not in CLUSTER_PATHS:
+        stage_plan(dim, max_depth, physics, dense, refresh, ckpt_bf16, path,
+                   grad_bf16)
+    elif dim <= WARP_DIM or not n_staged(physics, dense, refresh) \
+            or not dense:
+        raise ValueError(f"the {physics} kernel does not admit the {path} "
+                         f"path at D = {dim} under a "
+                         f"{'dense' if dense else 'diagonal'} metric")
+
+
 def plan_on_card(physics: str, dim: int, max_depth: int, dense: bool,
                  refresh: bool = False, ckpt_bf16: bool = False,
                  path: str = None, grad_bf16: bool = False):
@@ -502,11 +677,31 @@ def plan_on_card(physics: str, dim: int, max_depth: int, dense: bool,
     occupancy calculator (registers, shared memory, threads):
     ``(StagePlan, blocks)``.  Raises where the launcher refuses ``path``.
     Needs the card."""
-    out = (ctypes.c_int * 6)()
+    out = _plan_query(physics, dim, max_depth, dense, refresh, ckpt_bf16,
+                      path, grad_bf16)
+    return StagePlan(PATHS[out[0]], *out[1:5]), out[5]
+
+
+def active_clusters(physics: str, dim: int, max_depth: int, dense: bool,
+                    refresh: bool = False, ckpt_bf16: bool = False,
+                    path: str = None) -> int:
+    """The clusters of the launch :func:`plan_on_card` plans that the card
+    holds at once (``cudaOccupancyMaxActiveClusters``; 0 off a cluster
+    path).  Needs the card."""
+    return _plan_query(physics, dim, max_depth, dense, refresh, ckpt_bf16,
+                       path, False)[6]
+
+
+def _plan_query(physics, dim, max_depth, dense, refresh, ckpt_bf16, path,
+                grad_bf16) -> list:
+    """``tree_<physics>_plan``'s seven numbers: the plan's path, warps,
+    stages, rows and bytes, the blocks an SM, the clusters the card
+    holds."""
+    out = (ctypes.c_int * 7)()
     TREE_PLAN[physics].call(
         dim, max_depth, int(ckpt_bf16), int(dense), int(refresh),
         -1 if path is None else PATHS.index(path), int(grad_bf16), out)
-    return StagePlan(PATHS[out[0]], *out[1:5]), out[5]
+    return list(out)
 
 
 def blocks_per_sm(physics: str, dim: int, max_depth: int,
@@ -857,7 +1052,11 @@ def _launch(q0, eps, phys, minv, max_depth: int, min_delta: float, k: int,
     diagonal or dense launcher by ``minv``'s shape) reads through raw
     pointers and launch it on the current stream.  ``lead`` is ``(k,)`` for
     arrays with a sweep axis, ``()`` for one transition without one.
-    ``path`` asks for the staged products' path (:func:`stage_plan`); the
+    ``path`` asks for the staged products' path (:func:`stage_plan`, or a
+    cluster of :data:`CLUSTER_PATHS`); by default the plan's own, and in
+    the wide form under a dense metric the cluster :func:`cluster_of`
+    picks for the chains in flight of the last launch of this launcher and
+    shape whose record has reached the host (before any, C).  The
     matrices a launch may stage must start 16-byte aligned, as the copy
     unit reads them."""
     if q0.device.type != "cuda":
@@ -914,9 +1113,28 @@ def _launch(q0, eps, phys, minv, max_depth: int, min_delta: float, k: int,
         form = "grad_bf16" if phys.data["grad_bf16"] else "f32"
         check_tensor("tree kernel", "plane", plane,
                      plane_shape(n_plane, d, form), dev, torch.float32)
+    kernel = (TREE_DENSE_KERNELS if dense else TREE_KERNELS)[phys.name]
     if path is not None:
-        stage_plan(d, max_depth, phys.name, dense, refresh, ckpt_bf16, path,
-                   tiled and bool(phys.data["grad_bf16"]))
+        _check_path(d, max_depth, phys.name, dense, refresh, ckpt_bf16, path,
+                    tiled and bool(phys.data["grad_bf16"]))
+    wide_dense = dense and d > WARP_DIM
+    tail = (kernel.symbol, c, d, max_depth)
+    if wide_dense and path is None:
+        # a cluster where the last launch of this shape waited on its
+        # deepest chain, if the launcher admits it here
+        blocks = cluster_of(d, _TAIL.spread(tail, c))
+        if blocks > 1 and _cluster_admitted(phys.name, d, max_depth,
+                                            refresh, ckpt_bf16,
+                                            f"cluster{blocks}"):
+            path = f"cluster{blocks}"
+    blocks = 1 if path is None else cluster_size(path)
+    if blocks > 1:
+        # the cluster's blocks stream the matrices' column panels, packed
+        # once per matrix
+        mat = None if mat is None else cluster_panels(mat, blocks)
+        minv = cluster_panels(minv, blocks)
+        if refresh:
+            sqrt_mass = cluster_panels(sqrt_mass, blocks)
     staged = [("matrix", mat), ("minv", minv if dense else None),
               ("sqrt_mass", sqrt_mass if dense and refresh else None),
               ("plane", plane if tiled else None)]
@@ -935,7 +1153,6 @@ def _launch(q0, eps, phys, minv, max_depth: int, min_delta: float, k: int,
     if tiled:   # the kernel reads the plane alone
         obs_mat, obs_ptrs, n_obs = plane, [None, None], n_plane
     scalars = phys.scalars() + [0.0] * (2 - len(phys.scalars()))
-    kernel = (TREE_DENSE_KERNELS if dense else TREE_KERNELS)[phys.name]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         kernel.launch(
@@ -950,6 +1167,12 @@ def _launch(q0, eps, phys, minv, max_depth: int, min_delta: float, k: int,
     if ckpt_bf16:
         CKPT_BF16_LAUNCHES[kernel.symbol] = \
             CKPT_BF16_LAUNCHES.get(kernel.symbol, 0) + 1
+    if blocks > 1:
+        CLUSTER_LAUNCHES[kernel.symbol] = \
+            CLUSTER_LAUNCHES.get(kernel.symbol, 0) + 1
+    if wide_dense:
+        with torch.cuda.device(dev):
+            _TAIL.record(tail, c, out.steps)
     return out
 
 
@@ -974,17 +1197,19 @@ def tree_sweep(q0: torch.Tensor, eps: torch.Tensor, phys,
     buffers to write into (a sampling loop's, allocated once); the returned
     tensors are those buffers, so the next call with them overwrites
     them.  ``ckpt_bf16``: bfloat16 checkpoint stacks.  ``path``: the staged
-    products' path, a check's hook (:func:`stage_plan`: the plan's own by
-    default; the sampling paths never set it); the plain version checks it
-    and has one path."""
+    products' path, a check's hook (:func:`stage_plan` or a cluster of
+    :data:`CLUSTER_PATHS`; by default the plan's own, in the wide form
+    under a dense metric a cluster where the last launch of the shape
+    waited on its deepest chain, :func:`cluster_of`; the sampling paths
+    never set it); the plain version checks it and has one path."""
     refresh = _check_draws(momentum, dirs, sqrt_mass, unif, key)
     _check_max_depth(max_depth)
     if n_sweep < 1:
         raise ValueError(f"n_sweep must be >= 1, got {n_sweep}")
     if q0.device.type == "cpu":
         if path is not None:
-            stage_plan(q0.shape[1], max_depth, phys.name, minv.ndim == 2,
-                       refresh, ckpt_bf16, path)
+            _check_path(q0.shape[1], max_depth, phys.name, minv.ndim == 2,
+                        refresh, ckpt_bf16, path)
         return tree_sweep_plain(
             q0, eps, phys, minv, max_depth, min_delta, n_sweep,
             momentum=momentum, dirs=dirs, unif=unif, key=key,
@@ -1020,8 +1245,8 @@ def tree_transition(q0: torch.Tensor, p0, eps: torch.Tensor, dirs, unif,
     _check_max_depth(max_depth)
     if q0.device.type == "cpu":
         if path is not None:
-            stage_plan(q0.shape[1], max_depth, phys.name, minv.ndim == 2,
-                       refresh, ckpt_bf16, path)
+            _check_path(q0.shape[1], max_depth, phys.name, minv.ndim == 2,
+                        refresh, ckpt_bf16, path)
         if refresh:
             out = tree_sweep_plain(
                 q0, eps, phys, minv, max_depth, min_delta, key=key,

@@ -1396,7 +1396,10 @@ def test_cuda_staged_paths_bit_equal(d, physics, metric, form):
     key = _key(171 + d)
     scale = _scale(minv)
     for md in (10, 13):
-        for path in (None,) + tree.PATHS:
+        # the mirror's paths (the wide form's clusters are the launcher's
+        # to plan: test_cuda_cluster_paths_bit_equal)
+        for path in (None,) + tuple(p for p in tree.PATHS
+                                    if p not in tree.CLUSTER_PATHS):
             try:
                 want = tree.stage_plan(d, md, physics, dense, refresh, False,
                                        path)
@@ -1441,6 +1444,139 @@ def test_cuda_staged_paths_bit_equal(d, physics, metric, form):
             if a.dtype == torch.float32:   # bit for bit, NaN payloads too
                 a, b = a.view(torch.int32), b.view(torch.int32)
             assert torch.equal(a, b), (run, f)
+
+
+# the wide form's cluster paths (a chain's [D, D] products split by output
+# columns across a cluster of 4 or 8 blocks, csrc/tree_kernel.cuh's
+# Cluster): one past a warp, config 5's T = 1,000 and the largest D, and
+# the physics whose wide launches have a dense M^-1
+CLUSTER_DIMS = [257, 1002, 2048]
+CLUSTER_CASES = [("gaussian", "dense"), ("dense_gaussian", "dense"),
+                 ("stoch_vol", "dense")]
+
+
+def _wide_matrix_case(physics, metric, d, c, seed):
+    """Positions, the bound physics and the metric of a wide launch with a
+    ``[D, D]`` product (stochastic volatility at T = D - 2)."""
+    if physics == "stoch_vol":
+        q, phys, minv, _ = _sv(seed, c, d - 2, metric)
+        return q, phys, minv
+    return _dense(seed, c, d, physics, metric)
+
+
+def _kernel_momentum(xi, scale):
+    """The refresh's momentum as the kernel computes it: ``xi`` times the
+    scale row (diagonal), or ``xi mass_chol^T`` summed over i in order,
+    each product and sum rounded on its own (dense)."""
+    if scale.ndim == 1:
+        return scale * xi
+    p = torch.zeros_like(xi)
+    for i in range(scale.shape[0]):
+        p = p + xi[:, i:i + 1] * scale[i]
+    return p
+
+
+def _bits_equal(a, b):
+    if a.dtype == torch.float32:   # bit for bit, NaN payloads too
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", CLUSTER_DIMS)
+@pytest.mark.parametrize("physics,metric", CLUSTER_CASES)
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("form", ["refresh", "prng"])
+def test_cuda_cluster_paths_bit_equal(d, physics, metric, bf16, form):
+    """Every cluster (4 and 8 blocks a chain, forced through the launch's
+    hook) and the wrapper's own choice against the register path (one
+    block a chain, K = 1): every output and integer record equal bit for
+    bit (each output column summed over i in order with the same
+    operations), with the momentum and directions drawn in the kernel
+    (``refresh``: its ``mass_chol^T`` product too) or given (``prng``),
+    every seventh row padded (``valid`` 0: no steps), float32 and bfloat16
+    stacks; the launcher admits both clusters at these shapes (its plan's
+    path, one chain a block, ``CLUSTER_STAGES`` stages, within
+    ``SMEM_LIMIT``); each launch counted, each cluster's in
+    ``CLUSTER_LAUNCHES``.  The register path against the plain version fed
+    the same momentum, directions and the kernel's uniforms
+    (``_compare_any_field``: the row sums and products add in other
+    orders)."""
+    _needs_card()
+    c, md = 24, 6
+    dense = metric == "dense"
+    refresh = form == "refresh"
+    q, phys, minv = _wide_matrix_case(physics, metric, d, c, 180 + d)
+    e = torch.full((c,), 0.02 if physics == "stoch_vol" else 0.25,
+                   device="cuda")
+    valid = (torch.arange(c, device="cuda") % 7 != 6).to(torch.int32)
+    key, scale = _key(181 + d), _scale(minv)
+    xi, dirs, unif = tree.philox_draws(key, c, d, md)
+    p0 = _kernel_momentum(xi[0], scale).contiguous()
+    kern = (tree.TREE_DENSE_KERNELS if dense
+            else tree.TREE_KERNELS)[physics]
+    runs = {}
+    for path in ("register",) + tree.CLUSTER_PATHS + (None,):
+        if path is not None:
+            got, _ = tree.plan_on_card(physics, d, md, dense, refresh, bf16,
+                                       path)
+            assert (got.path, got.warps) == (path, 1), got
+            assert 0 < got.smem_bytes <= tree.SMEM_LIMIT
+        before = kern.launches
+        clustered = tree.CLUSTER_LAUNCHES.get(kern.symbol, 0)
+        if refresh:
+            runs[path] = tree.tree_transition(
+                q, None, e, None, None, phys, minv, md, -1000.0, key=key,
+                sqrt_mass=scale, valid=valid, ckpt_bf16=bf16, path=path)
+        else:
+            runs[path] = tree.tree_transition(
+                q, p0, e, dirs[0], None, phys, minv, md, -1000.0, key=key,
+                valid=valid, ckpt_bf16=bf16, path=path)
+        torch.cuda.synchronize()
+        assert kern.launches == before + 1
+        if path in tree.CLUSTER_PATHS:
+            assert tree.CLUSTER_LAUNCHES[kern.symbol] == clustered + 1
+    ref = runs["register"]
+    for path, got in runs.items():
+        for f in tree.TreeOut._fields:
+            assert _bits_equal(getattr(got, f), getattr(ref, f)), (path, f)
+    assert int(ref.steps[valid == 0].sum()) == 0
+    want = tree.tree_transition_plain(q, p0, e, dirs[0], unif[0], phys, minv,
+                                      md, -1000.0, valid=valid,
+                                      ckpt_bf16=bf16)
+    _compare_any_field(ref, want, c, c // 20, lsa_bound=True)
+    assert bool(torch.isfinite(ref.q).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("physics,metric", CLUSTER_CASES)
+def test_cuda_cluster_sweep_bit_equal_to_the_register_path(physics, metric):
+    """A sweep of 16 transitions in one launch at D = 257 (``n_sweep``, the
+    momentum and directions drawn, every fifth row padded), float32 and
+    bfloat16 stacks: every cluster path and the wrapper's own choice equal
+    to the register path bit for bit; the padded rows take no step."""
+    _needs_card()
+    c, md, k, d = 24, 6, 16, 257
+    dense = metric == "dense"
+    q, phys, minv = _wide_matrix_case(physics, metric, d, c, 190)
+    e = torch.full((c,), 0.02 if physics == "stoch_vol" else 0.25,
+                   device="cuda")
+    valid = (torch.arange(c, device="cuda") % 5 != 4).to(torch.int32)
+    key, scale = _key(191), _scale(minv)
+    for bf16 in (False, True):
+        ref = tree.tree_sweep(q, e, phys, minv, md, -1000.0, k, key=key,
+                              sqrt_mass=scale, valid=valid, ckpt_bf16=bf16,
+                              path="register")
+        for path in tree.CLUSTER_PATHS + (None,):
+            got = tree.tree_sweep(q, e, phys, minv, md, -1000.0, k, key=key,
+                                  sqrt_mass=scale, valid=valid,
+                                  ckpt_bf16=bf16, path=path)
+            torch.cuda.synchronize()
+            for f in tree.TreeOut._fields:
+                assert _bits_equal(getattr(got, f), getattr(ref, f)), \
+                    (bf16, path, f)
+        assert int(ref.steps[:, valid == 0].sum()) == 0
+        assert float(ref.depth[:, valid == 1].double().mean()) >= 1
 
 
 # K5's bfloat16 checkpoint stacks (ckpt_bf16): inside one register, one

@@ -6,8 +6,9 @@ checkouts ``--old`` and ``--new`` with the port's own ``nvcc`` flags (one
 process per source, all started together), dumps their SASS with
 ``cuobjdump -sass`` and matches each ``tree_kernel`` instantiation of one
 to the other's by its physics, its NV, its metric form (diagonal or
-dense) and its team (one warp, a block of warps: the wide form, or a
-tile of chains in lockstep: the tile form), read
+dense) and its team (one warp, a block of warps: the wide form, a
+cluster of such blocks: the wide form's cluster path, or a tile of chains
+in lockstep: the tile form), read
 from the mangled names, whatever else the names hold.  For each pair it
 prints whether the instruction streams are identical (addresses and
 encodings stripped) and, where not, how many instructions each has and how
@@ -48,6 +49,7 @@ def _key(name: str):
     if m is None:
         return None
     team = "block" if "5BlockE" in name or "tree_kernel_wide" in name \
+        else "cluster" if "7ClusterE" in name \
         else "tile" if "4TileE" in name else "warp"
     return (m.group(1), int(m.group(2)),
             "dense" if m.group(3) == "1" else "diagonal", team)

@@ -20,7 +20,17 @@ longest chain.  Cases:
   start ``chip_smoke.tile_start``, an SPD M^-1, eps 0.02;
 * ``stoch_vol_wide``: the same at T = 1,000 (1,024 x 1,002: the wide
   form), with float32 and with bfloat16 stacks; ``stoch_vol_wide_one``:
-  one chain at eps 0.002 (one block streaming the 4 MB M^-1);
+  one chain at eps 0.002 (one cluster streaming the 4 MB M^-1);
+  ``stoch_vol_wide_eps``: 1,024 chains at eps 0.2 (shallow trees) and
+  0.002 (deep ones for every chain), float32 stacks;
+* ``dense_gaussian_wide``: the dense Gaussian's wide form at 256 x 512
+  (``chip_smoke.py``'s Wishart precision at the 250-D target's ratio of
+  degrees of freedom) under its diagonal metric at half the stability
+  limit (``P q`` alone) and under its dense M^-1 at eps 0.3;
+* ``cluster_dims``: stochastic volatility at T = D - 2 for D = 257, 512,
+  1,002 and 2,048 under an SPD M^-1, 1,024 chains at eps 0.02 and one
+  chain at eps 0.002 (with ``--paths``: each cluster of the wide form
+  against the register path, and the clusters the card holds at once);
 * ``mvn``: the dense Gaussian at 1,024 x 250 (``chip_smoke.mvn_target``)
   under its dense M^-1 (eps 0.3) and under its diagonal, which times
   ``P q`` alone (eps half the stability limit);
@@ -58,15 +68,24 @@ longest chain.  Cases:
 
 The K5 and K3 cases' outputs must be equal bit for bit, but for
 K5-logistic against an older one-warp body (``old_rows``): both sides are
-then held against the plain version (``chip_smoke.compare_tree``).  The K5 cases run
+then held against the plain version (``chip_smoke.compare_tree``).  In
+the wide form under a dense metric, where this checkout's wrapper asks for
+a cluster of blocks if the launch's chains in flight are few
+(``ops.tree.cluster_of``; each label prints them and the wrapper's K), an
+older checkout, which has none, runs its register path.  The K5 cases run
 max_depth 10, one transition drawing its momentum,
 direction and uniforms, the momentum through ``mass_chol`` (the refresh).
 With ``--paths`` the K5 cases time this checkout alone, forced through
 every staged path their shape admits, each output equal bit for bit to
-the plan's own::
+the plan's own.  With ``--tail`` they time this checkout alone with every
+chain valid against only the deepest chain valid (the launch's ``valid``
+column; an invalid row skips its tree at once), and print the time per
+``[D, D]`` product of that chain alone: a launch whose time is that of its
+deepest chain is bound by that chain's serial products, one far above it
+by what all chains share (L2's bandwidth)::
 
     python3 tools/time_k5_pairs.py --old DIR [--cases mvn k1 k1_bf16 k2 k3]
-        [--pairs 12] [--reps 5] [--paths]
+        [--pairs 12] [--reps 5] [--paths | --tail]
 
 Needs a CUDA device.
 """
@@ -82,8 +101,8 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
 
 CASES = ("gauss_dense", "stoch_vol", "stoch_vol_wide", "stoch_vol_wide_one",
-         "mvn", "dims", "small", "logistic", "diag", "moved", "k1",
-         "k1_bf16", "k2", "k3")
+         "stoch_vol_wide_eps", "dense_gaussian_wide", "cluster_dims", "mvn", "dims", "small",
+         "logistic", "diag", "moved", "k1", "k1_bf16", "k2", "k3")
 #: the logistic cases (K1, K1 with grad_bf16, K2) and their chain counts
 LOGISTIC_LEAVES = ("k1", "k1_bf16", "k2")
 LEAF_CHAINS = (1, 64, 1024, 8192)
@@ -92,6 +111,9 @@ LEAF_CHAINS = (1, 64, 1024, 8192)
 DIMS = (128, 129, 200, 256)
 #: the ``small`` case's D: the one-warp form's first two register counts
 SMALL_DIMS = (32, 50, 64)
+#: the ``cluster_dims`` case's D: one past a warp, two warps, config 5's
+#: T = 1,000 and the largest D
+CLUSTER_DIMS = (257, 512, 1002, 2048)
 
 
 def _cases(name: str) -> list:
@@ -181,6 +203,39 @@ def _cases(name: str) -> list:
         log = _cases("logistic")[0]
         return runs + [{**log, "minv": torch.diagonal(log["minv"])
                         .contiguous()}]
+    if name == "dense_gaussian_wide":
+        # the dense Gaussian's wide form at 256 x 512 (chip_smoke.py's
+        # MVN_WIDE case: a Wishart precision at the 250-D target's ratio of
+        # degrees of freedom), under its diagonal metric at half the
+        # stability limit (P q alone) and under its dense M^-1 at eps 0.3
+        model, sigma = cs.mvn_target(cs.MVN_WIDE_DIM, cs.MVN_WIDE_DF)
+        prec = model.structure["precision"]
+        var = torch.diag(sigma)
+        pre = prec.double() * torch.sqrt(var[:, None] * var[None, :])
+        limit = 2.0 / float(torch.linalg.eigvalsh(pre).max()) ** 0.5
+        q0 = (torch.randn((cs.MVN_WIDE_CHAINS, cs.MVN_WIDE_DIM),
+                          generator=gen, dtype=torch.float64, device="cuda")
+              @ torch.linalg.cholesky(sigma).T).float().contiguous()
+        sigma32 = sigma.float()
+        phys = cs._physics("dense_gaussian", {"prec": prec})
+        return [dict(physics="dense_gaussian", phys=phys, q0=q0,
+                     minv=var.float().contiguous(), eps=0.5 * limit),
+                dict(physics="dense_gaussian", phys=phys, q0=q0,
+                     minv=(0.5 * (sigma32 + sigma32.T)).contiguous(),
+                     eps=0.3)]
+    if name == "cluster_dims":
+        # stochastic volatility at T = D - 2 under an SPD M^-1, 1,024
+        # chains at eps 0.02 (stoch_vol_wide's) and one chain at 0.002
+        runs = []
+        for d in CLUSTER_DIMS:
+            st = cs.tile_model("stoch_vol", d - 2).structure
+            phys = cs._physics("stoch_vol", {**st["data"], **st["scalars"]})
+            minv = cs._spd(d, gen).contiguous()
+            for c, eps in ((cs.E_CHAINS, 0.02), (1, 0.002)):
+                runs.append(dict(physics="stoch_vol", phys=phys, minv=minv,
+                                 q0=cs.tile_start("stoch_vol", c, gen,
+                                                  sv_t=d - 2), eps=eps))
+        return runs
     if name == "moved":
         runs = []
         for d in (10, 50, 200, 1000):
@@ -224,6 +279,8 @@ def _cases(name: str) -> list:
     run = dict(physics="stoch_vol", phys=phys, q0=q0, minv=minv, eps=0.02)
     if name == "stoch_vol_wide_one":
         return [{**run, "eps": 0.002}]
+    if name == "stoch_vol_wide_eps":
+        return [{**run, "eps": 0.2}, {**run, "eps": 0.002}]
     return [run] + ([{**run, "bf16": True}] if name == "stoch_vol_wide"
                     else [])
 
@@ -436,11 +493,82 @@ def _time_paths(label, run, kernel, physics, d, dense, bf16, n_prod, ref,
             raise RuntimeError(f"{label}: the {path} path differs from the "
                                f"plan's own")
         ms = cs.cuda_time_ms(lambda: run(kernel, path), reps, 1)
+        clusters = ""
+        if plan.cluster > 1:
+            held = tree.active_clusters(physics, d, cs.MAX_DEPTH, dense,
+                                        True, bf16, path)
+            clusters = f", {held} clusters of {plan.cluster} at once"
         print(f"[paths]   {path}, {plan.stages} stages of {plan.rows} rows "
               f"({plan.in_flight(d)} bytes in flight), {plan.warps} chains "
-              f"a block, {plan.smem_bytes} bytes, {blocks} blocks an SM: "
-              f"{ms:.4f} ms, {ms / n_prod * 1e3:.2f} us per product on the "
-              f"longest chain, on {card}; outputs equal")
+              f"a block, {plan.smem_bytes} bytes, {blocks} blocks an SM"
+              f"{clusters}: {ms:.4f} ms, {ms / n_prod * 1e3:.2f} us per "
+              f"product on the longest chain, on {card}; outputs equal")
+
+
+def _label(name, r, b, plan, blocks, n_prod) -> str:
+    """A K5 case's label: its shape, metric, stacks, step size, steps, its
+    longest chain, its chains in flight and this checkout's plan (in the
+    wide form under a dense metric, the wrapper's K for them)."""
+    from inplacedhmc_tpu_torch.ops import tree
+    c, d = r["q0"].shape
+    dense = r["minv"].ndim == 2
+    spread = tree.chains_in_flight(b.steps)
+    wide = f", the wrapper's K {tree.cluster_of(d, spread)}" \
+        if dense and d > tree.WARP_DIM else ""
+    return (f"{name}, {c} x {d}, {'dense' if dense else 'diagonal'} "
+            f"metric, {'bf16' if r.get('bf16', False) else 'f32'} stacks, "
+            f"eps {r['eps']:.4g}, {float(b.steps.sum()):.0f} steps, longest "
+            f"chain {int(b.steps.max())} leaves ({n_prod} products), "
+            f"{spread:.1f} chains in flight{wide}; new: "
+            f"{plan.path}, {plan.warps} chains a block, {plan.stages} stages "
+            f"of {plan.rows} rows ({plan.in_flight(d)} bytes in flight), "
+            f"{blocks} blocks an SM")
+
+
+def _time_alone(args, name, r, run, kernel, physics, dense, bf16, b,
+                card) -> None:
+    """``--paths`` or ``--tail`` for one K5 case of this checkout: ``b``
+    is its launch with every chain valid."""
+    import torch
+
+    import chip_smoke as cs
+    from inplacedhmc_tpu_torch.ops import tree
+    c, d = r["q0"].shape
+    plan, blocks = tree.plan_on_card(physics, d, cs.MAX_DEPTH, dense, True,
+                                     bf16)
+    n_prod = _products(physics, dense, int(b.steps.max()))
+    label = _label(name, r, b, plan, blocks, n_prod)
+    if args.paths:
+        _time_paths(label, run, kernel, physics, d, dense, bf16, n_prod, b,
+                    card, args.reps)
+        return
+    deep = int(torch.argmax(b.steps[0]))
+    valid = torch.zeros((c,), dtype=torch.int32, device="cuda")
+    valid[deep] = 1
+    one = run(kernel, valid=valid)
+    for f in tree.TreeOut._fields:
+        got, want = getattr(one, f), getattr(b, f)
+        got, want = (got[:, deep], want[:, deep]) if f != "grad" \
+            else (got[deep], want[deep])
+        if not cs.bits_equal(got, want):
+            raise RuntimeError(f"{name}: the deepest chain alone differs in "
+                               f"{f} from its run beside the others")
+    times = {"all": [], "deepest": []}
+    for i in range(args.pairs):
+        order = ("all", "deepest") if i % 2 == 0 else ("deepest", "all")
+        for side in order:
+            v = None if side == "all" else valid
+            times[side].append(cs.cuda_time_ms(
+                lambda v=v: run(kernel, valid=v), args.reps, 1))
+    ma, md = (statistics.median(times[s]) for s in ("all", "deepest"))
+    n_alone = _products(physics, dense, int(one.steps.max()))
+    print(f"[tail] {label}, on {card}: every chain valid median {ma:.4f} ms "
+          f"(spread {min(times['all']):.4f}-{max(times['all']):.4f}), the "
+          f"deepest chain (row {deep}) alone median {md:.4f} ms (spread "
+          f"{min(times['deepest']):.4f}-{max(times['deepest']):.4f}), "
+          f"alone / all {md / ma:.4f} over {args.pairs} pairs; "
+          f"{md / n_alone * 1e3:.2f} us per product on that chain alone "
+          f"({n_alone} products); its records equal bit for bit")
 
 
 def time_pairs(label: str, run_old, run_new, pairs: int, reps: int,
@@ -478,7 +606,8 @@ def time_pairs(label: str, run_old, run_new, pairs: int, reps: int,
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--old", required=True, help="the earlier checkout")
+    ap.add_argument("--old", help="the earlier checkout (not read with "
+                    "--paths or --tail)")
     ap.add_argument("--cases", nargs="+", default=["logistic", "stoch_vol"],
                     choices=CASES)
     ap.add_argument("--pairs", type=int, default=12)
@@ -486,7 +615,13 @@ def main() -> int:
     ap.add_argument("--paths", action="store_true",
                     help="time this checkout's K5 cases through every "
                          "path their shape admits instead")
+    ap.add_argument("--tail", action="store_true",
+                    help="time this checkout's K5 cases with every chain "
+                         "valid against the deepest chain alone instead")
     args = ap.parse_args()
+    alone = args.paths or args.tail
+    if not alone and not args.old:
+        ap.error("--old is needed unless --paths or --tail")
 
     import torch
 
@@ -495,7 +630,7 @@ def main() -> int:
     from inplacedhmc_tpu_torch.ops import tree
     from inplacedhmc_tpu_torch.ops.cuda_build import CudaKernel, build_all
 
-    old_dir = os.path.abspath(args.old)
+    old_dir = os.path.abspath(args.old or HERE)
 
     def old_has(source: str, word: str) -> bool:
         with open(os.path.join(old_dir, "inplacedhmc_tpu_torch", "csrc",
@@ -564,11 +699,12 @@ def main() -> int:
         new[table[p].symbol] = table[p]
     leaves = _leaf_cases(args.cases)
     new.update({attr: getattr(module, attr) for _, attr, module, _ in leaves})
-    old = {key: OldKernel(k) for key, k in new.items()}
+    old = {} if alone else {key: OldKernel(k) for key, k in new.items()}
     build_all(list(new.values()))   # one nvcc per source and checkout
     build_all(list(old.values()))
     card = cs.card_line()
-    _logistic_pairs(args.cases, old_dir, args.pairs, args.reps, card)
+    if not alone:
+        _logistic_pairs(args.cases, old_dir, args.pairs, args.reps, card)
     key = cs._key(cs.SEED + 71)
     for name, r in k5_runs:
         table, p = kernels_of(r)
@@ -580,19 +716,31 @@ def main() -> int:
             else (1.0 / torch.sqrt(minv)).contiguous()
         bf16 = r.get("bf16", False)
 
-        def run(kernel, path=None):
+        def run(kernel, path=None, valid=None):
             table[p] = kernel
             try:
                 return tree.tree_sweep(q0, e, phys, minv, cs.MAX_DEPTH,
                                        -1000.0, key=key, sqrt_mass=scale,
-                                       ckpt_bf16=bf16, path=path)
+                                       ckpt_bf16=bf16, path=path,
+                                       valid=valid)
             finally:
                 table[p] = new[sym]
 
+        if alone:
+            b = run(new[sym])
+            _time_alone(args, name, r, run, new[sym], p, dense, bf16, b,
+                        card)
+            continue
         rows = old_rows and p in tree.TILED_PHYSICS
         if rows:
             old[sym].obs = tuple(phys.data[k] for k in ("x", "y", "w"))
-        a, b = run(old[sym]), run(new[sym])
+        # an older launcher knows no cluster path: in the wide form under a
+        # dense metric, where this checkout's wrapper may ask for one, the
+        # older one runs its register path (one block a chain) on the
+        # matrices as they are, not on their panels
+        old_path = "register" if dense and q0.shape[1] > tree.WARP_DIM \
+            else None
+        a, b = run(old[sym], old_path), run(new[sym])
         if rows:
             plain = cs._first(tree.tree_sweep_plain(
                 q0, e, phys, minv, cs.MAX_DEPTH, -1000.0, key=key,
@@ -606,26 +754,14 @@ def main() -> int:
                       if not cs.bits_equal(getattr(a, f), getattr(b, f))]
             if differ:
                 raise RuntimeError(f"{name}: old and new differ in {differ}")
-        c, d = q0.shape
-        plan, blocks = tree.plan_on_card(p, d, cs.MAX_DEPTH, dense, True,
-                                         bf16)
-        steps = float(b.steps.sum())
+        plan, blocks = tree.plan_on_card(p, q0.shape[1], cs.MAX_DEPTH,
+                                         dense, True, bf16)
         n_prod = _products(p, dense, int(b.steps.max()))
-        label = (f"{name}, {c} x {d}, {'dense' if dense else 'diagonal'} "
-                 f"metric, {'bf16' if bf16 else 'f32'} stacks, eps "
-                 f"{r['eps']:.4g}, {steps:.0f} steps, longest chain "
-                 f"{int(b.steps.max())} leaves ({n_prod} products); new: "
-                 f"{plan.path}, {plan.warps} chains a block, "
-                 f"{plan.stages} stages of {plan.rows} rows "
-                 f"({plan.in_flight(d)} bytes in flight), {blocks} blocks "
-                 f"an SM")
-        if args.paths:
-            _time_paths(label, run, new[sym], p, d, dense, bf16, n_prod,
-                        b, card, args.reps)
-            continue
-        time_pairs(label, lambda: run(old[sym]), lambda: run(new[sym]),
-                   args.pairs, args.reps, card, n_prod)
-    for label, attr, module, call in leaves:
+        label = _label(name, r, b, plan, blocks, n_prod)
+        time_pairs(label, lambda: run(old[sym], old_path),
+                   lambda: run(new[sym]), args.pairs, args.reps, card,
+                   n_prod)
+    for label, attr, module, call in ([] if alone else leaves):
         def run(kernel, attr=attr, module=module, call=call):
             setattr(module, attr, kernel)
             try:
